@@ -1,0 +1,171 @@
+"""Host-facing fluid simulation API — the counterpart of
+sph_tpu.engine.fluid.FluidSimulation (single device): scene setup, stepping
+on the dense engine, pick and drag, metrics, and checkpoints in the JAX
+package's format (npz of the DenseFluidState fields plus a JSON header), so
+a checkpoint written by either package loads in the other."""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import time
+
+import numpy as np
+import torch
+
+from sph_tpu_torch.sph.dense import (
+    DenseFluidState,
+    make_dense_spec,
+    make_dense_step,
+    pack,
+    unpack,
+)
+from sph_tpu_torch.sph.model import FluidDrag, SPHParams, SPHState
+from sph_tpu_torch.utils.convert import params_from_jax, state_from_numpy
+
+
+class FluidSimulation:
+    """A running fluid simulation on the dense engine.
+
+    >>> sim = FluidSimulation.from_scene("dam_break_3d", n_target=262144,
+    ...                                  device="cuda")
+    >>> sim.run(600)
+    >>> sim.metrics()
+    """
+
+    def __init__(self, state: SPHState, params: SPHParams,
+                 substeps: int = 10, device="cpu"):
+        self.params = params
+        self.spec = make_dense_spec(
+            params, k=params.dense_k, cell_factor=params.cell_factor
+        )
+        self._start(pack(state, params, self.spec, device=device), 0,
+                    substeps)
+
+    def _start(self, dstate: DenseFluidState, step: int, substeps: int):
+        self.dstate = dstate
+        self.device = dstate.px.device
+        self.substeps = substeps
+        self._step_fn = make_dense_step(self.params, self.spec, substeps)
+        # Host mirror of dstate.step_count: the rebin cadence is decided
+        # from it, so stepping never waits for the device.
+        self._step = step
+        self._steps_per_sec = float("nan")
+        self._drag = None
+
+    @classmethod
+    def from_scene(cls, scene: str, substeps: int = 10, device="cpu",
+                   **scene_kwargs):
+        from sph_tpu_torch.sph import scenes
+
+        builder = getattr(scenes, scene)
+        state, params = builder(**scene_kwargs)
+        return cls(state, params, substeps=substeps, device=device)
+
+    # -- stepping -------------------------------------------------------------
+
+    def run(self, n_steps: int) -> float:
+        """Run ≥ n_steps (rounded up to substep blocks); returns steps/sec."""
+        blocks = max(1, -(-n_steps // self.substeps))
+        t0 = time.perf_counter()
+        for _ in range(blocks):
+            self.dstate = self._step_fn(self.dstate, self._step, self._drag)
+            self._step += self.substeps
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        n_done = blocks * self.substeps
+        dt = time.perf_counter() - t0
+        self._steps_per_sec = n_done / dt if dt > 0 else float("inf")
+        return self._steps_per_sec
+
+    # -- interaction ----------------------------------------------------------
+
+    def pick(self, ray_origin, ray_dir):
+        """Nearest fluid particle along a ray (pick radius h) — returns its
+        world position (the drag anchor) or None."""
+        p = self.particles()[0]
+        if not len(p):
+            return None
+        o = np.asarray(ray_origin, np.float32)
+        d = np.asarray(ray_dir, np.float32)
+        d = d / max(np.linalg.norm(d), 1e-12)
+        oc = p - o
+        tca = oc @ d
+        d2 = np.einsum("ij,ij->i", oc, oc) - tca * tca
+        r = self.params.h
+        hit = (tca >= 0) & (d2 <= r * r)
+        if not hit.any():
+            return None
+        t = np.where(hit, tca, np.inf)
+        return p[int(np.argmin(t))]
+
+    def set_drag(self, center, target, radius=None,
+                 strength: float = 100.0) -> None:
+        """Engage the space-anchored drag sphere (model.FluidDrag):
+        particles within `radius` (default 3h) of `center` are pulled
+        toward `target`."""
+        if radius is None:
+            radius = 3.0 * self.params.h
+        self._drag = FluidDrag.at(center, target, radius, strength,
+                                  device=self.device)
+
+    def clear_drag(self) -> None:
+        self._drag = None
+
+    # -- observability --------------------------------------------------------
+
+    def particles(self):
+        """(pos, vel, rho, prs) numpy arrays of alive particles."""
+        pos, vel, rho, prs, mask = unpack(self.dstate)
+        m = mask.cpu().numpy()
+        return tuple(a.cpu().numpy()[m] for a in (pos, vel, rho, prs))
+
+    def metrics(self) -> dict:
+        pos, vel, rho, _ = self.particles()
+        ke = float(
+            0.5 * self.params.particle_mass * np.sum(np.sum(vel ** 2, -1))
+        )
+        return {
+            "step": int(self.dstate.step_count),
+            "n_particles": int(pos.shape[0]),
+            "kinetic_energy": ke,
+            "mean_density": float(rho.mean()) if len(rho) else 0.0,
+            "max_density": float(rho.max()) if len(rho) else 0.0,
+            "max_speed": (float(np.linalg.norm(vel, axis=-1).max())
+                          if len(vel) else 0.0),
+            "dropped": int(self.dstate.dropped),
+            "clamped": int(self.dstate.clamped),
+            "steps_per_sec": self._steps_per_sec,
+        }
+
+    # -- checkpoint / resume ---------------------------------------------------
+
+    def save(self, path: str) -> None:
+        flat = {
+            f.name: getattr(self.dstate, f.name).cpu().numpy()
+            for f in dataclasses.fields(DenseFluidState)
+        }
+        header = json.dumps({
+            "params": dataclasses.asdict(self.params),
+            "substeps": self.substeps,
+        })
+        np.savez_compressed(path, __header__=header, **flat)
+
+    @classmethod
+    def load(cls, path: str, device="cpu") -> "FluidSimulation":
+        """Resume from a checkpoint written by this class or by the JAX
+        package's FluidSimulation.save."""
+        with np.load(path, allow_pickle=False) as data:
+            header = json.loads(str(data["__header__"]))
+            flat = {k: data[k] for k in data.files if k != "__header__"}
+        # Checkpoints written before the clamp diagnostic existed lack it.
+        flat.setdefault("clamped", np.int32(0))
+        sim = cls.__new__(cls)
+        sim.params = params_from_jax(header["params"])
+        sim.spec = make_dense_spec(
+            sim.params, k=sim.params.dense_k,
+            cell_factor=sim.params.cell_factor,
+        )
+        sim._start(state_from_numpy(flat, device),
+                   int(flat["step_count"]), header["substeps"])
+        return sim

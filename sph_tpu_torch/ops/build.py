@@ -1,0 +1,138 @@
+"""Build and load the CUDA kernels in `sph_tpu_torch/csrc/`.
+
+`nvcc` compiles every source into one shared library with a plain C
+interface, loaded with ctypes. The library goes to `build/sph_tpu_torch/` at
+the repository root, named by a hash of the sources and flags, and is built
+at first use; a later call in the same process reuses the loaded library.
+No `--use_fast_math`: the rebin kernel needs IEEE f32 division (nvcc's
+default `-prec-div=true`) to stay bitwise equal to its plain version.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import time
+from dataclasses import dataclass
+from pathlib import Path
+
+import torch
+
+SOURCES = ("fluid_sweep.cu", "rebin_stage.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sph_tpu_torch"
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_ARGTYPES = {
+    # px, py, pz, occ, out, n0, k, c, x, stencil0, stencil1,
+    # h2, self_init, scale, stream
+    "sph_density_sweep": [_P] * 5 + [_I] * 6 + [_F] * 3 + [_P],
+    # 9 inputs, 3 outputs, n0, k, c, x, stencil0, stencil1,
+    # h, neg_m_spiky, visc_mc, stream
+    "sph_accel_sweep": [_P] * 12 + [_I] * 6 + [_F] * 3 + [_P],
+    # in[7], out[7], dropped, n0, k, c, x, stage, axis, origin, cell,
+    # lo, hi, stream
+    "sph_rebin_stage": [ctypes.POINTER(_P)] * 2 + [_P] + [_I] * 6
+    + [_F] * 2 + [_I] * 2 + [_P],
+}
+
+
+@dataclass
+class Library:
+    """The loaded kernel library and how it was obtained."""
+
+    lib: ctypes.CDLL
+    path: Path
+    seconds: float     # wall time of the build (0 when the file existed)
+    log: str           # nvcc / ptxas output of the build ("" when reused)
+
+
+_LOADED: Library | None = None
+
+
+def source_hash() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((CSRC_DIR / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def nvcc_path() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    if CUDA_HOME is None:
+        raise RuntimeError("no CUDA toolkit found (nvcc); cannot build "
+                           "the sph_tpu_torch kernels")
+    return os.path.join(CUDA_HOME, "bin", "nvcc")
+
+
+def _compile(out: Path) -> str:
+    nvcc = nvcc_path()
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+           *(str(CSRC_DIR / s) for s in SOURCES)]
+    r = subprocess.run(cmd, capture_output=True, text=True)
+    log = r.stdout + r.stderr
+    if r.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{log}")
+    os.replace(tmp, out)   # atomic: a concurrent build never sees half a file
+    return log
+
+
+def library() -> Library:
+    """The kernel library, built on first use (raises if it cannot be)."""
+    global _LOADED
+    if _LOADED is None:
+        path = BUILD_DIR / f"libsph_tpu_torch_{source_hash()}.so"
+        built = not path.exists()
+        t0 = time.perf_counter()
+        log = _compile(path) if built else ""
+        seconds = time.perf_counter() - t0 if built else 0.0
+        lib = ctypes.CDLL(str(path))
+        for name, argtypes in _ARGTYPES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _LOADED = Library(lib=lib, path=path, seconds=seconds, log=log)
+    return _LOADED
+
+
+def check_operands(name: str, tensors, shape, device) -> None:
+    """Raise unless every tensor is a contiguous f32 CUDA tensor of `shape`
+    on `device`, small enough for the kernels' 32-bit indexing."""
+    for t in tensors:
+        if t.device != device or device.type != "cuda":
+            raise ValueError(f"{name}: expected CUDA tensors on {device}, "
+                             f"got {t.device}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: expected float32, got {t.dtype}")
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"{name}: expected shape {tuple(shape)}, "
+                             f"got {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: expected a contiguous tensor")
+        if t.numel() >= 2 ** 31:
+            raise ValueError(f"{name}: {t.numel()} elements overflow the "
+                             f"kernel's 32-bit indexing")
+
+
+def check_launch(name: str, rc: int) -> None:
+    """Raise on a nonzero cudaGetLastError() returned by a C entry point."""
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed (cudaError {rc})")
+
+
+def stream_of(device) -> int:
+    """The raw handle of PyTorch's current stream on `device`."""
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,0 +1,120 @@
+"""Kernel-vs-plain checks on the live card — the counterpart of
+sph_tpu.utils.verify.check_fluid_twins. Each check runs a hand-written
+kernel and its plain PyTorch version on the same CUDA tensors and raises
+AssertionError on disagreement.
+
+Contract: the pair sweeps (K1, K2) agree to the JAX twin tolerance,
+rtol 1e-5 and atol 1e-6·max|x|, on occupied slots (empty slots are garbage
+in the plain version); the rebin (K3) is bitwise on all 7 payload fields
+(with −0 == +0) and on `dropped`.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from sph_tpu_torch.ops.fluid import accel_sweep, density_sweep
+from sph_tpu_torch.ops.rebin import staged_rebin
+from sph_tpu_torch.sph import dense
+from sph_tpu_torch.sph.model import eos_pressure
+
+RTOL = 1e-5
+ATOL_REL = 1e-6
+
+REBIN_FIELDS = ("occ", "px", "py", "pz", "vx", "vy", "vz")
+
+
+def _close_on_occupied(name: str, plain, kern, occ) -> dict:
+    m = occ > 0.5
+    x, p = plain[m], kern[m]
+    scale = float(x.abs().max())
+    err = (x - p).abs()
+    bound = RTOL * p.abs() + ATOL_REL * scale   # np.testing.assert_allclose
+    n_bad = int((err > bound).sum())
+    max_err = float(err.max())
+    if n_bad:
+        raise AssertionError(
+            f"{name}: {n_bad} occupied slots outside rtol={RTOL} "
+            f"atol={ATOL_REL}*{scale:.4g} (max abs err {max_err:.4g})")
+    return {"max_abs_err": max_err, "atol": ATOL_REL * scale, "rtol": RTOL}
+
+
+def check_density(d, params, spec) -> dict:
+    """K1 against dense.density_raw on the state's positions."""
+    plain = dense.density_raw(d.px, d.py, d.pz, params, spec)
+    kern = density_sweep(d.px, d.py, d.pz, d.occ, params, spec)
+    return _close_on_occupied("density", plain, kern, d.occ)
+
+
+def accel_inputs(d, params, spec):
+    """The state with ρ and p from the plain density pass and a velocity
+    field that varies in space (vx = sin 3px, vy = cos 3py on occupied
+    slots, as the JAX package's check sets it), so the viscosity terms
+    matter even where the fluid is at rest."""
+    rho = dense.density_pass(d, params, spec)
+    prs = torch.where(d.occ > 0.5, eos_pressure(rho, params), 0.0)
+    return d.replace_fields(rho=rho, prs=prs,
+                            vx=torch.sin(d.px * 3) * d.occ,
+                            vy=torch.cos(d.py * 3) * d.occ)
+
+
+def check_accel(d, params, spec) -> dict:
+    """K2 against dense.accel_raw; `d` must carry consistent ρ and p."""
+    pr2 = d.prs / (d.rho * d.rho)
+    plain = dense.accel_raw(d, torch.reciprocal(d.rho), pr2, params, spec)
+    kern = accel_sweep(d, pr2, params, spec)
+    results = [_close_on_occupied(f"accel {axis}", x, p, d.occ)
+               for axis, x, p in zip("xyz", plain, kern)]
+    if results[0]["atol"] == 0.0:
+        raise AssertionError("accel check is vacuous: zero x acceleration")
+    return max(results, key=lambda r: r["max_abs_err"])
+
+
+def nudge(d, spec, params, seed: int = 0):
+    """Positions moved by a random ±0.27-cell scatter plus a pull toward
+    the domain centre clamped to 0.9 cell per axis, so destination cells
+    crowd past K and the rebin's overflow path runs (the nudge of the JAX
+    package's rebin tests)."""
+    g = torch.Generator(device=d.px.device).manual_seed(seed)
+    lim = 0.9 * spec.cell
+    delta = (torch.rand((3, *d.px.shape), generator=g, device=d.px.device)
+             * 2.0 - 1.0) * lim
+    out = []
+    for a, p in enumerate((d.px, d.py, d.pz)):
+        ctr = (params.bounds_min[a] + params.bounds_max[a]) / 2
+        pull = torch.clamp(ctr - p, -lim, lim)
+        out.append(torch.where(d.occ > 0.5, p + 0.3 * delta[a] + pull, p))
+    return out
+
+
+def check_rebin(d, params, spec, seed: int = 0) -> dict:
+    """K3 (all stages + cleanup) against dense.rebin on nudged positions:
+    bitwise on every field, equal `dropped`, and `dropped > 0`."""
+    px, py, pz = nudge(d, spec, params, seed)
+    args = (px, py, pz, d.vx, d.vy, d.vz, params, spec)
+    a = dense.rebin(d, *args)
+    b = staged_rebin(d, *args)
+    max_err = 0.0
+    for f in REBIN_FIELDS:
+        x, y = getattr(a, f), getattr(b, f)
+        n_diff = int((x != y).sum())
+        if n_diff:
+            raise AssertionError(f"rebin {f}: {n_diff} slots differ")
+        max_err = max(max_err, float((x - y).abs().max()))
+    da, db = int(a.dropped - d.dropped), int(b.dropped - d.dropped)
+    if da != db:
+        raise AssertionError(f"rebin dropped: plain {da} != kernel {db}")
+    if da <= 0:
+        raise AssertionError("rebin nudge dropped nothing: overflow path "
+                             "not exercised")
+    return {"max_abs_err": max_err, "dropped": da}
+
+
+def check_fluid_twins(d, params, spec, seed: int = 0) -> dict:
+    """All three kernels against their plain versions on state `d` (CUDA
+    tensors). Returns {kernel: result}; raises on any disagreement."""
+    return {
+        "density": check_density(d, params, spec),
+        "accel": check_accel(accel_inputs(d, params, spec), params, spec),
+        "rebin_stage": check_rebin(d, params, spec, seed),
+    }

@@ -1,0 +1,105 @@
+"""The kernel wrappers and the kernel build, on the CPU: a CPU tensor takes
+the plain PyTorch version (and counts no launch), the dense step's kernel
+flag changes nothing there, and the build refuses cleanly without a CUDA
+toolkit. The kernels themselves are checked on the card
+(tests/test_torch_cuda.py, chip_smoke.py)."""
+
+import shutil
+
+import pytest
+import torch
+
+from sph_tpu_torch.ops import LAUNCHES, build, reset_launches
+from sph_tpu_torch.ops.fluid import accel_sweep, density_sweep
+from sph_tpu_torch.ops.rebin import staged_rebin
+from sph_tpu_torch.sph import dense
+from sph_tpu_torch.sph.scenes import dam_break_2d, dam_break_3d_obstacle
+from sph_tpu_torch.utils.verify import accel_inputs, check_fluid_twins, nudge
+
+torch.set_num_threads(1)
+
+
+def small_state(scene, kw):
+    st, p = scene(**kw)
+    spec = dense.make_dense_spec(p, k=p.dense_k, cell_factor=p.cell_factor)
+    return dense.pack(st, p, spec), p, spec
+
+
+CASES = {
+    "3d": (dam_break_3d_obstacle, dict(n_target=3000, cell_factor=1.38)),
+    "2d": (dam_break_2d, dict(n_target=300, dense_k=4, cell_factor=1.2,
+                              rebin_every=3)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_wrappers_take_plain_route_on_cpu(case):
+    d, p, spec = small_state(*CASES[case])
+    reset_launches()
+    assert torch.equal(density_sweep(d.px, d.py, d.pz, d.occ, p, spec),
+                       dense.density_raw(d.px, d.py, d.pz, p, spec))
+    d2 = accel_inputs(d, p, spec)
+    pr2 = d2.prs / (d2.rho * d2.rho)
+    for a, b in zip(accel_sweep(d2, pr2, p, spec),
+                    dense.accel_raw(d2, torch.reciprocal(d2.rho), pr2, p,
+                                    spec)):
+        assert torch.equal(a, b)
+    px, py, pz = nudge(d, spec, p, seed=0)
+    a = staged_rebin(d, px, py, pz, d.vx, d.vy, d.vz, p, spec)
+    b = dense.rebin(d, px, py, pz, d.vx, d.vy, d.vz, p, spec)
+    for f in ("px", "py", "pz", "vx", "vy", "vz", "occ", "dropped"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert LAUNCHES == {"density": 0, "accel": 0, "rebin_stage": 0}
+    # The live-card check runs end to end here too (trivially equal).
+    r = check_fluid_twins(d, p, spec)
+    assert r["rebin_stage"]["dropped"] > 0
+    assert r["density"]["max_abs_err"] == 0.0
+
+
+def test_kernel_flag_is_inert_on_cpu():
+    d, p, spec = small_state(*CASES["3d"])
+    a = dense.dense_step(d, p.replace(use_pallas=True), spec, rebin_now=True)
+    b = dense.dense_step(d, p.replace(use_pallas=False), spec,
+                         rebin_now=True)
+    for f in ("px", "py", "pz", "vx", "vy", "vz", "occ", "rho", "prs",
+              "dropped", "clamped", "step_count"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+def test_operand_checks_refuse_non_cuda():
+    d, p, spec = small_state(*CASES["2d"])
+    with pytest.raises(ValueError, match="CUDA"):
+        build.check_operands("density_sweep", (d.px,), d.px.shape,
+                             d.px.device)
+    with pytest.raises(RuntimeError, match="cudaError 9"):
+        build.check_launch("density_sweep", 9)
+    build.check_launch("density_sweep", 0)
+
+
+def test_build_recipe(tmp_path, monkeypatch):
+    flags = " ".join(build.NVCC_FLAGS)
+    assert "arch=compute_90a,code=sm_90a" in flags
+    assert "fast_math" not in flags and "fmad" not in flags
+    assert build.BUILD_DIR.parts[-2:] == ("build", "sph_tpu_torch")
+    for name in build.SOURCES:
+        assert (build.CSRC_DIR / name).is_file()
+    # The library name follows the sources: an edit means a rebuild.
+    h0 = build.source_hash()
+    copy = tmp_path / "csrc"
+    shutil.copytree(build.CSRC_DIR, copy)
+    monkeypatch.setattr(build, "CSRC_DIR", copy)
+    assert build.source_hash() == h0
+    (copy / build.SOURCES[0]).write_text("// edited\n")
+    assert build.source_hash() != h0
+
+
+def test_build_without_toolkit_raises(tmp_path, monkeypatch):
+    from torch.utils import cpp_extension
+
+    monkeypatch.setattr(cpp_extension, "CUDA_HOME", None)
+    monkeypatch.setattr(build, "_LOADED", None)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc"):
+        build.library()
+    assert build._LOADED is None
+    assert not (tmp_path / "build").exists()
