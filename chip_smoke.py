@@ -4,29 +4,47 @@
 
 Phases, each printed on its own line; any failure raises (nonzero exit):
 
-1. device   — needs CUDA; prints the card's name and power limit.
-2. build    — builds the hand-written kernels from `sph_tpu_torch/csrc/`.
-3. kernels  — each kernel against its plain PyTorch version on the card,
-              at config[3] shapes (a 1,005,312-particle state stepped 30
-              steps) and at a small 2D spec: density and accel at rtol 1e-5
-              / atol 1e-6·max|x| on occupied slots, the rebin bitwise with
-              equal `dropped` > 0 under a crowding nudge.
-4. main     — config[3] through FluidSimulation (from_scene → run →
-              metrics) for 60 steps = 10 rebins, with the launch counters
-              reset just before: count conserved, dropped == 0, positions
-              finite and in bounds, every sweep and rebin stage launched
-              through the kernels. Then a small 2D scene run through the
-              kernels against the same run through the plain versions.
-5. times    — each kernel's ms against its plain version's at config[3]
-              shapes (CUDA events).
+1. device    — needs CUDA; prints the card's name and power limit.
+2. build     — builds the hand-written kernels from `sph_tpu_torch/csrc/`
+               (one nvcc per source, all at once).
+3. kernels   — the fluid kernels against their plain PyTorch versions at
+               config[3] shapes (a 1,005,312-particle state stepped 30
+               steps) and at a small 2D spec: density and accel at rtol 1e-5
+               / atol 1e-6·max|x| on occupied slots, the rebin bitwise with
+               equal `dropped` > 0 under a crowding nudge.
+4. main      — config[3] through FluidSimulation for 60 steps = 10 rebins,
+               launch counters reset just before: count conserved, dropped
+               == 0, positions finite and in bounds, every sweep and rebin
+               stage launched through the kernels. Then a small 2D scene
+               through the kernels against the plain versions.
+5. colony kernels — the 1,048,576-cell bonded colony (bench.py's largest
+               colony rung) built from scratch: the contact sweep (K4)
+               against its plain version on every slot (rtol 1e-5 / atol
+               1e-6·max|x|) on the settled colony and on a copy compressed
+               ×0.7 about its centre (contacts must occur); the pack's
+               placement (K5) bitwise at 1M and at the expand probe's scene
+               (n=400, k=4, spawn 10).
+6. colony main — 40 steps of the 1M colony through Simulation.step in
+               chunks of 20, counters reset just before: 40 contact and 40
+               expand launches, count conserved, overflow 0, bonds not
+               grown, positions finite.
+7. colony divisions — the reference scenario (tools/make_golden_trace.py
+               parameters) on the dense kernel path for 1,000 steps: the
+               population at every 50-step mark equals the golden trace's.
+8. colony phases — where the time of a 1M step goes (CUDA events per
+               phase), the host synchronisations of one step, and the
+               device's busy share under torch.profiler.
+9. times     — each kernel's ms against its plain version's (and, for the
+               placement, one PyTorch index_copy), beside its bound.
 
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.
+The line before the last is {"kernels": [...]}, preceded by the card's
+`nvidia-smi` name and power limit; the last line is {"ok": true, ...}.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -38,6 +56,14 @@ CONFIG3 = dict(n_target=1_000_000, cell_factor=1.38, dense_k=8,
                rebin_every=6)
 N_CONFIG3 = 1_005_312
 MAIN_STEPS = 60
+# bench.py's largest colony rung (`_bench_cells`, bench.py:151-157, 323).
+COLONY_N = 1_048_576
+COLONY_KW = dict(neighbor_mode="dense", grid_dim=48, grid_cell_size=4.0,
+                 cell_capacity=16, max_splits_per_step=64, dense_k=2,
+                 use_pallas=True)
+COLONY_STEPS, COLONY_CHUNK = 40, 20
+DIVISION_STEPS = 1000
+GOLDEN = "tests/golden/reference_scenario_trace.json"
 KERNELS = {
     # name: (source, TPU kernel it replaces)
     "density": ("sph_tpu_torch/csrc/fluid_sweep.cu",
@@ -46,7 +72,21 @@ KERNELS = {
               "sph_tpu/ops/pallas/fluid.py:124"),
     "rebin_stage": ("sph_tpu_torch/csrc/rebin_stage.cu",
                     "sph_tpu/ops/pallas/rebin.py:39"),
+    "contact": ("sph_tpu_torch/csrc/contact_sweep.cu",
+                "sph_tpu/ops/pallas/contact.py:64"),
+    "expand": ("sph_tpu_torch/csrc/expand_rows.cu",
+               "sph_tpu/ops/pallas/expand.py:80"),
 }
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and non-tensor f32 FLOP/s.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+# Operations per candidate pair, counted from the pair code: the poly6
+# term with its two accumulations, the pressure + viscosity term with its
+# six, the contact overlap screen, and the contact terms past the screen.
+DENSITY_PAIR_FLOPS = 14
+ACCEL_PAIR_FLOPS = 42
+CONTACT_SCREEN_FLOPS = 14
+CONTACT_PAIR_FLOPS = 110
 
 
 def say(phase: str, msg: str) -> None:
@@ -73,6 +113,68 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the f32 rate."""
+    tb, to = nbytes / HBM_BYTES_PER_S, flops / F32_FLOPS
+    return {"bound_ms": max(tb, to) * 1e3,
+            "bound_by": "bytes" if tb >= to else "operations"}
+
+
+# What the bounds count. Each output plane is written in full and the
+# occupancy plane is read in full; an empty slot's other fields are its
+# pack fill, known without a read. So a position-type field is read only
+# on the occupied slots that have an occupied partner in the stencil, and
+# the colony's velocity and spin only on slots in a contact pair.
+
+
+def fluid_pairs(d, spec) -> tuple[int, int, int]:
+    """(occupied slot pairs the Newton-halved sweep visits, each unordered
+    pair once; occupied slots with an occupied partner; occupied slots),
+    counted over the plain version's variants."""
+    from sph_tpu_torch.sph import dense
+
+    occ = d.occ > 0.5
+    near = torch.zeros_like(occ)
+    n = 0
+    for dz, dy, dxs, ms, _mirror, _dest in dense.sweep_groups(spec):
+        for dx in dxs:
+            o = dy * spec.X + dx
+            for m in ms:
+                v = (dz, m, o)
+                pair = occ & torch.roll(occ, tuple(-a for a in v), (0, 1, 2))
+                n += int(pair.sum())
+                near |= pair | torch.roll(pair, v, (0, 1, 2))
+    return n, int(near.sum()), int(occ.sum())
+
+
+def contact_work(fields, occ, params, spec) -> dict:
+    """What the contact sweep must do on a packed colony: `screens`, the
+    (slot, variant) pairs with both slots occupied; `hits`, those with a
+    positive margin, which need the full terms; `near`, occupied slots
+    with an occupied partner; `touching`, slots in a pair with a hit."""
+    from sph_tpu_torch.physics import contact_dense as cd
+
+    F = torch.stack([fields[i] for i in (0, 1, 2, 9)])
+    live = occ > 0.5
+    near = torch.zeros_like(live)
+    touching = torch.zeros_like(live)
+    screens = hits = 0
+    for dz, dy, o in cd.contact_variants(spec):
+        v = (dz, dy, o)
+        q = torch.roll(F, (-dz, -dy, -o), (1, 2, 3))
+        both = live & torch.roll(live, (-dz, -dy, -o), (0, 1, 2))
+        m = cd.contact_screen(params, F[0], F[1], F[2], F[3],
+                              q[0], q[1], q[2], q[3])
+        hit = both & (m > 0)
+        screens += int(both.sum())
+        hits += int(hit.sum())
+        near |= both
+        touching |= hit | torch.roll(hit, v, (0, 1, 2))
+    return {"occupied": int(live.sum()), "screens": screens, "hits": hits,
+            "near": int(near.sum()), "touching": int(touching.sum())}
 
 
 def check_state(sim, n_expected: int) -> dict:
@@ -118,7 +220,8 @@ def main() -> int:
     say("build", f"{time.perf_counter() - t0:.1f} s (nvcc {lib.seconds:.1f} s)"
         f" -> {lib.path.name}")
     for line in lib.log.splitlines():
-        if "registers" in line or "spill" in line:
+        if ("registers" in line or "spill" in line
+                or "Compiling entry function" in line):
             say("build", line.strip())
 
     # 3. kernels against their plain versions
@@ -147,15 +250,15 @@ def main() -> int:
     m = check_state(sim, N_CONFIG3)
     rebins = MAIN_STEPS // sim.params.rebin_every
     want = {"density": MAIN_STEPS, "accel": MAIN_STEPS,
-            "rebin_stage": 3 * rebins}
+            "rebin_stage": 3 * rebins, "contact": 0, "expand": 0}
     if launches != want:
         raise AssertionError(f"launches {launches} != {want}")
     say("main", f"config[3] {MAIN_STEPS} steps ({rebins} rebins): "
         f"{sps:.2f} steps/s, {sps * N_CONFIG3:.4g} particle-steps/s, "
         f"clamped {m['clamped']}, launches {launches}")
-    sps2 = sim.run(120)
+    sps2 = sim.run(60)
     m = check_state(sim, N_CONFIG3)
-    say("main", f"config[3] next 120 steps: {sps2:.2f} steps/s, "
+    say("main", f"config[3] next 60 steps: {sps2:.2f} steps/s, "
         f"{sps2 * N_CONFIG3:.4g} particle-steps/s, clamped {m['clamped']}, "
         f"mean density {m['mean_density']:.3f}, max speed "
         f"{m['max_speed']:.4f} | {card}")
@@ -179,43 +282,70 @@ def main() -> int:
     say("main", f"2D {len(pk)} particles, 60 steps, kernels vs plain: centroid "
         f"and spread within 5e-3, bitwise equal state: {same}")
 
-    # 5. times at config[3] shapes
+    # 5-8. The colony.
+    colony = colony_kernels(dev, card)
+    colony_launches = colony_main(colony, card)
+    colony_divisions(dev, card)
+    colony_phases(colony, card)
+
+    # 9. times, each kernel at its main path's shapes
     d, p, spec = sim.dstate, sim.params, sim.spec
     pr2 = d.prs / (d.rho * d.rho)
     irho = torch.reciprocal(d.rho)
+    plane = d.px.numel() * 4
+    n_pairs, n_near, n_occ = fluid_pairs(d, spec)
     pairs = {
+        # occupancy in, density out; 3 positions where a partner is.
         "density": (
             lambda: density_sweep(d.px, d.py, d.pz, d.occ, p, spec),
-            lambda: dense.density_raw(d.px, d.py, d.pz, p, spec)),
+            lambda: dense.density_raw(d.px, d.py, d.pz, p, spec),
+            None, bound(2 * plane + 3 * 4 * n_near,
+                        n_pairs * DENSITY_PAIR_FLOPS)),
+        # occupancy in, 3 accelerations out; positions, velocities, 1/ρ
+        # and p/ρ² where a partner is.
         "accel": (
             lambda: accel_sweep(d, pr2, p, spec),
-            lambda: dense.accel_raw(d, irho, pr2, p, spec)),
+            lambda: dense.accel_raw(d, irho, pr2, p, spec),
+            None, bound(4 * plane + 8 * 4 * n_near,
+                        n_pairs * ACCEL_PAIR_FLOPS)),
+        # occupancy in, 7 planes out; 6 payload fields of occupied slots.
         "rebin_stage": (
             lambda: staged_rebin(d, d.px, d.py, d.pz, d.vx, d.vy, d.vz,
                                  p, spec),
             lambda: dense.rebin(d, d.px, d.py, d.pz, d.vx, d.vy, d.vz,
-                                p, spec)),
+                                p, spec),
+            None, bound(8 * plane + 6 * 4 * n_occ, 0)),
+        **colony_time_pairs(colony),
     }
+    say("times", f"config[3] {list(d.px.shape)}: {n_pairs} occupied slot "
+        f"pairs in the halved stencil, {n_near} of {n_occ} occupied slots "
+        f"with an occupied partner")
+    launches.update(colony_launches)
+    checks.update(colony["checks"])
     rows = []
-    for name, (kern, plain) in pairs.items():
+    for name, (kern, plain, library_call, bnd) in pairs.items():
         # Turns plain, kernel, kernel, plain on one card.
         p1 = cuda_ms(plain, 3)
         k1 = cuda_ms(kern, 20)
         k2 = cuda_ms(kern, 20)
         p2 = cuda_ms(plain, 3)
         ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        lib_ms = (None if library_call is None
+                  else cuda_ms(library_call, 20))
         say("times", f"{name}: kernel {ms:.4f} ms ({k1:.4f}, {k2:.4f}), "
-            f"plain {plain_ms:.4f} ms ({p1:.4f}, {p2:.4f}) at "
-            f"{list(d.px.shape)} | {card}")
+            f"plain {plain_ms:.4f} ms ({p1:.4f}, {p2:.4f}), library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, bound "
+            f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} | {card}")
         src, replaces = KERNELS[name]
         rows.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces, "launches": launches[name],
             "max_abs_err": checks[name]["max_abs_err"],
-            "ms": ms, "plain_ms": plain_ms,
+            "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": lib_ms,
         })
     say("times", "rebin_stage times are one whole rebin: 3 stage launches "
-        "+ the sentinel cleanup, against the plain rebin")
+        "+ the sentinel cleanup, against the plain rebin; contact and "
+        "expand at the 1M colony after its main run")
 
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -223,6 +353,283 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+# -- the colony -------------------------------------------------------------
+
+
+def colony_kernels(dev, card) -> dict:
+    """Phase 5: build the 1M colony, hold K4 and K5 to their plain
+    versions on it (settled and compressed) and K5 at the probe scene."""
+    from sph_tpu_torch.core.types import SimParams, SimState
+    from sph_tpu_torch.engine.colony import bonded_colony
+    from sph_tpu_torch.physics.contact_dense import make_contact_spec
+    from sph_tpu_torch.utils.verify import (
+        check_contact,
+        check_expand,
+        compressed,
+    )
+
+    t0 = time.perf_counter()
+    state, params, genome = bonded_colony(COLONY_N, device=dev, **COLONY_KW)
+    spec = make_contact_spec(params, k=params.dense_k,
+                             cell_factor=params.dense_cell_factor)
+    n_bonds = int(state.bonds.active.sum())
+    say("colony kernels", f"{COLONY_N} cells, {n_bonds} bonds (capacity "
+        f"{params.max_bonds}), layout {list(spec.shape())} ({spec.slots} "
+        f"slots), built in {time.perf_counter() - t0:.1f} s")
+    contact = check_contact(state, params, spec)
+    say("colony kernels", f"contact, settled: {json.dumps(contact)}")
+    squeezed = compressed(state, 0.7)
+    contact_c = check_contact(squeezed, params, spec)
+    say("colony kernels", f"contact, compressed x0.7: "
+        f"{json.dumps(contact_c)}")
+    if contact_c["contact_slots"] == 0:
+        raise AssertionError("compressed colony has no contact: the pair "
+                             "math was not exercised")
+    expand = check_expand(state, spec)
+    say("colony kernels", f"expand at 1M: {json.dumps(expand)}")
+    # The expand probe's scene (tools/repro_expand.py): 400 cells in a
+    # radius-9 ball, k = 4, spawn radius 10, drawn with numpy (seed 3).
+    rng = np.random.default_rng(3)
+    u = rng.normal(size=(400, 3))
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    r = 9.0 * rng.uniform(size=(400, 1)) ** (1 / 3)
+    p6 = SimParams(capacity=400, spawn_radius=10.0, neighbor_mode="dense",
+                   dense_k=4)
+    f32 = dict(dtype=torch.float32, device=dev)
+    s6 = SimState.zeros(400, p6, device=dev).replace_fields(
+        pos=torch.tensor(u * r, **f32),
+        vel=torch.tensor(rng.normal(size=(400, 3)) * 0.5, **f32),
+        ang_vel=torch.tensor(rng.normal(size=(400, 3)) * 0.5, **f32),
+        radius=torch.full((400,), 2.0, **f32),
+        active_count=torch.tensor(400, dtype=torch.int32, device=dev))
+    spec6 = make_contact_spec(p6, k=4, cell_factor=p6.dense_cell_factor)
+    expand6 = check_expand(s6, spec6)
+    say("colony kernels", f"expand at the probe scene {list(spec6.shape())}:"
+        f" {json.dumps(expand6)} | {card}")
+    return {"state": state, "params": params, "genome": genome,
+            "spec": spec, "bonds": n_bonds,
+            "checks": {"contact": contact_c if contact_c["max_abs_err"]
+                       > contact["max_abs_err"] else contact,
+                       "expand": expand}}
+
+
+def colony_main(colony, card) -> dict:
+    """Phase 6: 40 steps of the 1M colony through Simulation.step in
+    chunks of 20, launch counters reset just before."""
+    from sph_tpu_torch.engine.simulation import Simulation
+    from sph_tpu_torch.ops import LAUNCHES, reset_launches
+
+    sim = Simulation(colony["genome"], colony["params"],
+                     device=colony["state"].device)
+    sim.state = colony["state"]
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(COLONY_STEPS // COLONY_CHUNK):
+        sim.step(COLONY_CHUNK)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    m = sim.metrics()
+    want = {"density": 0, "accel": 0, "rebin_stage": 0,
+            "contact": COLONY_STEPS, "expand": COLONY_STEPS}
+    if launches != want:
+        raise AssertionError(f"colony launches {launches} != {want}")
+    if m["active_particles"] != COLONY_N:
+        raise AssertionError(f"colony count {m['active_particles']}")
+    if m["overflow"] != 0:
+        raise AssertionError(f"colony overflow {m['overflow']}")
+    if m["bond_count"] > colony["bonds"]:
+        raise AssertionError(f"bonds grew: {m['bond_count']} > "
+                             f"{colony['bonds']}")
+    if not bool(torch.isfinite(sim.state.pos).all()):
+        raise AssertionError("non-finite colony positions")
+    sps = COLONY_STEPS / elapsed
+    say("colony main", f"{COLONY_N} cells, {COLONY_STEPS} steps in chunks "
+        f"of {COLONY_CHUNK}: {sps:.2f} steps/s, {sps * COLONY_N:.4g} "
+        f"cell-steps/s, bonds {colony['bonds']} -> {m['bond_count']}, "
+        f"overflow {m['overflow']}, max speed {m['max_speed']:.4f}, "
+        f"launches {launches} | {card}")
+    colony["sim"] = sim
+    return {"contact": launches["contact"], "expand": launches["expand"]}
+
+
+def colony_divisions(dev, card) -> None:
+    """Phase 7: the reference scenario on the dense kernel path; the
+    population schedule depends only on the division timers, so it must
+    follow the golden trace exactly."""
+    from sph_tpu_torch.engine.config import (
+        reference_genome,
+        reference_scene_params,
+    )
+    from sph_tpu_torch.engine.simulation import Simulation
+    from sph_tpu_torch.ops import LAUNCHES, reset_launches
+
+    golden = {g["step"]: g["n"] for g in json.load(open(GOLDEN))}
+    p = reference_scene_params(capacity=512).replace(
+        dt=1 / 60, max_splits_per_step=256, max_bonds=2048,
+        neighbor_mode="dense", use_pallas=True)
+    sim = Simulation(reference_genome(), p, seed=0, device=dev)
+    reset_launches()
+    t0 = time.perf_counter()
+    seen = []
+    for _ in range(DIVISION_STEPS // 50):
+        sim.step(50)
+        m = sim.metrics()
+        if m["active_particles"] != golden[m["step"]]:
+            raise AssertionError(
+                f"step {m['step']}: population {m['active_particles']} != "
+                f"golden {golden[m['step']]}")
+        seen.append(m["active_particles"])
+    elapsed = time.perf_counter() - t0
+    if LAUNCHES["contact"] != DIVISION_STEPS:
+        raise AssertionError(f"division run launches {dict(LAUNCHES)}")
+    if not bool(torch.isfinite(sim.state.pos).all()):
+        raise AssertionError("non-finite positions in the division run")
+    say("colony divisions", f"{DIVISION_STEPS} steps, population at each "
+        f"50-step mark {seen} = golden; bonds {m['bond_count']}, overflow "
+        f"{m['overflow']}; {DIVISION_STEPS / elapsed:.1f} steps/s | {card}")
+
+
+def colony_phases(colony, card) -> None:
+    """Phase 8: CUDA-event times of each phase of a 1M step, the host
+    synchronisations of one step, and the profiler's busy share."""
+    import warnings
+
+    from sph_tpu_torch.biology import bonds, division
+    from sph_tpu_torch.engine.step import step
+    from sph_tpu_torch.ops.contact import contact_sweep
+    from sph_tpu_torch.ops.expand import expand_rows
+    from sph_tpu_torch.physics import contact_dense as cd
+    from sph_tpu_torch.physics import adhesion as adh
+    from sph_tpu_torch.physics.adhesion import apply_adhesion
+    from sph_tpu_torch.physics.contact import apply_contact
+    from sph_tpu_torch.physics.drag import apply_drag_force
+    from sph_tpu_torch.physics.integrate import update_motion, update_rotation
+
+    sim = colony["sim"]
+    st, p, g, spec = sim.state, sim.params, sim.genome_dev, colony["spec"]
+    rows, flat, fits, ovr, slot_of = cd._sort_with_payload(st, spec)
+    packed = expand_rows(rows, flat, fits, cd.PACK_FILLS, spec)
+    fields = [packed[c].view(spec.shape()) for c in range(10)]
+    occ = packed[10].view(spec.shape())
+    comps = contact_sweep(fields, occ, p, spec)
+    f, t, _ = cd.gather_back([c.reshape(-1) for c in comps], slot_of, ovr)
+    adh_args, adh_segs = adh.bond_inputs(st, p, g)
+    adh_deltas = adh.bond_pair_deltas(*adh_args)
+    phases = {
+        "pack sort (cell ids, stable sort, row gather, ranks)":
+            lambda: cd._sort_with_payload(st, spec),
+        "K5 expand": lambda: expand_rows(rows, flat, fits, cd.PACK_FILLS,
+                                         spec),
+        "K4 contact sweep": lambda: contact_sweep(fields, occ, p, spec),
+        "gather back": lambda: cd.gather_back(
+            [c.reshape(-1) for c in comps], slot_of, ovr),
+        "apply contact": lambda: apply_contact(st, p, f, t),
+        "adhesion (gathers, pair math, sorted segment sum)":
+            lambda: apply_adhesion(st, p, g),
+        "- of which the pair math (bond_pair_deltas)":
+            lambda: adh.bond_pair_deltas(*adh_args),
+        "- of which the sorted segment sum": lambda: adh.accumulate_bond_deltas(
+            *adh_deltas, *adh_segs, st.capacity),
+        "drag + motion + rotation": lambda: update_rotation(
+            update_motion(apply_drag_force(st, p), p), p),
+        "division + bond upkeep (gates)": lambda: bonds.filter_bonds(
+            st.replace_fields(bonds=bonds.update_bond_zones(
+                division.queue_splits(division.process_pending_splits(
+                    st, p, g), p, g), p, g))),
+    }
+    total = 0.0
+    for name, fn in phases.items():
+        ms = cuda_ms(fn, 5)
+        total += 0.0 if name.startswith("-") else ms
+        say("colony phases", f"{name}: {ms:.4f} ms")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        st = step(st, p, g)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) / 5 * 1e3
+    say("colony phases", f"sum of phases {total:.4f} ms; one step (host "
+        f"clock, 5 steps) {step_ms:.4f} ms | {card}")
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            st = step(st, p, g)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    syncs = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+             if "synchroniz" in str(w.message)]
+    say("colony phases", f"host synchronisations in one quiet step: "
+        f"{len(syncs)} at {syncs}")
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            st = step(st, p, g)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = 0.0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) is not None and \
+                "CUDA" in str(e.device_type):
+            busy_us += float(getattr(e, "self_device_time_total", 0.0) or
+                             getattr(e, "self_cuda_time_total", 0.0))
+    if busy_us > 0:
+        say("colony phases", f"profiled 5 steps: wall {wall * 1e3:.3f} ms, "
+            f"device busy {busy_us / 1e3:.3f} ms, busy share "
+            f"{busy_us / 1e3 / (wall * 1e3):.3f} | {card}")
+    else:
+        say("colony phases", "profiler reported no device time: busy "
+            "share not measured")
+
+
+def colony_time_pairs(colony) -> dict:
+    """(kernel, plain, library call, bound) of K4 and K5 at the 1M colony
+    after its main run."""
+    from sph_tpu_torch.ops.contact import contact_sweep
+    from sph_tpu_torch.ops.expand import expand_rows
+    from sph_tpu_torch.physics import contact_dense as cd
+
+    st, p, spec = colony["sim"].state, colony["sim"].params, colony["spec"]
+    rows, flat, fits, _, _ = cd._sort_with_payload(st, spec)
+    packed = expand_rows(rows, flat, fits, cd.PACK_FILLS, spec)
+    fields = [packed[c].view(spec.shape()) for c in range(10)]
+    occ = packed[10].view(spec.shape())
+    w = contact_work(fields, occ, p, spec)
+    say("times", f"colony {list(spec.shape())}: {json.dumps(w)}")
+    plane = spec.slots * 4
+    base = torch.tensor(cd.PACK_FILLS, dtype=torch.float32,
+                        device=rows.device)[:, None].expand(
+                            11, spec.slots + 1).contiguous()
+    idx = flat.long()
+    src = rows.t()
+    n = rows.shape[0]
+    return {
+        "contact": (
+            lambda: contact_sweep(fields, occ, p, spec),
+            lambda: cd._sweep_plain(
+                fields, lambda *a: cd.contact_pair_terms(p, *a), 6, spec),
+            None,
+            # occupancy in, 6 components out; position and radius where a
+            # partner is, velocity and spin where a pair touches.
+            bound(7 * plane + 4 * 4 * w["near"] + 6 * 4 * w["touching"],
+                  w["screens"] * CONTACT_SCREEN_FLOPS
+                  + w["hits"] * CONTACT_PAIR_FLOPS)),
+        "expand": (
+            lambda: expand_rows(rows, flat, fits, cd.PACK_FILLS, spec),
+            lambda: cd._scatter_sorted(rows.unbind(1), cd.PACK_FILLS, flat,
+                                       fits, spec),
+            lambda: torch.index_copy(base, 1, idx, src),
+            # targets in, the rows that fit in, 11 planes out.
+            bound(n * 4 + int(fits.sum()) * 11 * 4 + 11 * plane, 0)),
+    }
 
 
 if __name__ == "__main__":

@@ -34,7 +34,7 @@ class FluidSimulation:
     """
 
     def __init__(self, state: SPHState, params: SPHParams,
-                 substeps: int = 10, device="cpu"):
+                 substeps: int = 10, device="cuda"):
         self.params = params
         self.spec = make_dense_spec(
             params, k=params.dense_k, cell_factor=params.cell_factor
@@ -54,7 +54,7 @@ class FluidSimulation:
         self._drag = None
 
     @classmethod
-    def from_scene(cls, scene: str, substeps: int = 10, device="cpu",
+    def from_scene(cls, scene: str, substeps: int = 10, device="cuda",
                    **scene_kwargs):
         from sph_tpu_torch.sph import scenes
 
@@ -152,7 +152,7 @@ class FluidSimulation:
         np.savez_compressed(path, __header__=header, **flat)
 
     @classmethod
-    def load(cls, path: str, device="cpu") -> "FluidSimulation":
+    def load(cls, path: str, device="cuda") -> "FluidSimulation":
         """Resume from a checkpoint written by this class or by the JAX
         package's FluidSimulation.save."""
         with np.load(path, allow_pickle=False) as data:

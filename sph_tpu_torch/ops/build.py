@@ -1,11 +1,13 @@
 """Build and load the CUDA kernels in `sph_tpu_torch/csrc/`.
 
-`nvcc` compiles every source into one shared library with a plain C
-interface, loaded with ctypes. The library goes to `build/sph_tpu_torch/` at
+`nvcc` compiles every source (one process per source, all at once) and
+links them into one shared library with a plain C interface, loaded with
+ctypes. The library goes to `build/sph_tpu_torch/` at
 the repository root, named by a hash of the sources and flags, and is built
 at first use; a later call in the same process reuses the loaded library.
 No `--use_fast_math`: the rebin kernel needs IEEE f32 division (nvcc's
-default `-prec-div=true`) to stay bitwise equal to its plain version.
+default `-prec-div=true`) and the sweeps IEEE square roots to stay bitwise
+equal to their plain versions.
 """
 
 from __future__ import annotations
@@ -20,10 +22,11 @@ from pathlib import Path
 
 import torch
 
-SOURCES = ("fluid_sweep.cu", "rebin_stage.cu")
+SOURCES = ("fluid_sweep.cu", "rebin_stage.cu", "contact_sweep.cu",
+           "expand_rows.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sph_tpu_torch"
@@ -42,6 +45,12 @@ _ARGTYPES = {
     # lo, hi, stream
     "sph_rebin_stage": [ctypes.POINTER(_P)] * 2 + [_P] + [_I] * 6
     + [_F] * 2 + [_I] * 2 + [_P],
+    # fields[10], occ, outs[6], Z, Y, L, K, eps, slip_eps, repulsion,
+    # torque_factor, mult, stream
+    "sph_contact_sweep": [ctypes.POINTER(_P), _P, ctypes.POINTER(_P)]
+    + [_I] * 4 + [_F] * 5 + [_P],
+    # rows, flat, out, n, ncol, slots, fills (host), stream
+    "sph_expand_rows": [_P] * 3 + [_I] * 3 + [ctypes.POINTER(_F), _P],
 }
 
 
@@ -76,17 +85,35 @@ def nvcc_path() -> str:
 
 
 def _compile(out: Path) -> str:
+    """One nvcc per source, all started together, then one link."""
     nvcc = nvcc_path()
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC_DIR / s) for s in SOURCES)]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    log = r.stdout + r.stderr
-    if r.returncode != 0:
+    tag = f"{out.stem}.{os.getpid()}"
+    objs = [out.with_name(f"{tag}.{Path(src).stem}.o") for src in SOURCES]
+    procs = [
+        subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", str(CSRC_DIR / src),
+                          "-o", str(obj)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for src, obj in zip(SOURCES, objs)
+    ]
+    logs = [p.communicate()[0] for p in procs]
+    log = "".join(logs)
+    tmp = out.with_name(f"{tag}.tmp")
+    try:
+        if any(p.returncode != 0 for p in procs):
+            raise RuntimeError(f"nvcc failed:\n{log}")
+        r = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                            *(str(o) for o in objs)],
+                           capture_output=True, text=True)
+        log += r.stdout + r.stderr
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n{log}")
+        os.replace(tmp, out)  # atomic: a concurrent build never sees half
+    finally:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{log}")
-    os.replace(tmp, out)   # atomic: a concurrent build never sees half a file
+        for o in objs:
+            o.unlink(missing_ok=True)
     return log
 
 

@@ -140,7 +140,7 @@ class DenseFluidState:
 
 
 def pack(state: SPHState, params: SPHParams, spec: DenseSpec,
-         device="cpu") -> DenseFluidState:
+         device="cuda") -> DenseFluidState:
     """Host-side packing of a flat particle state into the dense layout
     (numpy, identical to the JAX package's), moved to `device`."""
     pos = torch.as_tensor(state.pos).cpu().numpy()

@@ -94,7 +94,7 @@ class FluidDrag:
 
     @staticmethod
     def at(center, target, radius, strength=100.0,
-           device="cpu") -> "FluidDrag":
+           device="cuda") -> "FluidDrag":
         f32 = dict(dtype=torch.float32, device=device)
         return FluidDrag(
             center=torch.as_tensor(center, **f32),

@@ -1,6 +1,7 @@
 """Carrying state across from the JAX package: its SPHParams (as the dict
 `dataclasses.asdict` gives, or a checkpoint header's JSON of it) and the
-fields of its DenseFluidState (as numpy arrays)."""
+fields of its DenseFluidState (as numpy arrays); for the colony its
+SimParams, its genome JSON and its SimState (the `state_to_numpy` dict)."""
 
 from __future__ import annotations
 
@@ -9,6 +10,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from sph_tpu_torch.core.types import Genome, SimParams, SimState
+from sph_tpu_torch.core.types import state_from_numpy as sim_state_from_numpy
+from sph_tpu_torch.engine.config import genome_from_json
 from sph_tpu_torch.sph.dense import DenseFluidState
 from sph_tpu_torch.sph.model import SPHParams
 
@@ -32,7 +36,7 @@ def params_from_jax(p: dict) -> SPHParams:
     return SPHParams(**{k: _tuples(v) for k, v in p.items()})
 
 
-def state_from_numpy(arrays: dict, device="cpu") -> DenseFluidState:
+def state_from_numpy(arrays: dict, device="cuda") -> DenseFluidState:
     """DenseFluidState on `device` from numpy arrays of every field: f32
     [Z, K, C] component arrays and int32 scalar counters (copied, so the
     state never aliases the caller's buffers)."""
@@ -42,3 +46,25 @@ def state_from_numpy(arrays: dict, device="cpu") -> DenseFluidState:
         dtype = torch.int32 if f.name in _COUNTERS else torch.float32
         out[f.name] = torch.from_numpy(a).to(device=device, dtype=dtype)
     return DenseFluidState(**out)
+
+
+# -- the colony -------------------------------------------------------------
+
+
+def sim_params_from_jax(p: dict) -> SimParams:
+    """SimParams from `dataclasses.asdict` of a JAX SimParams (or the
+    "params" object of its scene JSON)."""
+    names = {f.name for f in dataclasses.fields(SimParams)}
+    unknown = set(p) - names
+    if unknown:
+        raise ValueError(f"unknown SimParams fields: {sorted(unknown)}")
+    return SimParams(**p)
+
+
+def colony_from_jax(flat: dict, params: dict, genome_json: str,
+                    device="cuda") -> tuple[SimState, SimParams, Genome]:
+    """A JAX colony carried across: the flat `state_to_numpy` dict (copied
+    bitwise, dtypes kept: f32 fields, int32 ids/slots/counters, the PRNG
+    key's two uint32 words), its params dict and its genome JSON."""
+    return (sim_state_from_numpy(flat, device), sim_params_from_jax(params),
+            genome_from_json(genome_json))

@@ -6,15 +6,22 @@ AssertionError on disagreement.
 Contract: the pair sweeps (K1, K2) agree to the JAX twin tolerance,
 rtol 1e-5 and atol 1e-6·max|x|, on occupied slots (empty slots are garbage
 in the plain version); the rebin (K3) is bitwise on all 7 payload fields
-(with −0 == +0) and on `dropped`.
+(with −0 == +0) and on `dropped`. The colony contact sweep (K4) agrees to
+the twin tolerance on EVERY slot of its 6 components, for finite fields
+(csrc/contact_sweep.cu states what its skip hides from non-finite ones);
+the contact pack's placement (K5) is bitwise on all 11 planes, −0
+included.
 """
 
 from __future__ import annotations
 
 import torch
 
+from sph_tpu_torch.ops.contact import contact_sweep
+from sph_tpu_torch.ops.expand import expand_rows
 from sph_tpu_torch.ops.fluid import accel_sweep, density_sweep
 from sph_tpu_torch.ops.rebin import staged_rebin
+from sph_tpu_torch.physics import contact_dense as cd
 from sph_tpu_torch.sph import dense
 from sph_tpu_torch.sph.model import eos_pressure
 
@@ -118,3 +125,66 @@ def check_fluid_twins(d, params, spec, seed: int = 0) -> dict:
         "accel": check_accel(accel_inputs(d, params, spec), params, spec),
         "rebin_stage": check_rebin(d, params, spec, seed),
     }
+
+
+# -- the colony contact path (K4, K5) --------------------------------------
+
+
+def _close_everywhere(name: str, plain, kern) -> dict:
+    scale = float(plain.abs().max())
+    err = (plain - kern).abs()
+    bound = RTOL * kern.abs() + ATOL_REL * scale
+    n_bad = int((err > bound).sum())
+    max_err = float(err.max())
+    if n_bad:
+        raise AssertionError(
+            f"{name}: {n_bad} slots outside rtol={RTOL} "
+            f"atol={ATOL_REL}*{scale:.4g} (max abs err {max_err:.4g})")
+    return {"max_abs_err": max_err, "atol": ATOL_REL * scale, "rtol": RTOL,
+            "bitwise": bool(torch.equal(plain.view(torch.int32),
+                                        kern.view(torch.int32)))}
+
+
+def check_contact(state, params, spec) -> dict:
+    """K4 against the plain sweep on the state's packed fields, every slot
+    of all 6 components; also counts the slots with a nonzero force
+    (`contact_slots`)."""
+    fields, occ, _, _ = cd._pack_args(state, spec)
+    plain = cd._sweep_plain(
+        fields, lambda *a: cd.contact_pair_terms(params, *a), 6, spec)
+    kern = contact_sweep(fields, occ, params, spec)
+    results = [_close_everywhere(f"contact {c}", a, b)
+               for c, a, b in zip(("fx", "fy", "fz", "tx", "ty", "tz"),
+                                  plain, kern)]
+    out = max(results, key=lambda r: r["max_abs_err"])
+    out["bitwise"] = all(r["bitwise"] for r in results)
+    force = torch.stack(plain[:3])
+    out["contact_slots"] = int((force != 0).any(dim=0).sum())
+    return out
+
+
+def check_expand(state, spec) -> dict:
+    """K5 against the plain `_scatter_sorted` on the state's pack sort:
+    bitwise on all 11 planes (compared as int32 bits, so −0 ≠ +0)."""
+    rows, flat, fits, overflow, _ = cd._sort_with_payload(state, spec)
+    kern = expand_rows(rows, flat, fits, cd.PACK_FILLS, spec)
+    plain = cd._scatter_sorted(rows.unbind(1), cd.PACK_FILLS, flat, fits,
+                               spec)
+    n_diff = 0
+    for c, p in enumerate(plain):
+        n_diff += int((kern[c].view(torch.int32)
+                       != p.reshape(-1).view(torch.int32)).sum())
+    if n_diff:
+        raise AssertionError(f"expand: {n_diff} slots differ in their bits")
+    return {"max_abs_err": 0.0, "rows": int(fits.sum()),
+            "overflow": int(overflow)}
+
+
+def compressed(state, factor: float):
+    """The state with live positions scaled by `factor` about their
+    centroid, so neighbours move inside the contact reach."""
+    n = int(state.active_count)
+    pos = state.pos.clone()
+    c = pos[:n].mean(dim=0)
+    pos[:n] = c + (pos[:n] - c) * factor
+    return state.replace_fields(pos=pos)

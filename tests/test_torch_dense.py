@@ -47,7 +47,7 @@ class Twin:
         self.jspec = jdense.make_dense_spec(self.jp, k=k, cell_factor=cf)
         self.tspec = tdense.make_dense_spec(self.tp, k=k, cell_factor=cf)
         self.jd = jdense.pack(st_j, self.jp, self.jspec)
-        self.td = tdense.pack(st_t, self.tp, self.tspec)
+        self.td = tdense.pack(st_t, self.tp, self.tspec, device="cpu")
         self.occ = np.asarray(self.jd.occ) > 0.5
 
     def with_fields(self, **arrays):
@@ -149,7 +149,8 @@ def test_integrate_with_obstacle_and_drag():
     centre = np.asarray(tw.td.px).reshape(-1)[tw.occ.reshape(-1)][0]
     ctr = (float(centre), 0.2, 0.3)
     drag_j = jmodel.FluidDrag.at(ctr, (0.5, 0.5, 0.5), 0.15, 3000.0)
-    drag_t = tmodel.FluidDrag.at(ctr, (0.5, 0.5, 0.5), 0.15, 3000.0)
+    drag_t = tmodel.FluidDrag.at(ctr, (0.5, 0.5, 0.5), 0.15, 3000.0,
+                                 device="cpu")
     vmax = jdense.rebin_vmax(tw.jp, tw.jspec)
     assert vmax == tdense.rebin_vmax(tw.tp, tw.tspec)
     out_j = jdense._integrate(jd, *map(jnp.asarray, acc), tw.jp, vmax,

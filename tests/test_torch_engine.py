@@ -53,7 +53,7 @@ def assert_same_flow(jax_sim, sim):
 
 def test_slice_matches_jax_60_steps():
     sim = FluidSimulation.from_scene("dam_break_2d", substeps=20,
-                                     **SCENE_2D)
+                                     device="cpu", **SCENE_2D)
     jsim = JaxFluidSimulation.from_scene("dam_break_2d", substeps=20,
                                          **SCENE_2D)
     # The obstacle pushes at the start: some particle sits in its layer.
@@ -77,7 +77,7 @@ def test_jax_checkpoint_carries_across(tmp_path):
     path = str(tmp_path / "jax.npz")
     jsim.save(path)
 
-    sim = FluidSimulation.load(path)
+    sim = FluidSimulation.load(path, device="cpu")
     assert dataclasses.asdict(sim.params) == dataclasses.asdict(jsim.params)
     assert sim.params.obstacles == CYL            # nested tuples restored
     assert sim.substeps == 5
@@ -99,18 +99,19 @@ def test_convert_helpers():
         params_from_jax({**dataclasses.asdict(jsim.params), "mesh": 1})
     arrays = {f.name: np.asarray(getattr(jsim.dstate, f.name))
               for f in dataclasses.fields(DenseFluidState)}
-    d = state_from_numpy(arrays)
+    d = state_from_numpy(arrays, device="cpu")
     assert d.px.dtype == torch.float32 and d.dropped.dtype == torch.int32
     assert d.step_count.shape == ()
     np.testing.assert_array_equal(d.occ.numpy(), arrays["occ"])
 
 
 def test_checkpoint_roundtrip_bitwise(tmp_path):
-    sim = FluidSimulation.from_scene("dam_break_2d", substeps=6, **SCENE_2D)
+    sim = FluidSimulation.from_scene("dam_break_2d", substeps=6,
+                                     device="cpu", **SCENE_2D)
     sim.run(12)
     path = str(tmp_path / "port.npz")
     sim.save(path)
-    sim2 = FluidSimulation.load(path)
+    sim2 = FluidSimulation.load(path, device="cpu")
     for f in dataclasses.fields(DenseFluidState):
         assert torch.equal(getattr(sim.dstate, f.name),
                            getattr(sim2.dstate, f.name)), f.name
@@ -124,7 +125,7 @@ def test_checkpoint_roundtrip_bitwise(tmp_path):
 
 def test_pick_drag_and_metrics(tmp_path):
     sim = FluidSimulation.from_scene("dam_break_3d", n_target=400,
-                                     substeps=5)
+                                     substeps=5, device="cpu")
     sim.run(5)
     pos0 = sim.particles()[0]
     anchor = pos0[len(pos0) // 2]
@@ -134,7 +135,7 @@ def test_pick_drag_and_metrics(tmp_path):
 
     path = str(tmp_path / "before_drag.npz")
     sim.save(path)
-    baseline = FluidSimulation.load(path)
+    baseline = FluidSimulation.load(path, device="cpu")
     target = anchor + np.array([0.0, 0.3, 0.0], np.float32)
     sim.set_drag(anchor, target, strength=5000.0)
     sim.run(30)
@@ -167,9 +168,14 @@ def test_port_imports_no_jax():
                 root = name.split(".")[0]
                 assert root not in ("jax", "jaxlib", "sph_tpu"), (
                     f"{path.relative_to(PKG.parent)} imports {name}")
-    code = ("import sys, sph_tpu_torch.engine.fluid, sph_tpu_torch.ops.fluid,"
-            " sph_tpu_torch.ops.rebin, sph_tpu_torch.utils.verify;"
-            " assert 'jax' not in sys.modules, 'jax imported'")
+    modules = sorted(
+        ".".join(path.relative_to(PKG.parent).with_suffix("").parts)
+        for path in PKG.rglob("*.py") if path.name != "__init__.py")
+    assert "sph_tpu_torch.engine.simulation" in modules
+    code = (f"import sys; import {', '.join(modules)};"
+            " assert 'jax' not in sys.modules, 'jax imported';"
+            " assert not any(m == 'sph_tpu' or m.startswith('sph_tpu.')"
+            " for m in sys.modules), 'sph_tpu imported'")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, cwd=PKG.parent, timeout=120)
     assert r.returncode == 0, r.stderr[-2000:]

@@ -143,7 +143,7 @@ def test_spec_pack_unpack_bitwise(scene, kw):
     spec_j = jdense.make_dense_spec(p_j, k=p_j.dense_k,
                                     cell_factor=p_j.cell_factor)
     assert dataclasses.asdict(spec_t) == dataclasses.asdict(spec_j)
-    d_t = tdense.pack(st_t, p_t, spec_t)
+    d_t = tdense.pack(st_t, p_t, spec_t, device="cpu")
     d_j = jdense.pack(st_j, p_j, spec_j)
     for f in dataclasses.fields(d_t):
         a, b = getattr(d_t, f.name).numpy(), np.asarray(getattr(d_j, f.name))
@@ -157,4 +157,4 @@ def test_pack_overflow_raises():
     st, p = tscenes.dam_break_3d(n_target=3000, dense_k=2, cell_factor=1.2)
     spec = tdense.make_dense_spec(p, k=2, cell_factor=1.2)
     with pytest.raises(ValueError, match="pack overflow"):
-        tdense.pack(st, p, spec)
+        tdense.pack(st, p, spec, device="cpu")
