@@ -9,32 +9,37 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
                (one nvcc per source, all at once).
 3. kernels   — the fluid kernels against their plain PyTorch versions at
                config[3] shapes (a 1,005,312-particle state stepped 30
-               steps) and at a small 2D spec: density and accel at rtol 1e-5
-               / atol 1e-6·max|x| on occupied slots, the rebin bitwise with
-               equal `dropped` > 0 under a crowding nudge.
+               steps) and at a small 2D spec: density and accel bitwise on
+               occupied slots and +0 on empty ones (and within rtol 1e-5 /
+               atol 1e-6·max|x|), with their band plans; the rebin bitwise
+               with equal `dropped` > 0 under a crowding nudge.
 4. main      — config[3] through FluidSimulation for 60 steps = 10 rebins,
                launch counters reset just before: count conserved, dropped
                == 0, positions finite and in bounds, every sweep and rebin
                stage launched through the kernels. Then a small 2D scene
                through the kernels against the plain versions.
-5. colony kernels — the 1,048,576-cell bonded colony (bench.py's largest
+5. fluid phases — where the time of a config[3] step goes (CUDA events
+               per phase, K1/K2 split into their gate and sweep launches
+               by torch.profiler), one step by host clock, and the
+               device's busy share under torch.profiler.
+6. colony kernels — the 1,048,576-cell bonded colony (bench.py's largest
                colony rung) built from scratch: the contact sweep (K4)
                against its plain version on every slot (rtol 1e-5 / atol
                1e-6·max|x|) on the settled colony and on a copy compressed
                ×0.7 about its centre (contacts must occur); the pack's
                placement (K5) bitwise at 1M and at the expand probe's scene
                (n=400, k=4, spawn 10).
-6. colony main — 40 steps of the 1M colony through Simulation.step in
+7. colony main — 40 steps of the 1M colony through Simulation.step in
                chunks of 20, counters reset just before: 40 contact and 40
                expand launches, count conserved, overflow 0, bonds not
                grown, positions finite.
-7. colony divisions — the reference scenario (tools/make_golden_trace.py
+8. colony divisions — the reference scenario (tools/make_golden_trace.py
                parameters) on the dense kernel path for 1,000 steps: the
                population at every 50-step mark equals the golden trace's.
-8. colony phases — where the time of a 1M step goes (CUDA events per
+9. colony phases — where the time of a 1M step goes (CUDA events per
                phase), the host synchronisations of one step, and the
                device's busy share under torch.profiler.
-9. times     — each kernel's ms against its plain version's (and, for the
+10. times    — each kernel's ms against its plain version's (and, for the
                placement, one PyTorch index_copy), beside its bound.
 
 The line before the last is {"kernels": [...]}, preceded by the card's
@@ -177,6 +182,29 @@ def contact_work(fields, occ, params, spec) -> dict:
             "near": int(near.sum()), "touching": int(touching.sum())}
 
 
+def band_line(d, spec) -> str:
+    """The sweeps' band plan and how many of its bands the gate lists
+    (those holding an occupied slot)."""
+    from sph_tpu_torch.ops.fluid import band_plan
+
+    plan = band_plan(spec)
+    rows = (d.occ > 0.5).any(dim=1).view(spec.n0, spec.n1, spec.X).any(dim=2)
+    pad = plan.bands * plan.rows - spec.n1
+    live = torch.nn.functional.pad(rows, (0, pad)).view(
+        spec.n0, plan.bands, plan.rows).any(dim=2)
+    return (f"band plan {plan}; {int(live.sum())} of {live.numel()} bands "
+            f"hold an occupied slot")
+
+
+def exact_sweeps(where: str, checks: dict) -> None:
+    """K1 and K2 must equal their plain versions bit for bit on occupied
+    slots and hold +0 on empty ones."""
+    for name in ("density", "accel"):
+        r = checks[name]
+        if not (r["bitwise"] and r["empty_zero"] and r["max_abs_err"] == 0):
+            raise AssertionError(f"{where} {name}: not exact: {r}")
+
+
 def check_state(sim, n_expected: int) -> dict:
     m = sim.metrics()
     pos = sim.particles()[0]
@@ -232,14 +260,18 @@ def main() -> int:
         f"{list(sim.dstate.px.shape)} ({time.perf_counter() - t0:.1f} s)")
     sim.run(30)
     checks = check_fluid_twins(sim.dstate, sim.params, sim.spec, seed=0)
+    exact_sweeps("config[3]", checks)
+    say("kernels", f"config[3] {band_line(sim.dstate, sim.spec)}")
     for name, r in checks.items():
         say("kernels", f"config[3] {name}: {json.dumps(r)}")
     s2 = FluidSimulation.from_scene("dam_break_2d", n_target=4096,
                                     dense_k=4, cell_factor=1.2,
                                     rebin_every=3, substeps=6, device=dev)
     s2.run(6)
-    for name, r in check_fluid_twins(s2.dstate, s2.params, s2.spec,
-                                     seed=1).items():
+    checks2 = check_fluid_twins(s2.dstate, s2.params, s2.spec, seed=1)
+    exact_sweeps("2D", checks2)
+    say("kernels", f"2D {band_line(s2.dstate, s2.spec)}")
+    for name, r in checks2.items():
         say("kernels", f"2D {list(s2.dstate.px.shape)} {name}: "
             f"{json.dumps(r)}")
 
@@ -282,13 +314,16 @@ def main() -> int:
     say("main", f"2D {len(pk)} particles, 60 steps, kernels vs plain: centroid "
         f"and spread within 5e-3, bitwise equal state: {same}")
 
-    # 5-8. The colony.
+    # 5. Where a config[3] step's time goes.
+    fluid_phases(sim, card)
+
+    # 6-9. The colony.
     colony = colony_kernels(dev, card)
     colony_launches = colony_main(colony, card)
     colony_divisions(dev, card)
     colony_phases(colony, card)
 
-    # 9. times, each kernel at its main path's shapes
+    # 10. times, each kernel at its main path's shapes
     d, p, spec = sim.dstate, sim.params, sim.spec
     pr2 = d.prs / (d.rho * d.rho)
     irho = torch.reciprocal(d.rho)
@@ -353,6 +388,90 @@ def main() -> int:
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def device_busy(run, card) -> str:
+    """Wall and device-busy ms of run() under torch.profiler, with the
+    busy share, or a note that the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy_us = 0.0
+    for e in prof.key_averages():
+        if getattr(e, "device_type", None) is not None and \
+                "CUDA" in str(e.device_type):
+            busy_us += float(getattr(e, "self_device_time_total", 0.0) or
+                             getattr(e, "self_cuda_time_total", 0.0))
+    if busy_us <= 0:
+        return "profiler reported no device time: busy share not measured"
+    return (f"wall {wall * 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
+            f"busy share {busy_us / 1e3 / (wall * 1e3):.3f} | {card}")
+
+
+def fluid_phases(sim, card) -> None:
+    """Phase 5: CUDA-event times of each part of a config[3] step (on the
+    state after the main run), the K1/K2 launches by kernel under
+    torch.profiler, one step by host clock and the busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from sph_tpu_torch.ops.fluid import accel_sweep, density_sweep
+    from sph_tpu_torch.ops.rebin import staged_rebin
+    from sph_tpu_torch.sph import dense
+    from sph_tpu_torch.sph.model import eos_pressure
+
+    d, p, spec = sim.dstate, sim.params, sim.spec
+    raw = density_sweep(d.px, d.py, d.pz, d.occ, p, spec)
+    rho = dense.density_fixup(raw, d.occ, p)
+    d = d.replace_fields(rho=rho, prs=torch.where(
+        d.occ > 0.5, eos_pressure(rho, p), 0.0))
+    pr2 = d.prs / (d.rho * d.rho)
+    acc = accel_sweep(d, pr2, p, spec)
+    vmax = dense.rebin_vmax(p, spec)
+    moved = dense._integrate(d, *acc, p, vmax)[:6]
+    phases = {
+        "K1 density sweep": lambda: density_sweep(d.px, d.py, d.pz, d.occ,
+                                                  p, spec),
+        "density fixup + EOS": lambda: torch.where(
+            d.occ > 0.5, eos_pressure(dense.density_fixup(raw, d.occ, p), p),
+            0.0),
+        "p/rho^2": lambda: d.prs / (d.rho * d.rho),
+        "K2 accel sweep": lambda: accel_sweep(d, pr2, p, spec),
+        "_integrate (gravity, obstacle, drag, vmax clamp, walls)":
+            lambda: dense._integrate(d, *acc, p, vmax),
+        "one rebin (K3 stages + cleanup)": lambda: staged_rebin(
+            d, *moved, p, spec),
+    }
+    total = 0.0
+    for name, fn in phases.items():
+        ms = cuda_ms(fn, 10)
+        total += ms / p.rebin_every if name.startswith("one rebin") else ms
+        say("fluid phases", f"{name}: {ms:.4f} ms")
+    for name, fn in (("K1", phases["K1 density sweep"]),
+                     ("K2", phases["K2 accel sweep"])):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
+            if us > 0:
+                say("fluid phases", f"{name} by kernel: {e.key[:48]}: "
+                    f"{us / 10 / 1e3:.4f} ms per call")
+    sps = sim.run(12)
+    say("fluid phases", f"sum of phases (rebin / {p.rebin_every}) "
+        f"{total:.4f} ms; one step (host clock, 12 steps) {1e3 / sps:.4f} ms"
+        f" | {card}")
+    check_state(sim, N_CONFIG3)
+    say("fluid phases", f"profiled {p.rebin_every} steps: "
+        f"{device_busy(lambda: sim.run(p.rebin_every), card)}")
 
 
 # -- the colony -------------------------------------------------------------
@@ -565,29 +684,12 @@ def colony_phases(colony, card) -> None:
              if "synchroniz" in str(w.message)]
     say("colony phases", f"host synchronisations in one quiet step: "
         f"{len(syncs)} at {syncs}")
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    def five_steps(s=st):
         for _ in range(5):
-            st = step(st, p, g)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy_us = 0.0
-    for e in prof.key_averages():
-        if getattr(e, "device_type", None) is not None and \
-                "CUDA" in str(e.device_type):
-            busy_us += float(getattr(e, "self_device_time_total", 0.0) or
-                             getattr(e, "self_cuda_time_total", 0.0))
-    if busy_us > 0:
-        say("colony phases", f"profiled 5 steps: wall {wall * 1e3:.3f} ms, "
-            f"device busy {busy_us / 1e3:.3f} ms, busy share "
-            f"{busy_us / 1e3 / (wall * 1e3):.3f} | {card}")
-    else:
-        say("colony phases", "profiler reported no device time: busy "
-            "share not measured")
+            s = step(s, p, g)
+
+    say("colony phases", f"profiled 5 steps: {device_busy(five_steps, card)}")
 
 
 def colony_time_pairs(colony) -> dict:

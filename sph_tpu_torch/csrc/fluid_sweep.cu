@@ -5,257 +5,725 @@
 // as launched by `density_pallas` (K1) and `accel_pallas` (K2).
 //
 // Layout: every field is [n0, K, C] f32 (plane, slot, fused row·cell), C
-// fastest; empty slots hold sentinel positions (1e9) that every pair test
-// rejects arithmetically, and one margin cell rings the domain, so a fused
-// offset dy·X + dx that crosses a row boundary lands on a sentinel margin.
+// fastest, C = n1·X; empty slots hold sentinel positions (1e9), and one
+// margin cell rings the domain, so a fused offset dy·X + dx that crosses a
+// row boundary lands on a sentinel margin.
 //
-// Design (simple first): ONE THREAD PER SLOT (z, k, c), c fastest, so the
-// partner reads of neighbouring threads — one slot of cell c + dy·X + dx in
-// plane z + dz — are neighbouring addresses and coalesce. Each thread runs
-// the OWN-ONLY full stencil (27 cells × K slots in 3D, 9 × K in 2D) and
-// writes its own sum: no mirror part arrays, no combine pass, no atomics.
-// A thread on an empty own slot writes 0 and returns (the caller's
-// rest-density fixup, and the integrator's occupancy mask, cover those
-// lanes).
+// Design: the work unit is a BAND, whole rows of one plane (the rows per
+// band and the shared-memory bytes are chosen on the host, ops/fluid.py
+// `band_plan`). Two launches on the caller's stream:
+//  1. Gate (`band_gate_kernel`, one block per band). The block reads its
+//     band's occupancy (16-byte loads), writes +0 to every output slot of
+//     the band, and appends the band to a work list only when it holds an
+//     occupied slot — the Pallas kernel's `pl.when` occupancy gate. About
+//     82% of config[3]'s bands are empty and cost nothing more.
+//  2. Sweep (`band_sweep_kernel`, persistent: as many blocks as fit on the
+//     card, each taking listed bands from an atomic counter). Per band:
+//     a. Halo staging. One thread issues a TMA bulk copy (cp.async.bulk,
+//        completed on an mbarrier) per (field, plane, slot) of the three
+//        position fields: planes z−1, z, z+1 (z alone without a plane
+//        stencil), the band's rows ±1 and 4 floats beyond each end (the
+//        ±1-cell offsets that cross a row edge, rounded out to 16 bytes),
+//        each one contiguous run of the fused axis, clipped to the array.
+//        What the clip leaves out (and a plane outside the array) is
+//        filled with the sentinel position, so no partner needs a bounds
+//        test: its pair is screened out, as the plain version's wrapped
+//        partner on a sentinel margin is.
+//     b. Compaction, while the copies land: the band's occupied own slots
+//        go to a list in shared memory (warp ballot + prefix sum), so that
+//        every active lane of the walk has a particle.
+//     c. Walk. Each thread takes occupied own slots from the list and
+//        visits their 27·K − 1 partners (9·K − 1 in 2D) in the order of
+//        the Newton-halved plain version (`Stencil::each` below), with the
+//        slot count and stencil compile-time constants, so every partner's
+//        shared-memory offset and summation target are fixed at compile
+//        time.
+//  Bit-exact screen. For each partner the thread forms r² from the staged
+//  positions with the pair term's own operations. K1 skips the term
+//  exactly when h² − r² ≤ 0 (it is then max(h² − r², 0)³ = +0), else adds
+//  it at once. K2 runs two passes: the first marks, in a register bitmask,
+//  every partner with r² ≤ r2_cut (or r² = +inf, or NaN); the second walks
+//  each lane's own marks in order, skips a partner when h − r ≤ 0 with
+//  r = r²·rsqrtf(max(r², 1e-18)) as the term computes it, and only then
+//  loads the partner's other five fields (vx, vy, vz, ρ, p/ρ²) from
+//  global memory; 1/ρ is __frcp_rn(ρ), the correctly rounded reciprocal
+//  that torch.reciprocal gives on the card, so no separate 1/ρ pass is
+//  needed. r2_cut = h²·(1 + 2⁻¹⁶) rounded up (ops/fluid.py
+//  `accel_r2_cut`): rsqrtf errs by at most 2 ulp, so for finite
+//  r² > r2_cut the term's r exceeds h·(1 + 2⁻¹⁷)(1 − 2⁻²¹) > h and h − r
+//  ≤ 0 — the first pass never drops a pair the second would keep. So the
+//  lanes of a warp run the full K2 term together about max-over-lanes
+//  (~15–30) times instead of at every partner where any lane needs it.
+//  Every test is written so that NaN fails it and takes the full term, as
+//  in the plain version.
 //
-// Summation order: the thread visits its 27·K partners in the order in
-// which the Newton-halved plain version (`_sweep_plain` +
-// `combine_mirror_parts`, sph_tpu_torch/sph/dense.py, the JAX twin's order)
-// accumulates them for this slot: the forward terms of groups A, B, C, D,
-// with the A and B mirror lumps folded in after their group, then the
-// row part and the three plane parts. A mirror term the plain version
-// computes on the partner's lane is the exact negation (accel) or the
-// exact value (density) of the term computed here, so every partial sum is
-// the same float. Every operation is an explicitly rounded intrinsic
-// (__fadd_rn, __fmul_rn, ...), so nvcc forms no FMA, and the direction
-// uses rsqrtf, as torch.rsqrt does on the card: K1 and K2 then match their
-// plain versions bit for bit on occupied slots, and the tolerance check
-// (rtol 1e-5, atol 1e-6·max|x|) has its whole margin. (A reordered or
-// FMA-contracted sum does not: the pressure terms cancel to ~1% of their
-// size, and the JAX twin's eager and jitted builds — same order, different
-// FMA contraction — already differ by 1.6e-6·max|x| at a 3,000-particle
-// dam break on the CPU.) Partners outside the array are skipped;
-// only margin lanes reach there, where the plain version adds ±0.
+// Why the skip keeps the bits: every accumulator (the sum, its mirror
+// lumps and parts) starts at +0 (the density sum at its positive self
+// term) and a round-to-nearest sum that starts at +0 never becomes −0.
+// A skipped term is ±0 for finite fields: K1's is max(h² − r², 0)³ = 0,
+// K2's carries the factor max(h − r, 0) = 0 in both its pressure and its
+// viscosity part. Adding ±0 to a nonzero sum leaves it unchanged, adding
+// it to +0 gives +0, and folding a lump that stayed +0 changes nothing —
+// so the second K2 pass folds a lump or part only when a surviving term
+// moves past it (`Folds`). What the skip hides from non-finite input: a
+// partner outside h with a non-finite velocity, 1/ρ or p/ρ² (the plain
+// version carries it in as NaN·0), and anything on an empty own slot,
+// which is written +0. Non-finite positions are not hidden: they make r²
+// NaN or +inf, which both screens keep, and the clamps here pass NaN as
+// torch.clamp does.
 //
-// What bounds it on the H100: at the dam-break layout ~89% of the slots are
-// empty, so most threads exit after one load; each occupied one makes
-// 27·K partner loads of 3 (K1) or 8 (K2) fields, served by L1/L2 (a partner
-// plane is reused by 27 neighbouring cells) rather than a shared-memory
-// plane tile, and the empty threads of a warp waste its instruction slots. Left
-// for later: a block-per-(plane, column-tile) variant staging the three
-// planes in shared memory, compacting occupied slots per warp, and
-// Newton-halving the pair work.
+// Summation order: the thread visits its partners in the order in which
+// the Newton-halved plain version (`_sweep_plain` + `combine_mirror_parts`,
+// sph_tpu_torch/sph/dense.py, the JAX twin's order) accumulates them for
+// this slot: the forward terms of groups A, B, C, D, with the A and B
+// mirror lumps folded in after their group, then the row part and the
+// three plane parts. A mirror term the plain version computes on the
+// partner's lane is the exact negation (accel) or the exact value
+// (density) of the term computed here, so every partial sum is the same
+// float. Every operation is an explicitly rounded intrinsic (__fadd_rn,
+// __fmul_rn, ...), so nvcc forms no FMA, and the direction uses rsqrtf, as
+// torch.rsqrt does on the card: K1 and K2 then match their plain versions
+// bit for bit on occupied slots. (A reordered or FMA-contracted sum does
+// not: the pressure terms cancel to ~1% of their size.)
+//
+// What bounds it on the H100: the least traffic is the occupancy plane
+// and the output planes (2 or 4 × 35.6 MB at config[3]); the walk is
+// ~215 screens per occupied slot (3 shared loads, ~10 operations each),
+// issue-bound, plus the full terms of the ~1 partner in 15 inside h. No
+// FMA may be formed, so each screen costs 9 floating-point instructions
+// where 7 would do.
+//
+// ptxas (sm_90a, -O3): 62–64 registers per sweep kernel (two blocks of
+// 512 threads per SM cap it at 64); the 3D (K = 8) K2 kernel spills 92
+// bytes; the gate kernels take 31–32.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+#include <cstdint>
+
 namespace {
+
+constexpr int kThreads = 512;      // sweep block; two blocks per SM
+constexpr int kWarps = kThreads / 32;
+constexpr int kGateThreads = 256;  // gate block
+constexpr int kPad = 4;    // floats staged beyond each end of a band's rows
+constexpr int kLoads = 4;  // occupancy loads a thread has in flight
+constexpr float kSentinel = 1.0e9f;  // sph/dense.py SENTINEL
 
 struct Geom {
   int n0;  // planes
-  int k;   // slots per cell (even)
   int c;   // fused row·cell length
   int x;   // row length (fused stride of one row)
-  int s0;  // stencil along planes
-  int s1;  // stencil along rows
 };
 
-// Walks the partners of own slot (z, k, c) in the plain version's order and
-// returns the folded sum in out[0..NC). term(j, t) writes the NC pair terms
-// of the own slot against partner index j.
-template <int NC, class Term>
-__device__ void twin_order_sweep(const Geom& g, int z, int k, int c,
-                                 float self_init, const Term& term,
-                                 float* out) {
-  float acc[NC];
-  for (int i = 0; i < NC; ++i) acc[i] = 0.0f;
-  acc[0] = self_init;
+__device__ __forceinline__ float mul(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ float add(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ float sub(float a, float b) {
+  return __fsub_rn(a, b);
+}
+// torch.clamp_min semantics (NaN passes through).
+__device__ __forceinline__ float at_least(float x, float lo) {
+  return x < lo ? lo : x;
+}
 
-  auto add = [&](float* a, int zq, int slot, int cq) {
-    if (zq < 0 || zq >= g.n0 || cq < 0 || cq >= g.c) return;
-    float t[NC];
-    term((zq * g.k + slot) * g.c + cq, t);
-    for (int i = 0; i < NC; ++i) a[i] = __fadd_rn(a[i], t[i]);
-  };
-  auto fold = [&](float* a, const float* b) {
-    for (int i = 0; i < NC; ++i) a[i] = __fadd_rn(a[i], b[i]);
-  };
-  auto fwd = [&](int m) { return (k + m) % g.k; };        // partner slot
-  auto mir = [&](int m) { return (k - m + g.k) % g.k; };  // mirror source
-  const int half = g.k / 2;
-  float lump[NC], part[NC];
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  // Group A: same cell, m in [1, K/2]; its mirrors m in [1, K/2).
-  for (int m = 1; m <= half; ++m) add(acc, z, fwd(m), c);
-  for (int i = 0; i < NC; ++i) lump[i] = 0.0f;
-  for (int m = 1; m < half; ++m) add(lump, z, mir(m), c);
-  fold(acc, lump);
-  // Group B: next cell in the row; its mirrors cover the previous cell.
-  for (int m = 0; m < g.k; ++m) add(acc, z, fwd(m), c + 1);
-  for (int i = 0; i < NC; ++i) lump[i] = 0.0f;
-  for (int m = 0; m < g.k; ++m) add(lump, z, mir(m), c - 1);
-  fold(acc, lump);
-  // Group C forward: next row.
-  if (g.s1) {
+__device__ __forceinline__ void mbar_init(uint64_t* bar) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(smem_u32(bar)));
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
+                                              uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n"
+      "}\n"
+      : "=r"(done)
+      : "r"(smem_u32(bar)), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+// Waits for the barrier's phase; a copy that never lands traps (a launch
+// error the wrapper's caller sees) instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  for (int spin = 0; !mbar_try_wait(bar, parity); ++spin)
+    if (spin > (1 << 20)) __trap();
+}
+
+// TMA bulk copy global → shared (16-byte aligned ends, 16-byte multiple).
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Orders this thread's generic-proxy shared-memory writes before later
+// bulk copies into the same buffer.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// The partners of an own slot (z, k, c) in the order of the Newton-halved
+// plain version: f(j, dz, dy, dx, sel, lump, part) for partner j, which
+// lies in plane z + dz, slot (k + sel) mod K, cell c + dy·X + dx, and is
+// summed into mirror lump `lump` (0: straight into the sum), which folds
+// into `part` (0: into the sum). Every loop unrolls, so all arguments are
+// compile-time constants at each call. Lump and part ids are unique.
+template <int K, int S0>
+struct Stencil {
+  static constexpr int kPartners = 9 * (1 + 2 * S0) * K - 1;
+  static constexpr int kWords = (kPartners + 31) / 32;
+
+  template <class F>
+  __device__ __forceinline__ static void each(F&& f) {
+    constexpr int H = K / 2;
+    int j = 0;
+    // Group A, the own cell: forward m in [1, K/2]; mirror lump m < K/2.
+#pragma unroll
+    for (int m = 1; m <= H; ++m) f(j++, 0, 0, 0, m, 0, 0);
+#pragma unroll
+    for (int m = 1; m < H; ++m) f(j++, 0, 0, 0, K - m, 1, 0);
+    // Group B: the next cell of the row; its mirror lump, the previous.
+#pragma unroll
+    for (int m = 0; m < K; ++m) f(j++, 0, 0, 1, m, 0, 0);
+#pragma unroll
+    for (int m = 0; m < K; ++m) f(j++, 0, 0, -1, (K - m) % K, 2, 0);
+    // Group C forward: the next row.
+#pragma unroll
     for (int dx = -1; dx <= 1; ++dx)
-      for (int m = 0; m < g.k; ++m) add(acc, z, fwd(m), c + g.x + dx);
-  }
-  // Group D forward: next plane, rows dy in dys.
-  if (g.s0) {
-    for (int dy = -g.s1; dy <= g.s1; ++dy)
-      for (int dx = -1; dx <= 1; ++dx)
-        for (int m = 0; m < g.k; ++m)
-          add(acc, z + 1, fwd(m), c + dy * g.x + dx);
-  }
-  // Mirror parts, folded as combine_mirror_parts does: the row part, then
-  // one part per dy of the previous plane; each part sums one lump per dx.
-  if (g.s1) {
-    for (int i = 0; i < NC; ++i) part[i] = 0.0f;
-    for (int dx = -1; dx <= 1; ++dx) {
-      for (int i = 0; i < NC; ++i) lump[i] = 0.0f;
-      for (int m = 0; m < g.k; ++m) add(lump, z, mir(m), c - g.x - dx);
-      fold(part, lump);
+#pragma unroll
+      for (int m = 0; m < K; ++m) f(j++, 0, 1, dx, m, 0, 0);
+    // Group D forward: the next plane.
+    if (S0) {
+#pragma unroll
+      for (int dy = -1; dy <= 1; ++dy)
+#pragma unroll
+        for (int dx = -1; dx <= 1; ++dx)
+#pragma unroll
+          for (int m = 0; m < K; ++m) f(j++, 1, dy, dx, m, 0, 0);
     }
-    fold(acc, part);
+    // The row part: one lump per dx of the previous row.
+#pragma unroll
+    for (int dx = -1; dx <= 1; ++dx)
+#pragma unroll
+      for (int m = 0; m < K; ++m) f(j++, 0, -1, -dx, (K - m) % K, 4 + dx, 1);
+    // The plane parts: one part per dy, one lump per dx, previous plane.
+    if (S0) {
+#pragma unroll
+      for (int dy = -1; dy <= 1; ++dy)
+#pragma unroll
+        for (int dx = -1; dx <= 1; ++dx)
+#pragma unroll
+          for (int m = 0; m < K; ++m)
+            f(j++, -1, -dy, -dx, (K - m) % K, 10 + 3 * dy + dx, 3 + dy);
+    }
   }
-  if (g.s0) {
-    for (int dy = -g.s1; dy <= g.s1; ++dy) {
-      for (int i = 0; i < NC; ++i) part[i] = 0.0f;
-      for (int dx = -1; dx <= 1; ++dx) {
-        for (int i = 0; i < NC; ++i) lump[i] = 0.0f;
-        for (int m = 0; m < g.k; ++m)
-          add(lump, z - 1, mir(m), c - dy * g.x - dx);
-        fold(part, lump);
+};
+
+// The running sum with its open mirror lump and part, folded as
+// combine_mirror_parts folds them: entering a term of another lump folds
+// the open lump into its part (or the sum), entering another part folds
+// the open part into the sum. With compile-time ids every test folds away.
+template <int NC>
+struct Folds {
+  float acc[NC], part[NC], lump[NC];
+  int cur_lump = 0, cur_part = 0;
+
+  __device__ __forceinline__ explicit Folds(float first) {
+#pragma unroll
+    for (int i = 0; i < NC; ++i) acc[i] = part[i] = lump[i] = 0.0f;
+    acc[0] = first;
+  }
+  __device__ __forceinline__ void enter(int l, int p) {
+    if (l != cur_lump) {
+      if (cur_lump != 0) {
+        if (cur_part != 0) {
+#pragma unroll
+          for (int i = 0; i < NC; ++i) part[i] = add(part[i], lump[i]);
+        } else {
+#pragma unroll
+          for (int i = 0; i < NC; ++i) acc[i] = add(acc[i], lump[i]);
+        }
       }
-      fold(acc, part);
+#pragma unroll
+      for (int i = 0; i < NC; ++i) lump[i] = 0.0f;
+      cur_lump = l;
+    }
+    if (p != cur_part) {
+      if (cur_part != 0) {
+#pragma unroll
+        for (int i = 0; i < NC; ++i) acc[i] = add(acc[i], part[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < NC; ++i) part[i] = 0.0f;
+      cur_part = p;
     }
   }
-  for (int i = 0; i < NC; ++i) out[i] = acc[i];
-}
-
-__global__ void density_sweep_kernel(const float* __restrict__ px,
-                                     const float* __restrict__ py,
-                                     const float* __restrict__ pz,
-                                     const float* __restrict__ occ,
-                                     float* __restrict__ out, Geom g,
-                                     float h2, float self_init,
-                                     float scale) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= g.n0 * g.k * g.c) return;
-  if (!(occ[i] > 0.5f)) {
-    out[i] = 0.0f;
-    return;
+  __device__ __forceinline__ void add_term(const float* t) {
+    if (cur_lump != 0) {
+#pragma unroll
+      for (int i = 0; i < NC; ++i) lump[i] = add(lump[i], t[i]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < NC; ++i) acc[i] = add(acc[i], t[i]);
+    }
   }
-  const int c = i % g.c;
-  const int k = (i / g.c) % g.k;
-  const int z = i / (g.k * g.c);
-  const float cx = px[i], cy = py[i], cz = pz[i];
-  // density_pair_term: t = max(h² − r², 0); t·t·t.
-  auto term = [&](int j, float* t) {
-    const float ddx = __fsub_rn(cx, px[j]);
-    const float ddy = __fsub_rn(cy, py[j]);
-    const float ddz = __fsub_rn(cz, pz[j]);
-    const float r2 = __fadd_rn(
-        __fadd_rn(__fmul_rn(ddx, ddx), __fmul_rn(ddy, ddy)),
-        __fmul_rn(ddz, ddz));
-    const float u = fmaxf(__fsub_rn(h2, r2), 0.0f);
-    t[0] = __fmul_rn(__fmul_rn(u, u), u);
-  };
-  float acc;
-  twin_order_sweep<1>(g, z, k, c, self_init, term, &acc);
-  out[i] = __fmul_rn(scale, acc);
-}
+  __device__ __forceinline__ void finish() { enter(0, 0); }
+};
 
-__global__ void accel_sweep_kernel(
-    const float* __restrict__ px, const float* __restrict__ py,
-    const float* __restrict__ pz, const float* __restrict__ vx,
-    const float* __restrict__ vy, const float* __restrict__ vz,
-    const float* __restrict__ irho, const float* __restrict__ pr2,
-    const float* __restrict__ occ, float* __restrict__ ax,
-    float* __restrict__ ay, float* __restrict__ az, Geom g, float h,
-    float neg_m_spiky, float visc_mc) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= g.n0 * g.k * g.c) return;
-  if (!(occ[i] > 0.5f)) {
-    ax[i] = 0.0f;
-    ay[i] = 0.0f;
-    az[i] = 0.0f;
-    return;
+// The staged positions of one band: partner (plane z + dz, slot s, fused
+// cell cq) lives at x/y/z[(dz + S0)·krun + s·run + cq − lo].
+struct Staged {
+  const float *x, *y, *z;
+  const int4* table;  // per partner j: {staged offset, global offset, ids}
+  int run, krun;
+  int lo;             // fused index of each run's first float
+};
+
+// An own slot's view of the staged band: the staged offset of partner
+// (dz, sel, dy, dx). K is a power of two, so the partner's slot is
+// (k + sel) & (K − 1), computed per partner so that K offsets do not take
+// registers from the 64 a thread has.
+template <int K, int S0>
+struct OwnView {
+  int k;       // own slot
+  int cell;    // c − lo
+  int x;       // row stride
+
+  __device__ __forceinline__ OwnView(const Staged& s, int k_, int c, int x_)
+      : k(k_), cell(c - s.lo), x(x_) {}
+  __device__ __forceinline__ int at(const Staged& s, int dz, int dy, int dx,
+                                    int sel) const {
+    return (dz + S0) * s.krun + ((k + sel) & (K - 1)) * s.run + cell +
+           dy * x + dx;
   }
-  const int c = i % g.c;
-  const int k = (i / g.c) % g.k;
-  const int z = i / (g.k * g.c);
-  const float cx = px[i], cy = py[i], cz = pz[i];
-  const float cvx = vx[i], cvy = vy[i], cvz = vz[i];
-  const float cirho = irho[i], cpr2 = pr2[i];
-  const float r2_floor = static_cast<float>(1e-18);
-  const float self_r2 = static_cast<float>(1e-16);
-  // accel_pair_terms, operation for operation.
-  auto term = [&](int j, float* t) {
-    const float ddx = __fsub_rn(cx, px[j]);
-    const float ddy = __fsub_rn(cy, py[j]);
-    const float ddz = __fsub_rn(cz, pz[j]);
-    const float r2 = __fadd_rn(
-        __fadd_rn(__fmul_rn(ddx, ddx), __fmul_rn(ddy, ddy)),
-        __fmul_rn(ddz, ddz));
-    const float rinv = rsqrtf(fmaxf(r2, r2_floor));
-    const float r = __fmul_rn(r2, rinv);
-    const float not_self = r2 > self_r2 ? 1.0f : 0.0f;
-    const float hr = fmaxf(__fsub_rn(h, r), 0.0f);
-    const float hrm = __fmul_rn(hr, not_self);
-    const float cp = __fmul_rn(
-        __fmul_rn(__fmul_rn(__fmul_rn(neg_m_spiky, hrm), hr), rinv),
-        __fadd_rn(cpr2, pr2[j]));
-    const float cv =
-        __fmul_rn(__fmul_rn(visc_mc, hrm), __fmul_rn(cirho, irho[j]));
-    t[0] = __fadd_rn(__fmul_rn(cp, ddx),
-                     __fmul_rn(cv, __fsub_rn(vx[j], cvx)));
-    t[1] = __fadd_rn(__fmul_rn(cp, ddy),
-                     __fmul_rn(cv, __fsub_rn(vy[j], cvy)));
-    t[2] = __fadd_rn(__fmul_rn(cp, ddz),
-                     __fmul_rn(cv, __fsub_rn(vz[j], cvz)));
-  };
-  float acc[3];
-  twin_order_sweep<3>(g, z, k, c, 0.0f, term, acc);
-  ax[i] = acc[0];
-  ay[i] = acc[1];
-  az[i] = acc[2];
+};
+
+__device__ __forceinline__ float dist2(float ddx, float ddy, float ddz) {
+  return add(add(mul(ddx, ddx), mul(ddy, ddy)), mul(ddz, ddz));
 }
 
-constexpr int kThreads = 256;
+struct DensitySweep {
+  const float* occ;
+  float* out;
+  float h2, self_init, scale;
 
-int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
+  __device__ __forceinline__ void zero4(size_t i) const {
+    *reinterpret_cast<float4*>(out + i) = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+
+  template <int K, int S0>
+  __device__ __forceinline__ void build_table(int4*, int, const Geom&,
+                                              int) const {}
+
+  template <int K, int S0>
+  __device__ __forceinline__ void own(const Staged& s, const Geom& g, int z,
+                                      int k, int c, int i) const {
+    const OwnView<K, S0> v(s, k, c, g.x);
+    const int o = v.at(s, 0, 0, 0, 0);
+    const float cx = s.x[o], cy = s.y[o], cz = s.z[o];
+    Folds<1> f(self_init);
+    Stencil<K, S0>::each([&](int, int dz, int dy, int dx, int sel, int l,
+                             int p) {
+      f.enter(l, p);
+      const int q = v.at(s, dz, dy, dx, sel);
+      const float r2 = dist2(sub(cx, s.x[q]), sub(cy, s.y[q]),
+                             sub(cz, s.z[q]));
+      // density_pair_term: t = max(h² − r², 0); t·t·t.
+      const float u = sub(h2, r2);
+      if (u <= 0.0f) return;  // the term is max(u, 0)³ = +0
+      // Here u > 0 or NaN, so max(u, 0) = u as torch.clamp_min gives it.
+      const float t = mul(mul(u, u), u);
+      f.add_term(&t);
+    });
+    f.finish();
+    out[i] = mul(scale, f.acc[0]);
+  }
+};
+
+struct AccelSweep {
+  const float *vx, *vy, *vz, *rho, *pr2;
+  const float* occ;
+  float *ax, *ay, *az;
+  float h, neg_m_spiky, visc_mc, r2_cut;
+
+  __device__ __forceinline__ void zero4(size_t i) const {
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(ax + i) = zero;
+    *reinterpret_cast<float4*>(ay + i) = zero;
+    *reinterpret_cast<float4*>(az + i) = zero;
+  }
+
+  // The partner table of the second pass: lane `lane` of one warp writes
+  // the entries j ≡ lane (mod 32).
+  template <int K, int S0>
+  __device__ __forceinline__ void build_table(int4* table, int lane,
+                                              const Geom& g, int krun) const {
+    Stencil<K, S0>::each([&](int j, int dz, int dy, int dx, int sel, int l,
+                             int p) {
+      if ((j & 31) == lane)
+        table[j] = make_int4((dz + S0) * krun + dy * g.x + dx,
+                             dz * K * g.c + dy * g.x + dx,
+                             sel | l << 8 | p << 16, 0);
+    });
+  }
+
+  template <int K, int S0>
+  __device__ __forceinline__ void own(const Staged& s, const Geom& g, int z,
+                                      int k, int c, int i) const {
+    using St = Stencil<K, S0>;
+    const OwnView<K, S0> v(s, k, c, g.x);
+    const int o = v.at(s, 0, 0, 0, 0);
+    const float cx = s.x[o], cy = s.y[o], cz = s.z[o];
+    const float inf = __int_as_float(0x7f800000);
+
+    // Pass 1: mark the partners the r² screen keeps.
+    unsigned marks[St::kWords];
+#pragma unroll
+    for (int w = 0; w < St::kWords; ++w) marks[w] = 0u;
+    St::each([&](int j, int dz, int dy, int dx, int sel, int, int) {
+      const int q = v.at(s, dz, dy, dx, sel);
+      const float r2 = dist2(sub(cx, s.x[q]), sub(cy, s.y[q]),
+                             sub(cz, s.z[q]));
+      if (r2 > r2_cut && r2 < inf) return;  // then h − r ≤ 0: a ±0 term
+      marks[j >> 5] |= 1u << (j & 31);
+    });
+
+    // Pass 2: this lane's marks in order, with the exact screen and the
+    // full term (accel_pair_terms, operation for operation).
+    const float cvx = vx[i], cvy = vy[i], cvz = vz[i];
+    const float cirho = __frcp_rn(rho[i]), cpr2 = pr2[i];
+    const float r2_floor = static_cast<float>(1e-18);
+    const float self_r2 = static_cast<float>(1e-16);
+    const int own_g = z * K * g.c + c;
+    const int last = g.n0 * K * g.c - 1;
+    Folds<3> f(0.0f);
+    int w = 0;
+    unsigned b = marks[0];
+    for (;;) {
+      while (b == 0u && w + 1 < St::kWords) {
+        ++w;
+#pragma unroll
+        for (int q = 1; q < St::kWords; ++q)
+          if (q == w) b = marks[q];
+      }
+      if (b == 0u) break;
+      const int j = w * 32 + __ffs(b) - 1;
+      b &= b - 1u;
+      const int4 e = s.table[j];
+      const int sl = (k + (e.z & 0xff)) & (K - 1);
+      const int q = sl * s.run + v.cell + e.x;
+      const float ddx = sub(cx, s.x[q]);
+      const float ddy = sub(cy, s.y[q]);
+      const float ddz = sub(cz, s.z[q]);
+      const float r2 = dist2(ddx, ddy, ddz);
+      const float rinv = rsqrtf(at_least(r2, r2_floor));
+      const float r = mul(r2, rinv);
+      const float hr = sub(h, r);
+      if (hr <= 0.0f) continue;  // max(h − r, 0) = 0 zeroes the term
+      // Here hr > 0 or NaN, so max(hr, 0) = hr as torch.clamp_min gives it.
+      // (The clamp only keeps a NaN own slot on the array's margin, whose
+      // every term is NaN, from reading outside the fields.)
+      const int jg = min(max(sl * g.c + own_g + e.y, 0), last);
+      const float not_self = r2 > self_r2 ? 1.0f : 0.0f;
+      const float hrm = mul(hr, not_self);
+      const float cp = mul(mul(mul(mul(neg_m_spiky, hrm), hr), rinv),
+                           add(cpr2, pr2[jg]));
+      const float cv =
+          mul(mul(visc_mc, hrm), mul(cirho, __frcp_rn(rho[jg])));
+      float t[3];
+      t[0] = add(mul(cp, ddx), mul(cv, sub(vx[jg], cvx)));
+      t[1] = add(mul(cp, ddy), mul(cv, sub(vy[jg], cvy)));
+      t[2] = add(mul(cp, ddz), mul(cv, sub(vz[jg], cvz)));
+      f.enter((e.z >> 8) & 0xff, e.z >> 16);
+      f.add_term(t);
+    }
+    f.finish();
+    ax[i] = f.acc[0];
+    ay[i] = f.acc[1];
+    az[i] = f.acc[2];
+  }
+};
+
+// Launch 1: one block per band. +0 into every output slot of the band;
+// the band joins the work list (work[2 + n], n = work[0]++) when it holds
+// an occupied slot.
+template <class Sweep>
+__global__ void __launch_bounds__(kGateThreads)
+    band_gate_kernel(Sweep sw, Geom g, int k, int band_rows, int bands,
+                     int* __restrict__ work) {
+  const int band = blockIdx.x;
+  const int z = band / bands, r0 = band % bands * band_rows;
+  const int per4 = min(band_rows, g.c / g.x - r0) * g.x / 4;
+  bool any = false;
+  for (int t = threadIdx.x; t < k * per4; t += kGateThreads) {
+    const size_t i = (static_cast<size_t>(z) * k + t / per4) * g.c +
+                     r0 * g.x + t % per4 * 4;
+    const float4 o = *reinterpret_cast<const float4*>(sw.occ + i);
+    any |= o.x > 0.5f || o.y > 0.5f || o.z > 0.5f || o.w > 0.5f;
+    sw.zero4(i);
+  }
+  if (__syncthreads_or(any) && threadIdx.x == 0)
+    work[2 + atomicAdd(&work[0], 1)] = band;
+}
+
+// The sweep block's shared memory: the partner table, the staged
+// positions [3][P][K][run], the list of occupied own slots, the warp
+// counts, the mbarrier and the next band's list index. The host computes
+// the same bytes (ops/fluid.py `band_plan`).
+struct Layout {
+  int planes;    // P = 1 + 2·S0
+  int run;       // floats per (field, plane, slot): (rows + 2)·X + 2·kPad
+  int own;       // own slots of a full band: K·rows·X
+  int slots;     // K
+  int partners;  // table entries
+  __host__ __device__ size_t field_floats() const {
+    return static_cast<size_t>(planes) * slots * run;
+  }
+  __host__ __device__ size_t pos_floats() const { return 3 * field_floats(); }
+  __host__ __device__ size_t bytes() const {
+    return 16 * static_cast<size_t>(partners) +
+           4 * (pos_floats() + own + kLoads * kWarps) + 16;
+  }
+};
+
+// Launch 2, persistent: each block takes listed bands until the list runs
+// out (work[1] counts the bands taken).
+template <class Sweep, int K, int S0>
+__global__ void __launch_bounds__(kThreads, 2)
+    band_sweep_kernel(Sweep sw, const float* __restrict__ px,
+                      const float* __restrict__ py,
+                      const float* __restrict__ pz, Geom g, int band_rows,
+                      int bands, Layout lay, int* __restrict__ work) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  int4* table = reinterpret_cast<int4*>(smem);
+  float* pos = reinterpret_cast<float*>(table + lay.partners);
+  int* list = reinterpret_cast<int*>(pos + lay.pos_floats());
+  int* warp_count = list + lay.own;
+  uint64_t* bar = reinterpret_cast<uint64_t*>(warp_count + kLoads * kWarps);
+  int* next = reinterpret_cast<int*>(bar + 1);
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int listed = work[0];
+  const int n1 = g.c / g.x;
+  const size_t field = lay.field_floats();
+  const int krun = K * lay.run;
+  const Staged s{pos, pos + field, pos + 2 * field, table, lay.run, krun, 0};
+  if (threadIdx.x == 0) {
+    mbar_init(bar);
+    *next = atomicAdd(&work[1], 1);
+  }
+  if (warp == 0) sw.template build_table<K, S0>(table, lane, g, krun);
+  uint32_t phase = 0;
+  for (;;) {
+    // The last band's reads are done before its buffers are refilled, and
+    // `next` (and, at first, the barrier's init and the table) is visible.
+    __syncthreads();
+    const int idx = *next;
+    if (idx >= listed) break;
+    int following = 0;
+    if (threadIdx.x == 0) following = atomicAdd(&work[1], 1);
+    const int band = work[2 + idx];
+    const int z = band / bands, r0 = band % bands * band_rows;
+    const int per_slot = min(band_rows, n1 - r0) * g.x;
+    const int n_own = K * per_slot;
+    const int lo = (r0 - 1) * g.x - kPad;
+    const int a = max(lo, 0), e = min(lo + lay.run, g.c);
+
+    // a. Stage the positions of planes z ± S0, rows r0 − 1 .. r0 + B + 1.
+    if (threadIdx.x == 0) {
+      const int zlo = max(z - S0, 0), zhi = min(z + S0, g.n0 - 1);
+      const uint32_t bytes = static_cast<uint32_t>(e - a) * 4u;
+      mbar_expect_tx(bar, bytes * 3u * K * (zhi - zlo + 1));
+      const float* src[3] = {px, py, pz};
+      for (int f = 0; f < 3; ++f)
+        for (int zq = zlo; zq <= zhi; ++zq)
+          for (int slot = 0; slot < K; ++slot)
+            bulk_load(pos + f * field +
+                          ((zq - z + S0) * K + slot) * lay.run + (a - lo),
+                      src[f] + (static_cast<size_t>(zq) * K + slot) * g.c + a,
+                      bytes, bar);
+    }
+    // The sentinel where the clip (or the array's end plane) left a gap.
+    const bool edge = z - S0 < 0 || z + S0 >= g.n0 || a > lo ||
+                      e < lo + lay.run;
+    if (edge) {
+      for (int t = threadIdx.x; t < static_cast<int>(lay.pos_floats());
+           t += kThreads) {
+        const int r = t % lay.run;
+        const int zq = z - S0 + t / lay.run / K % lay.planes;
+        if (zq < 0 || zq >= g.n0 || r < a - lo || r >= e - lo)
+          pos[t] = kSentinel;
+      }
+    }
+
+    // b. Compact the occupied own slots, in layout order, while the
+    // copies land; each thread has kLoads loads in flight at once.
+    int count = 0;
+    for (int t0 = 0; t0 < n_own; t0 += kThreads * kLoads) {
+      bool occupied[kLoads];
+      unsigned ballot[kLoads];
+#pragma unroll
+      for (int r = 0; r < kLoads; ++r) {
+        const int t = t0 + r * kThreads + threadIdx.x;
+        occupied[r] = t < n_own &&
+                      sw.occ[(z * K + t / per_slot) * g.c + r0 * g.x +
+                             t % per_slot] > 0.5f;
+        ballot[r] = __ballot_sync(0xffffffffu, occupied[r]);
+        if (lane == 0) warp_count[r * kWarps + warp] = __popc(ballot[r]);
+      }
+      __syncthreads();
+      int total = 0;
+#pragma unroll
+      for (int r = 0; r < kLoads; ++r) {
+        int before = count + total;
+        for (int w = 0; w < kWarps; ++w) {
+          before += w < warp ? warp_count[r * kWarps + w] : 0;
+          total += warp_count[r * kWarps + w];
+        }
+        if (occupied[r])
+          list[before + __popc(ballot[r] & ((1u << lane) - 1u))] =
+              t0 + r * kThreads + threadIdx.x;
+      }
+      __syncthreads();
+      count += total;
+    }
+    mbar_wait(bar, phase);
+    phase ^= 1u;
+
+    // c. Walk the occupied own slots.
+    Staged sb = s;
+    sb.lo = lo;
+    for (int t = threadIdx.x; t < count; t += kThreads) {
+      const int own = list[t];
+      const int k = own / per_slot;
+      const int c = r0 * g.x + own % per_slot;
+      sw.template own<K, S0>(sb, g, z, k, c, (z * K + k) * g.c + c);
+    }
+    if (edge) fence_proxy_async();
+    if (threadIdx.x == 0) *next = following;
+  }
+}
+
+// Launches the gate and the sweep on `stream`; returns a cudaError_t value
+// (0 on success).
+template <class Sweep, int K, int S0>
+int launch_ks(const Sweep& sw, const float* px, const float* py,
+              const float* pz, const Geom& g, int band_rows, int smem_bytes,
+              int* work, cudaStream_t stream) {
+  const Layout lay{1 + 2 * S0, (band_rows + 2) * g.x + 2 * kPad,
+                   K * band_rows * g.x, K, Stencil<K, S0>::kPartners};
+  if (static_cast<size_t>(smem_bytes) != lay.bytes())
+    return cudaErrorInvalidValue;
+  const int bands = (g.c / g.x + band_rows - 1) / band_rows;
+  auto* kernel = band_sweep_kernel<Sweep, K, S0>;
+  cudaError_t rc = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  if (rc != cudaSuccess) return rc;
+  int per_sm = 0, device = 0, sms = 0;
+  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                     kThreads, smem_bytes);
+  if (rc != cudaSuccess) return rc;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  rc = cudaGetDevice(&device);
+  if (rc != cudaSuccess) return rc;
+  rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (rc != cudaSuccess) return rc;
+  band_gate_kernel<Sweep><<<g.n0 * bands, kGateThreads, 0, stream>>>(
+      sw, g, K, band_rows, bands, work);
+  rc = cudaGetLastError();
+  if (rc != cudaSuccess) return rc;
+  const int grid = std::min(per_sm * sms, g.n0 * bands);
+  kernel<<<grid, kThreads, smem_bytes, stream>>>(sw, px, py, pz, g, band_rows,
+                                            bands, lay, work);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The kernels are built for the repository's scenes: K = 8 with a plane
+// stencil (3D), K = 4 without (2D), and the two other pairings; every
+// stencil has rows (S1 = 1). Anything else is refused.
+template <class Sweep>
+int launch(const Sweep& sw, const float* px, const float* py,
+           const float* pz, int n0, int k, int c, int x, int stencil0,
+           int stencil1, int band_rows, int smem_bytes, int* work,
+           void* stream) {
+  const auto st = static_cast<cudaStream_t>(stream);
+  const Geom g{n0, c, x};
+  if (x % kPad || c % x || band_rows < 1 || !stencil1)
+    return cudaErrorInvalidValue;
+  const int key = k * 2 + (stencil0 ? 1 : 0);
+  switch (key) {
+    case 8 * 2 + 1:
+      return launch_ks<Sweep, 8, 1>(sw, px, py, pz, g, band_rows,
+                                    smem_bytes, work, st);
+    case 8 * 2:
+      return launch_ks<Sweep, 8, 0>(sw, px, py, pz, g, band_rows,
+                                    smem_bytes, work, st);
+    case 4 * 2 + 1:
+      return launch_ks<Sweep, 4, 1>(sw, px, py, pz, g, band_rows,
+                                    smem_bytes, work, st);
+    case 4 * 2:
+      return launch_ks<Sweep, 4, 0>(sw, px, py, pz, g, band_rows,
+                                    smem_bytes, work, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
 
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). Each launches on `stream` and
-// returns cudaGetLastError() (0 on success); nothing is synchronised.
+// returns a cudaError_t value (0 on success); nothing is synchronised.
+// `band_rows` and `smem_bytes` come from ops/fluid.py `band_plan`; a
+// mismatch with the kernel's own layout returns cudaErrorInvalidValue.
+// `work` is a zeroed int32 buffer of 2 + n0·bands entries.
 
 extern "C" int sph_density_sweep(const float* px, const float* py,
                                  const float* pz, const float* occ,
-                                 float* out, int n0, int k, int c, int x,
-                                 int stencil0, int stencil1, float h2,
-                                 float self_init, float scale,
-                                 void* stream) {
-  const Geom g{n0, k, c, x, stencil0 ? 1 : 0, stencil1 ? 1 : 0};
-  density_sweep_kernel<<<blocks_for(n0 * k * c), kThreads, 0,
-                         static_cast<cudaStream_t>(stream)>>>(
-      px, py, pz, occ, out, g, h2, self_init, scale);
-  return static_cast<int>(cudaGetLastError());
+                                 float* out, int* work, int n0, int k, int c,
+                                 int x, int stencil0, int stencil1,
+                                 int band_rows, int smem_bytes, float h2,
+                                 float self_init, float scale, void* stream) {
+  const DensitySweep sw{occ, out, h2, self_init, scale};
+  return launch(sw, px, py, pz, n0, k, c, x, stencil0, stencil1, band_rows,
+                smem_bytes, work, stream);
 }
 
 extern "C" int sph_accel_sweep(const float* px, const float* py,
                                const float* pz, const float* vx,
                                const float* vy, const float* vz,
-                               const float* irho, const float* pr2,
+                               const float* rho, const float* pr2,
                                const float* occ, float* ax, float* ay,
-                               float* az, int n0, int k, int c, int x,
-                               int stencil0, int stencil1, float h,
+                               float* az, int* work, int n0, int k, int c,
+                               int x, int stencil0, int stencil1,
+                               int band_rows, int smem_bytes, float h,
                                float neg_m_spiky, float visc_mc,
-                               void* stream) {
-  const Geom g{n0, k, c, x, stencil0 ? 1 : 0, stencil1 ? 1 : 0};
-  accel_sweep_kernel<<<blocks_for(n0 * k * c), kThreads, 0,
-                       static_cast<cudaStream_t>(stream)>>>(
-      px, py, pz, vx, vy, vz, irho, pr2, occ, ax, ay, az, g, h, neg_m_spiky,
-      visc_mc);
-  return static_cast<int>(cudaGetLastError());
+                               float r2_cut, void* stream) {
+  const AccelSweep sw{vx, vy, vz, rho, pr2, occ, ax, ay, az,
+                      h, neg_m_spiky, visc_mc, r2_cut};
+  return launch(sw, px, py, pz, n0, k, c, x, stencil0, stencil1, band_rows,
+                smem_bytes, work, stream);
 }

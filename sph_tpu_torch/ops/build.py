@@ -35,12 +35,12 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _ARGTYPES = {
-    # px, py, pz, occ, out, n0, k, c, x, stencil0, stencil1,
-    # h2, self_init, scale, stream
-    "sph_density_sweep": [_P] * 5 + [_I] * 6 + [_F] * 3 + [_P],
-    # 9 inputs, 3 outputs, n0, k, c, x, stencil0, stencil1,
-    # h, neg_m_spiky, visc_mc, stream
-    "sph_accel_sweep": [_P] * 12 + [_I] * 6 + [_F] * 3 + [_P],
+    # px, py, pz, occ, out, work, n0, k, c, x, stencil0, stencil1,
+    # band_rows, smem_bytes, h2, self_init, scale, stream
+    "sph_density_sweep": [_P] * 6 + [_I] * 8 + [_F] * 3 + [_P],
+    # px, py, pz, vx, vy, vz, rho, pr2, occ, 3 outputs, work, n0, k, c, x, stencil0, stencil1,
+    # band_rows, smem_bytes, h, neg_m_spiky, visc_mc, r2_cut, stream
+    "sph_accel_sweep": [_P] * 13 + [_I] * 8 + [_F] * 4 + [_P],
     # in[7], out[7], dropped, n0, k, c, x, stage, axis, origin, cell,
     # lo, hi, stream
     "sph_rebin_stage": [ctypes.POINTER(_P)] * 2 + [_P] + [_I] * 6

@@ -21,7 +21,7 @@ every array compares element by element with the reference:
 
 Differences from the JAX engine: no `jit` (a Python substep loop replaces
 `lax.scan`, a host `if` replaces `lax.cond`), and no tile-occupancy flags
-(the CUDA kernels skip empty own slots per thread).
+(the CUDA sweeps gate empty bands of rows themselves).
 """
 
 from __future__ import annotations

@@ -5,12 +5,15 @@ AssertionError on disagreement.
 
 Contract: the pair sweeps (K1, K2) agree to the JAX twin tolerance,
 rtol 1e-5 and atol 1e-6·max|x|, on occupied slots (empty slots are garbage
-in the plain version); the rebin (K3) is bitwise on all 7 payload fields
-(with −0 == +0) and on `dropped`. The colony contact sweep (K4) agrees to
-the twin tolerance on EVERY slot of its 6 components, for finite fields
-(csrc/contact_sweep.cu states what its skip hides from non-finite ones);
-the contact pack's placement (K5) is bitwise on all 11 planes, −0
-included.
+in the plain version); their checks also report `bitwise` (every
+occupied slot's bits equal the plain version's) and `empty_zero` (every
+empty slot of the result holds +0), which the kernels give by design and
+chip_smoke.py asserts on the card; the rebin (K3) is bitwise on all 7
+payload fields (with −0 == +0) and on `dropped`. The colony contact sweep
+(K4) agrees to the twin tolerance on EVERY slot of its 6 components, for
+finite fields (csrc/contact_sweep.cu states what its skip hides from
+non-finite ones); the contact pack's placement (K5) is bitwise on all 11
+planes, −0 included.
 """
 
 from __future__ import annotations
@@ -46,11 +49,24 @@ def _close_on_occupied(name: str, plain, kern, occ) -> dict:
     return {"max_abs_err": max_err, "atol": ATOL_REL * scale, "rtol": RTOL}
 
 
+def _bits(x) -> torch.Tensor:
+    return x.view(torch.int32)
+
+
+def _exactness(plain, kern, occ) -> dict:
+    """`bitwise`: the occupied slots' bits equal; `empty_zero`: every empty
+    slot of `kern` is +0."""
+    m = occ > 0.5
+    return {"bitwise": bool(torch.equal(_bits(plain[m]), _bits(kern[m]))),
+            "empty_zero": not bool(_bits(kern[~m]).any())}
+
+
 def check_density(d, params, spec) -> dict:
     """K1 against dense.density_raw on the state's positions."""
     plain = dense.density_raw(d.px, d.py, d.pz, params, spec)
     kern = density_sweep(d.px, d.py, d.pz, d.occ, params, spec)
-    return _close_on_occupied("density", plain, kern, d.occ)
+    return {**_close_on_occupied("density", plain, kern, d.occ),
+            **_exactness(plain, kern, d.occ)}
 
 
 def accel_inputs(d, params, spec):
@@ -74,7 +90,9 @@ def check_accel(d, params, spec) -> dict:
                for axis, x, p in zip("xyz", plain, kern)]
     if results[0]["atol"] == 0.0:
         raise AssertionError("accel check is vacuous: zero x acceleration")
-    return max(results, key=lambda r: r["max_abs_err"])
+    exact = [_exactness(x, p, d.occ) for x, p in zip(plain, kern)]
+    return {**max(results, key=lambda r: r["max_abs_err"]),
+            **{k: all(e[k] for e in exact) for k in exact[0]}}
 
 
 def nudge(d, spec, params, seed: int = 0):

@@ -7,10 +7,14 @@ repository's conftest:
 
 Tolerances: K1/K2 are held to rtol 1e-5, atol 1e-6·max|x| on occupied
 slots (sph_tpu_torch.utils.verify) and, by their design (the plain
-version's summation order, no FMA contraction), to bitwise equality; K3 is
-bitwise. K4 (colony contact sweep) is held to the same tolerance on every
-slot and, by the same design, to bitwise equality; K5 (the contact pack's
-placement) is bitwise."""
+version's summation order, no FMA contraction, a screen that skips only
+exact ±0 terms), to bitwise equality on occupied slots — NaN where the
+plain version is NaN — and +0 on empty ones; K3 is bitwise. K4 (colony
+contact sweep) is held to the same tolerance on every slot and, by the
+same design, to bitwise equality; K5 (the contact pack's placement) is
+bitwise."""
+
+import dataclasses
 
 import pytest
 import torch
@@ -22,7 +26,7 @@ from sph_tpu_torch.engine.simulation import Simulation
 from sph_tpu_torch.ops import LAUNCHES, reset_launches
 from sph_tpu_torch.ops.contact import contact_sweep
 from sph_tpu_torch.ops.expand import expand_rows
-from sph_tpu_torch.ops.fluid import accel_sweep, density_sweep
+from sph_tpu_torch.ops.fluid import accel_sweep, band_plan, density_sweep
 from sph_tpu_torch.physics import contact_dense as cd
 from sph_tpu_torch.sph import dense
 from sph_tpu_torch.utils.verify import (
@@ -54,22 +58,134 @@ def cuda():
     return torch.device("cuda", 0)
 
 
-@pytest.mark.parametrize("case", sorted(SCENES))
-def test_kernels_match_plain(cuda, case):
-    scene, kw = SCENES[case]
-    sim = FluidSimulation.from_scene(scene, substeps=6, device=cuda, **kw)
-    sim.run(12)
-    d, p, spec = sim.dstate, sim.params, sim.spec
-    r = check_fluid_twins(d, p, spec, seed=3)
-    assert r["rebin_stage"]["dropped"] > 0
-    m = d.occ > 0.5
-    assert torch.equal(density_sweep(d.px, d.py, d.pz, d.occ, p, spec)[m],
-                       dense.density_raw(d.px, d.py, d.pz, p, spec)[m])
-    d2 = accel_inputs(d, p, spec)
+def exact(kern, plain, occ):
+    """Occupied slots: the plain version's bits, NaN for NaN; empty: +0."""
+    m = occ > 0.5
+    a, b = kern[m], plain[m]
+    nan = b.isnan()
+    assert torch.equal(a.isnan(), nan)
+    assert torch.equal(a[~nan].view(torch.int32), b[~nan].view(torch.int32))
+    assert not bool(kern[~m].view(torch.int32).any())
+
+
+def sweeps_exact(d, d2, p, spec):
+    """K1 on d's positions and K2 on d2 (positions and the accel inputs)
+    against their plain versions; returns the number of NaN results."""
+    rho = density_sweep(d.px, d.py, d.pz, d.occ, p, spec)
+    exact(rho, dense.density_raw(d.px, d.py, d.pz, p, spec), d.occ)
     pr2 = d2.prs / (d2.rho * d2.rho)
     plain = dense.accel_raw(d2, torch.reciprocal(d2.rho), pr2, p, spec)
-    for a, b in zip(accel_sweep(d2, pr2, p, spec), plain):
-        assert torch.equal(a[m], b[m])
+    kern = accel_sweep(d2, pr2, p, spec)
+    for a, b in zip(kern, plain):
+        exact(a, b, d2.occ)
+    return int(rho.isnan().sum()) + sum(int(a.isnan().sum()) for a in kern)
+
+
+def stepped(cuda, case, steps=12):
+    scene, kw = SCENES[case]
+    sim = FluidSimulation.from_scene(scene, substeps=6, device=cuda, **kw)
+    sim.run(steps)
+    return sim.dstate, sim.params, sim.spec
+
+
+@pytest.mark.parametrize("case", sorted(SCENES))
+def test_kernels_match_plain(cuda, case):
+    d, p, spec = stepped(cuda, case)
+    r = check_fluid_twins(d, p, spec, seed=3)
+    assert r["rebin_stage"]["dropped"] > 0
+    for name in ("density", "accel"):
+        assert r[name]["bitwise"] and r[name]["empty_zero"], r[name]
+        assert r[name]["max_abs_err"] == 0.0
+    assert sweeps_exact(d, accel_inputs(d, p, spec), p, spec) == 0
+
+
+# Where a cell's slots run out (or are added): positions at the sentinel,
+# everything else 0 (ρ and p are recomputed by accel_inputs).
+EMPTY_SLOT = {"px": dense.SENTINEL, "py": dense.SENTINEL,
+              "pz": dense.SENTINEL, "vx": 0.0, "vy": 0.0, "vz": 0.0,
+              "occ": 0.0, "rho": 0.0, "prs": 0.0}
+
+
+@pytest.mark.parametrize("case,k", [("3d", 4), ("2d", 8)])
+def test_sweeps_exact_in_the_other_builds(cuda, case, k):
+    """The other two builds of the sweeps — K = 4 with a plane stencil,
+    K = 8 without — on a stepped scene cut to its first 4 slots per cell
+    (3D) or given 4 more, empty ones (2D)."""
+    d, p, built = stepped(cuda, case, steps=6)
+
+    def reslot(x, fill):
+        if k <= built.k:
+            return x[:, :k].contiguous()
+        pad = torch.full((built.n0, k - built.k, built.C), fill,
+                         dtype=x.dtype, device=x.device)
+        return torch.cat([x, pad], dim=1)
+
+    spec = dataclasses.replace(built, k=k)
+    d = d.replace_fields(**{f: reslot(getattr(d, f), fill)
+                            for f, fill in EMPTY_SLOT.items()})
+    assert tuple(d.px.shape) == (spec.n0, k, spec.C)
+    assert bool((d.occ > 0.5).any())
+    assert sweeps_exact(d, accel_inputs(d, p, spec), p, spec) == 0
+
+
+def test_sweeps_exact_in_a_full_cell(cuda):
+    """Every slot of one cell occupied: the same-cell group A and its
+    mirror lump run over all K − 1 partners."""
+    d, p, spec = stepped(cuda, "3d")
+    occ = d.occ > 0.5
+    live = torch.nonzero(occ)
+    z, k, c = (int(i) for i in live[len(live) // 2])
+    g = torch.Generator(device=cuda).manual_seed(5)
+    jitter = (torch.rand((3, spec.k), generator=g, device=cuda) - 0.5) \
+        * (0.5 * p.h)
+    fields = {f: getattr(d, f).clone() for f in ("px", "py", "pz", "occ")}
+    for a, f in enumerate(("px", "py", "pz")):
+        fields[f][z, :, c] = getattr(d, f)[z, k, c] + jitter[a]
+    fields["occ"][z, :, c] = 1.0
+    d = d.replace_fields(**fields)
+    assert bool((d.occ > 0.5).all(dim=1).any())
+    assert sweeps_exact(d, accel_inputs(d, p, spec), p, spec) == 0
+
+
+@pytest.mark.parametrize("case", sorted(SCENES))
+def test_sweeps_exact_beside_an_empty_band(cuda, case):
+    """An occupied band next to one emptied by hand: the gate skips the
+    empty band (its outputs +0) and the sweep stages it as a halo."""
+    d, p, spec = stepped(cuda, case)
+    plan = band_plan(spec)
+    occ = d.occ > 0.5
+    z = int(torch.nonzero(occ)[0, 0])
+    rows = occ[z].any(dim=0).view(spec.n1, spec.X).any(dim=1)
+    live = [b for b in range(plan.bands - 1)
+            if rows[b * plan.rows:(b + 1) * plan.rows].any()
+            and rows[(b + 1) * plan.rows:(b + 2) * plan.rows].any()]
+    b = live[len(live) // 2] + 1
+    cut = slice(b * plan.rows * spec.X, min((b + 1) * plan.rows, spec.n1)
+                * spec.X)
+    fields = {f: getattr(d, f).clone() for f in
+              ("px", "py", "pz", "vx", "vy", "vz", "occ")}
+    for f in ("px", "py", "pz"):
+        fields[f][z, :, cut] = dense.SENTINEL
+    for f in ("vx", "vy", "vz", "occ"):
+        fields[f][z, :, cut] = 0.0
+    d = d.replace_fields(**fields)
+    assert not bool((d.occ[z, :, cut] > 0.5).any())
+    assert bool((d.occ[z, :, (b - 1) * plan.rows * spec.X:cut.start]
+                 > 0.5).any())
+    assert sweeps_exact(d, accel_inputs(d, p, spec), p, spec) == 0
+
+
+def test_sweeps_keep_nan_positions(cuda):
+    """A NaN position makes NaN pair terms, which neither screen skips:
+    K1 and K2 are NaN exactly where the plain versions are (the accel
+    inputs come from the finite state, so only the position is NaN)."""
+    d, p, spec = stepped(cuda, "3d")
+    d2 = accel_inputs(d, p, spec)
+    z, k, c = (int(i) for i in torch.nonzero(d.occ > 0.5)[100])
+    px = d.px.clone()
+    px[z, k, c] = float("nan")
+    assert sweeps_exact(d.replace_fields(px=px), d2.replace_fields(px=px),
+                        p, spec) > 1
 
 
 def test_main_path_launches_kernels(cuda):

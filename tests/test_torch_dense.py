@@ -18,10 +18,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from sph_tpu.sph import dense as jdense
 from sph_tpu.sph import model as jmodel
 from sph_tpu.sph import scenes as jscenes
+from sph_tpu_torch.ops import fluid
 from sph_tpu_torch.sph import dense as tdense
 from sph_tpu_torch.sph import model as tmodel
 from sph_tpu_torch.sph import scenes as tscenes
@@ -138,6 +141,110 @@ def test_rebin_matches_jax_twin(twin):
     assert_rebin_equal(a, b)
     assert int(b.dropped) > 0       # the nudge exercised overflow
     assert b.dropped.dtype == torch.int32
+
+
+def _screened(pair_fn, survives):
+    """pair_fn with every term forced to +0 where `survives` is False."""
+    def f(*a):
+        keep = survives(*a)
+        return tuple(torch.where(keep, t, 0.0) for t in pair_fn(*a))
+    return f
+
+
+def _r2(cx, cy, cz, qx, qy, qz):
+    dx, dy, dz = cx - qx, cy - qy, cz - qz
+    return dx * dx + dy * dy + dz * dz
+
+
+def test_screen_is_bitwise_invisible(twin):
+    """The K1/K2 partner screen (csrc/fluid_sweep.cu) on the plain sweep:
+    forcing to +0 every term the kernel skips — K1 where h² − r² ≤ 0; K2
+    where its first pass drops the partner (r2_cut < r² < +inf) or where
+    h − r ≤ 0 with r = r²·rsqrt(max(r², 1e-18)) — leaves every slot's bits
+    as the unscreened sweep's, for density and accel."""
+    td, p, spec = twin.td, twin.tp, twin.tspec
+    h2 = p.h * p.h
+
+    def density(pair):
+        accs, m_row, m_cs = tdense._sweep_plain(
+            (td.px, td.py, td.pz), pair, ncomp=1,
+            self_init=tdense.density_self_term(p), spec=spec, sign=1)
+        return [tdense.combine_mirror_parts(
+            accs[0], m_row[0] if m_row else None, [m[0] for m in m_cs],
+            spec, sign=1)]
+
+    def d_pair(*a):
+        return tdense.density_pair_term(h2, *a)
+
+    full = density(d_pair)
+    skipped = density(_screened(
+        d_pair, lambda *a: ~((h2 - _r2(*a)) <= 0)))
+
+    rho = tdense.density_pass(td, p, spec)
+    occ = td.occ
+    d = td.replace_fields(
+        rho=rho, prs=torch.where(occ > 0.5, tmodel.eos_pressure(rho, p), 0.0),
+        vx=torch.sin(td.px * 3) * occ, vy=torch.cos(td.py * 3) * occ)
+    pr2, irho = d.prs / (d.rho * d.rho), torch.reciprocal(d.rho)
+    h, neg_m_spiky, visc_mc = tdense.accel_constants(p)
+
+    def accel(pair):
+        fields = (d.px, d.py, d.pz, d.vx, d.vy, d.vz, irho, pr2)
+        accs, m_row, m_cs = tdense._sweep_plain(
+            fields, pair, ncomp=3, self_init=None, spec=spec, sign=-1)
+        return [tdense.combine_mirror_parts(
+            accs[c], m_row[c] if m_row else None, [ms[c] for ms in m_cs],
+            spec, sign=-1) for c in range(3)]
+
+    def a_pair(*a):
+        return tdense.accel_pair_terms(h, neg_m_spiky, visc_mc, *a)
+
+    cut = fluid.accel_r2_cut(h)
+
+    def a_survives(*a):
+        r2 = _r2(*a[:3], *a[8:11])
+        marked = ~((r2 > cut) & (r2 < float("inf")))
+        r = r2 * torch.rsqrt(torch.clamp_min(r2, 1e-18))
+        return marked & ~((h - r) <= 0)
+
+    full += accel(a_pair)
+    skipped += accel(_screened(a_pair, a_survives))
+    for a, b in zip(full, skipped):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert bool((full[1] != 0).any())       # the accel terms were exercised
+    # The screen did skip: most stencil partners lie outside h.
+    r2 = _r2(td.px, td.py, td.pz, *(torch.roll(f, (0, 0, 1), (0, 1, 2))
+                                    for f in (td.px, td.py, td.pz)))
+    assert bool(((h2 - r2) <= 0)[occ > 0.5].any())
+
+
+def _ulps_around(x, n):
+    """x and its n f32 neighbours on each side."""
+    out, up, down = [x], x, x
+    for _ in range(n):
+        up = np.nextafter(up, np.float32(np.inf))
+        down = np.nextafter(down, np.float32(0))
+        out += [up, down]
+    return out
+
+
+@settings(max_examples=400, deadline=None)
+@given(h=st.floats(1e-4, 10.0), above=st.integers(1, 1 << 16))
+def test_accel_r2_cut_never_drops_a_live_pair(h, above):
+    """K2's first pass drops a partner when r² > r2_cut. For every f32 r²
+    above the cut and every rsqrt within the card's 2 ulp of 1/√r²,
+    r = r²·rsqrt rounds to r ≥ h, so h − r ≤ 0: the exact screen of the
+    second pass would drop the pair too. And the cut is only just above
+    h² (a margin of 2⁻¹⁶, rounded up to f32)."""
+    hf = np.float32(h)
+    cut = np.float32(fluid.accel_r2_cut(h))
+    assert float(cut) >= float(hf) ** 2 * (1 + fluid.R2_CUT_MARGIN)
+    assert cut <= np.float32(hf * hf) * np.float32(1 + 2 * fluid.R2_CUT_MARGIN)
+    r2 = (np.array([cut]).view(np.int32) + above).view(np.float32)[0]
+    exact = np.float32(1.0 / np.sqrt(np.float64(r2)))
+    for rinv in _ulps_around(exact, 2):
+        r = np.float32(r2 * rinv)
+        assert np.float32(hf - r) <= 0, (h, r2, rinv)
 
 
 def test_integrate_with_obstacle_and_drag():

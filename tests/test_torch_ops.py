@@ -1,16 +1,19 @@
 """The kernel wrappers and the kernel build, on the CPU: a CPU tensor takes
 the plain PyTorch version (and counts no launch), the dense step's kernel
-flag changes nothing there, and the build refuses cleanly without a CUDA
+flag changes nothing there, the fluid sweeps' band planner fits shared
+memory and covers the layout, and the build refuses cleanly without a CUDA
 toolkit. The kernels themselves are checked on the card
 (tests/test_torch_cuda.py, chip_smoke.py)."""
 
+import dataclasses
 import shutil
 
 import pytest
 import torch
 
 from sph_tpu_torch.ops import LAUNCHES, build, reset_launches
-from sph_tpu_torch.ops.fluid import accel_sweep, density_sweep
+from sph_tpu_torch.ops import fluid
+from sph_tpu_torch.ops.fluid import accel_sweep, band_plan, density_sweep
 from sph_tpu_torch.ops.rebin import staged_rebin
 from sph_tpu_torch.sph import dense
 from sph_tpu_torch.sph.scenes import dam_break_2d, dam_break_3d_obstacle
@@ -65,6 +68,74 @@ def test_kernel_flag_is_inert_on_cpu():
     for f in ("px", "py", "pz", "vx", "vy", "vz", "occ", "rho", "prs",
               "dropped", "clamped", "step_count"):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
+
+
+# The specs the card runs: config[3] (chip_smoke.py's main path) and
+# chip_smoke.py's 2D scene.
+PLANNED = {
+    "config3": (dam_break_3d_obstacle, dict(n_target=1_000_000,
+                                            cell_factor=1.38, dense_k=8,
+                                            rebin_every=6)),
+    "2d": (dam_break_2d, dict(n_target=4096, dense_k=4, cell_factor=1.2,
+                              rebin_every=3)),
+}
+
+
+def planned_spec(case):
+    scene, kw = PLANNED[case]
+    _, p = scene(**kw)
+    return dense.make_dense_spec(p, k=p.dense_k, cell_factor=p.cell_factor)
+
+
+@pytest.mark.parametrize("case", sorted(PLANNED))
+def test_band_plan_fits_and_covers(case):
+    spec = planned_spec(case)
+    plan = band_plan(spec)
+    if case == "config3":
+        assert (spec.n0, spec.k, spec.C, spec.X) == (145, 8, 7680, 80)
+        assert (plan.rows, plan.planes) == (2, 3)
+    else:
+        assert not spec.stencil0 and spec.k == 4 and plan.planes == 1
+    # Two sweep blocks (each with the 1 KB the system reserves) fit in an
+    # SM's 228 KB, so one fits in a block's 232,448 bytes.
+    assert 2 * (plan.smem_bytes + 1024) <= 233_472
+    assert plan.smem_bytes <= fluid.SMEM_TARGET <= 232_448
+    assert plan.smem_bytes == (
+        16 * fluid.partners(spec)
+        + 4 * (3 * plan.planes * spec.k * plan.run + spec.k * plan.rows
+               * spec.X + fluid.LOADS * fluid.THREADS // 32) + 16)
+    # The bands cover every row exactly once.
+    rows = [r for b in range(plan.bands)
+            for r in range(b * plan.rows, min((b + 1) * plan.rows, spec.n1))]
+    assert rows == list(range(spec.n1))
+    for b in range(plan.bands):
+        # The fused range the kernel copies for band b, clipped to the array.
+        lo = (b * plan.rows - 1) * spec.X - fluid.PAD
+        start, stop = max(lo, 0), min(lo + plan.run, spec.C)
+        r0, r1 = b * plan.rows, min((b + 1) * plan.rows, spec.n1)
+        # The copied halo lies inside the array, in 16-byte runs, within
+        # the staged buffer, and holds every row ±1 that exists.
+        assert 0 <= start < stop <= spec.C
+        assert start % fluid.PAD == 0 and stop % fluid.PAD == 0
+        assert stop - start <= plan.run
+        assert start <= max(r0 - 1, 0) * spec.X
+        assert stop >= min(r1 + 1, spec.n1) * spec.X
+    # A larger band would not keep two blocks on an SM.
+    if plan.rows < min(fluid.MAX_BAND_ROWS, spec.n1):
+        larger = fluid._plan(spec, plan.rows + 1)
+        assert larger.smem_bytes > fluid.SMEM_TARGET
+
+
+def test_band_plan_refuses_what_does_not_fit():
+    spec = planned_spec("config3")
+    wide = dataclasses.replace(spec, n2=1280)       # a row of 1,280 cells
+    assert fluid._plan(wide, 1).smem_bytes > 232_448
+    with pytest.raises(ValueError, match="shared memory"):
+        band_plan(wide)
+    with pytest.raises(ValueError, match="K in"):
+        band_plan(dataclasses.replace(spec, k=6))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        band_plan(dataclasses.replace(spec, n2=90))
 
 
 def test_operand_checks_refuse_non_cuda():
