@@ -25,10 +25,12 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
 6. colony kernels — the 1,048,576-cell bonded colony (bench.py's largest
                colony rung) built from scratch: the contact sweep (K4)
                against its plain version on every slot (rtol 1e-5 / atol
-               1e-6·max|x|) on the settled colony and on a copy compressed
-               ×0.7 about its centre (contacts must occur); the pack's
-               placement (K5) bitwise at 1M and at the expand probe's scene
-               (n=400, k=4, spawn 10).
+               1e-6·max|x|), asserted bitwise with +0 on empty slots, on
+               the settled colony and on a copy compressed ×0.7 about its
+               centre (contacts must occur), with its band plan and listed
+               bands; the pack's placement (K5) bitwise at 1M, at the
+               expand probe's scene (n=400, k=4, spawn 10) and at a crowded
+               scene whose cells overflow, with dead rows.
 7. colony main — 40 steps of the 1M colony through Simulation.step in
                chunks of 20, counters reset just before: 40 contact and 40
                expand launches, count conserved, overflow 0, bonds not
@@ -40,7 +42,9 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
                phase), the host synchronisations of one step, and the
                device's busy share under torch.profiler.
 10. times    — each kernel's ms against its plain version's (and, for the
-               placement, one PyTorch index_copy), beside its bound.
+               placement, one PyTorch index_copy), beside its bound; K4
+               also on the compressed copy, K5 also at the probe's
+               scene.
 
 The line before the last is {"kernels": [...]}, preceded by the card's
 `nvidia-smi` name and power limit; the last line is {"ok": true, ...}.
@@ -194,6 +198,27 @@ def band_line(d, spec) -> str:
         spec.n0, plan.bands, plan.rows).any(dim=2)
     return (f"band plan {plan}; {int(live.sum())} of {live.numel()} bands "
             f"hold an occupied slot")
+
+
+def contact_band_line(occ, spec) -> str:
+    """K4's band plan and how many of its bands the gate lists (those
+    holding an occupied slot)."""
+    from sph_tpu_torch.ops.contact import band_plan
+
+    plan = band_plan(spec)
+    rows = (occ > 0.5).any(dim=2)
+    pad = plan.bands * plan.rows - spec.ny
+    live = torch.nn.functional.pad(rows, (0, pad)).view(
+        spec.nz, plan.bands, plan.rows).any(dim=2)
+    return (f"band plan {plan}; {int(live.sum())} of {live.numel()} bands "
+            f"hold an occupied slot")
+
+
+def exact_contact(where: str, r: dict) -> None:
+    """K4 must equal its plain version bit for bit on every slot and hold
+    +0 on empty ones."""
+    if not (r["bitwise"] and r["empty_zero"] and r["max_abs_err"] == 0):
+        raise AssertionError(f"{where} contact: not exact: {r}")
 
 
 def exact_sweeps(where: str, checks: dict) -> None:
@@ -350,7 +375,7 @@ def main() -> int:
             lambda: dense.rebin(d, d.px, d.py, d.pz, d.vx, d.vy, d.vz,
                                 p, spec),
             None, bound(8 * plane + 6 * 4 * n_occ, 0)),
-        **colony_time_pairs(colony),
+        **colony_time_pairs(colony, card),
     }
     say("times", f"config[3] {list(d.px.shape)}: {n_pairs} occupied slot "
         f"pairs in the halved stencil, {n_near} of {n_occ} occupied slots "
@@ -480,10 +505,10 @@ def fluid_phases(sim, card) -> None:
 def colony_kernels(dev, card) -> dict:
     """Phase 5: build the 1M colony, hold K4 and K5 to their plain
     versions on it (settled and compressed) and K5 at the probe scene."""
-    from sph_tpu_torch.core.types import SimParams, SimState
     from sph_tpu_torch.engine.colony import bonded_colony
-    from sph_tpu_torch.physics.contact_dense import make_contact_spec
+    from sph_tpu_torch.physics import contact_dense as cd
     from sph_tpu_torch.utils.verify import (
+        blob,
         check_contact,
         check_expand,
         compressed,
@@ -491,44 +516,46 @@ def colony_kernels(dev, card) -> dict:
 
     t0 = time.perf_counter()
     state, params, genome = bonded_colony(COLONY_N, device=dev, **COLONY_KW)
-    spec = make_contact_spec(params, k=params.dense_k,
-                             cell_factor=params.dense_cell_factor)
+    spec = cd.make_contact_spec(params, k=params.dense_k,
+                                cell_factor=params.dense_cell_factor)
     n_bonds = int(state.bonds.active.sum())
     say("colony kernels", f"{COLONY_N} cells, {n_bonds} bonds (capacity "
         f"{params.max_bonds}), layout {list(spec.shape())} ({spec.slots} "
         f"slots), built in {time.perf_counter() - t0:.1f} s")
     contact = check_contact(state, params, spec)
+    exact_contact("settled", contact)
     say("colony kernels", f"contact, settled: {json.dumps(contact)}")
     squeezed = compressed(state, 0.7)
     contact_c = check_contact(squeezed, params, spec)
+    exact_contact("compressed", contact_c)
     say("colony kernels", f"contact, compressed x0.7: "
         f"{json.dumps(contact_c)}")
     if contact_c["contact_slots"] == 0:
         raise AssertionError("compressed colony has no contact: the pair "
                              "math was not exercised")
+    occ = cd._pack_args(state, spec)[1]
+    say("colony kernels", f"contact {contact_band_line(occ, spec)}")
     expand = check_expand(state, spec)
     say("colony kernels", f"expand at 1M: {json.dumps(expand)}")
     # The expand probe's scene (tools/repro_expand.py): 400 cells in a
     # radius-9 ball, k = 4, spawn radius 10, drawn with numpy (seed 3).
-    rng = np.random.default_rng(3)
-    u = rng.normal(size=(400, 3))
-    u /= np.linalg.norm(u, axis=-1, keepdims=True)
-    r = 9.0 * rng.uniform(size=(400, 1)) ** (1 / 3)
-    p6 = SimParams(capacity=400, spawn_radius=10.0, neighbor_mode="dense",
-                   dense_k=4)
-    f32 = dict(dtype=torch.float32, device=dev)
-    s6 = SimState.zeros(400, p6, device=dev).replace_fields(
-        pos=torch.tensor(u * r, **f32),
-        vel=torch.tensor(rng.normal(size=(400, 3)) * 0.5, **f32),
-        ang_vel=torch.tensor(rng.normal(size=(400, 3)) * 0.5, **f32),
-        radius=torch.full((400,), 2.0, **f32),
-        active_count=torch.tensor(400, dtype=torch.int32, device=dev))
-    spec6 = make_contact_spec(p6, k=4, cell_factor=p6.dense_cell_factor)
+    s6, _, spec6 = blob(n=400, k=4, seed=3, radius=9.0, spawn=10.0,
+                        radii=(2.0, 2.0), device=dev)
     expand6 = check_expand(s6, spec6)
     say("colony kernels", f"expand at the probe scene {list(spec6.shape())}:"
-        f" {json.dumps(expand6)} | {card}")
+        f" {json.dumps(expand6)}")
+    # Crowded: 50,000 cells in a radius-20 ball (~14 a cell, K = 2), the
+    # last 1,000 rows dead.
+    s7, _, spec7 = blob(n=50_000, k=2, seed=7, radius=20.0, spawn=22.0,
+                        alive=49_000, device=dev)
+    expand7 = check_expand(s7, spec7)
+    if expand7["overflow"] == 0 or expand7["dead"] != 1_000:
+        raise AssertionError(f"crowded scene: no overflow or wrong dead "
+                             f"rows: {expand7}")
+    say("colony kernels", f"expand at a crowded scene "
+        f"{list(spec7.shape())}: {json.dumps(expand7)} | {card}")
     return {"state": state, "params": params, "genome": genome,
-            "spec": spec, "bonds": n_bonds,
+            "spec": spec, "bonds": n_bonds, "probe": (s6, spec6),
             "checks": {"contact": contact_c if contact_c["max_abs_err"]
                        > contact["max_abs_err"] else contact,
                        "expand": expand}}
@@ -630,8 +657,8 @@ def colony_phases(colony, card) -> None:
 
     sim = colony["sim"]
     st, p, g, spec = sim.state, sim.params, sim.genome_dev, colony["spec"]
-    rows, flat, fits, ovr, slot_of = cd._sort_with_payload(st, spec)
-    packed = expand_rows(rows, flat, fits, cd.PACK_FILLS, spec)
+    rows, flat, fits, key, ovr, slot_of = cd._sort_with_payload(st, spec)
+    packed = expand_rows(rows, key, cd.PACK_FILLS, spec)
     fields = [packed[c].view(spec.shape()) for c in range(10)]
     occ = packed[10].view(spec.shape())
     comps = contact_sweep(fields, occ, p, spec)
@@ -641,8 +668,7 @@ def colony_phases(colony, card) -> None:
     phases = {
         "pack sort (cell ids, stable sort, row gather, ranks)":
             lambda: cd._sort_with_payload(st, spec),
-        "K5 expand": lambda: expand_rows(rows, flat, fits, cd.PACK_FILLS,
-                                         spec),
+        "K5 expand": lambda: expand_rows(rows, key, cd.PACK_FILLS, spec),
         "K4 contact sweep": lambda: contact_sweep(fields, occ, p, spec),
         "gather back": lambda: cd.gather_back(
             [c.reshape(-1) for c in comps], slot_of, ovr),
@@ -692,46 +718,75 @@ def colony_phases(colony, card) -> None:
     say("colony phases", f"profiled 5 steps: {device_busy(five_steps, card)}")
 
 
-def colony_time_pairs(colony) -> dict:
-    """(kernel, plain, library call, bound) of K4 and K5 at the 1M colony
-    after its main run."""
+def contact_pair(fields, occ, p, spec):
+    """(what the sweep must do, (kernel, plain, library call, bound)) of K4
+    on packed fields."""
     from sph_tpu_torch.ops.contact import contact_sweep
+    from sph_tpu_torch.physics import contact_dense as cd
+
+    w = contact_work(fields, occ, p, spec)
+    plane = spec.slots * 4
+    return w, (
+        lambda: contact_sweep(fields, occ, p, spec),
+        lambda: cd._sweep_plain(
+            fields, lambda *a: cd.contact_pair_terms(p, *a), 6, spec),
+        None,
+        # occupancy in, 6 components out; position and radius where a
+        # partner is, velocity and spin where a pair touches.
+        bound(7 * plane + 4 * 4 * w["near"] + 6 * 4 * w["touching"],
+              w["screens"] * CONTACT_SCREEN_FLOPS
+              + w["hits"] * CONTACT_PAIR_FLOPS))
+
+
+def expand_pair(state, spec):
+    """(kernel, plain, library call, bound) of K5 on a state's pack sort."""
     from sph_tpu_torch.ops.expand import expand_rows
     from sph_tpu_torch.physics import contact_dense as cd
 
-    st, p, spec = colony["sim"].state, colony["sim"].params, colony["spec"]
-    rows, flat, fits, _, _ = cd._sort_with_payload(st, spec)
-    packed = expand_rows(rows, flat, fits, cd.PACK_FILLS, spec)
-    fields = [packed[c].view(spec.shape()) for c in range(10)]
-    occ = packed[10].view(spec.shape())
-    w = contact_work(fields, occ, p, spec)
-    say("times", f"colony {list(spec.shape())}: {json.dumps(w)}")
-    plane = spec.slots * 4
+    rows, flat, fits, key, _, _ = cd._sort_with_payload(state, spec)
     base = torch.tensor(cd.PACK_FILLS, dtype=torch.float32,
                         device=rows.device)[:, None].expand(
                             11, spec.slots + 1).contiguous()
     idx = flat.long()
     src = rows.t()
     n = rows.shape[0]
-    return {
-        "contact": (
-            lambda: contact_sweep(fields, occ, p, spec),
-            lambda: cd._sweep_plain(
-                fields, lambda *a: cd.contact_pair_terms(p, *a), 6, spec),
-            None,
-            # occupancy in, 6 components out; position and radius where a
-            # partner is, velocity and spin where a pair touches.
-            bound(7 * plane + 4 * 4 * w["near"] + 6 * 4 * w["touching"],
-                  w["screens"] * CONTACT_SCREEN_FLOPS
-                  + w["hits"] * CONTACT_PAIR_FLOPS)),
-        "expand": (
-            lambda: expand_rows(rows, flat, fits, cd.PACK_FILLS, spec),
-            lambda: cd._scatter_sorted(rows.unbind(1), cd.PACK_FILLS, flat,
-                                       fits, spec),
-            lambda: torch.index_copy(base, 1, idx, src),
-            # targets in, the rows that fit in, 11 planes out.
-            bound(n * 4 + int(fits.sum()) * 11 * 4 + 11 * plane, 0)),
-    }
+    return (
+        lambda: expand_rows(rows, key, cd.PACK_FILLS, spec),
+        lambda: cd._scatter_sorted(rows.unbind(1), cd.PACK_FILLS, flat,
+                                   fits, spec),
+        lambda: torch.index_copy(base, 1, idx, src),
+        # keys in, the rows that fit in, 11 planes out.
+        bound(n * 4 + int(fits.sum()) * 11 * 4 + 11 * spec.slots * 4, 0))
+
+
+def colony_time_pairs(colony, card) -> dict:
+    """(kernel, plain, library call, bound) of K4 and K5 at the 1M colony
+    after its main run. Also times, on their own lines, K4 on the
+    compressed copy and K5 at the probe's scene."""
+    from sph_tpu_torch.physics import contact_dense as cd
+    from sph_tpu_torch.utils.verify import compressed
+
+    st, p, spec = colony["sim"].state, colony["sim"].params, colony["spec"]
+    fields, occ, _, _ = cd._pack_args(st, spec, expand=True)
+    w, contact = contact_pair(fields, occ, p, spec)
+    say("times", f"colony {list(spec.shape())}: {json.dumps(w)}")
+    fields_c, occ_c, _, _ = cd._pack_args(compressed(st, 0.7), spec,
+                                          expand=True)
+    w_c, (kern, _, _, bnd) = contact_pair(fields_c, occ_c, p, spec)
+    say("times", f"colony compressed x0.7: {json.dumps(w_c)}")
+    k1, k2 = cuda_ms(kern, 20), cuda_ms(kern, 20)
+    say("times", f"contact compressed x0.7: kernel {(k1 + k2) / 2:.4f} ms "
+        f"({k1:.4f}, {k2:.4f}), bound {bnd['bound_ms']:.4f} ms by "
+        f"{bnd['bound_by']} | {card}")
+    s6, spec6 = colony["probe"]
+    kern, plain, library_call, bnd = expand_pair(s6, spec6)
+    p1, k1, k2, p2 = (cuda_ms(plain, 20), cuda_ms(kern, 20),
+                      cuda_ms(kern, 20), cuda_ms(plain, 20))
+    say("times", f"expand at the probe scene {list(spec6.shape())}: kernel "
+        f"{(k1 + k2) / 2:.4f} ms ({k1:.4f}, {k2:.4f}), plain "
+        f"{(p1 + p2) / 2:.4f} ms, library {cuda_ms(library_call, 20):.4f} "
+        f"ms, bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} | {card}")
+    return {"contact": contact, "expand": expand_pair(st, spec)}
 
 
 if __name__ == "__main__":

@@ -31,13 +31,6 @@ def norm(x: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     return torch.sqrt(torch.sum(x * x, dim=-1, keepdim=keepdim))
 
 
-def identity(shape=(), device="cpu") -> torch.Tensor:
-    """Identity quaternion(s) with the given batch shape."""
-    q = torch.zeros((*shape, 4), dtype=torch.float32, device=device)
-    q[..., 3] = 1.0
-    return q
-
-
 def mul(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     """Hamilton product q1 ⊗ q2 (quat_mul, compute:359-365)."""
     v1, w1 = q1[..., :3], q1[..., 3:4]

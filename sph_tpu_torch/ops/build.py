@@ -45,12 +45,12 @@ _ARGTYPES = {
     # lo, hi, stream
     "sph_rebin_stage": [ctypes.POINTER(_P)] * 2 + [_P] + [_I] * 6
     + [_F] * 2 + [_I] * 2 + [_P],
-    # fields[10], occ, outs[6], Z, Y, L, K, eps, slip_eps, repulsion,
-    # torque_factor, mult, stream
-    "sph_contact_sweep": [ctypes.POINTER(_P), _P, ctypes.POINTER(_P)]
-    + [_I] * 4 + [_F] * 5 + [_P],
-    # rows, flat, out, n, ncol, slots, fills (host), stream
-    "sph_expand_rows": [_P] * 3 + [_I] * 3 + [ctypes.POINTER(_F), _P],
+    # fields[10], occ, outs[6], work, Z, Y, L, K, band_rows, smem_bytes,
+    # eps, slip_eps, repulsion, torque_factor, mult, stream
+    "sph_contact_sweep": [ctypes.POINTER(_P), _P, ctypes.POINTER(_P), _P]
+    + [_I] * 6 + [_F] * 5 + [_P],
+    # rows, key, start, out, n, ncol, slots, fills (host), stream
+    "sph_expand_rows": [_P] * 4 + [_I] * 3 + [ctypes.POINTER(_F), _P],
 }
 
 

@@ -217,8 +217,10 @@ def _cell_ids(state: SimState, spec: ContactSpec):
 
 def _rank_and_slots(cid_s, order, spec: ContactSpec):
     """Bookkeeping on the SORTED cell ids: rank in cell (cummax of run
-    starts), fits mask, counted overflow, flat slot targets (drop bucket =
-    spec.slots) and the particle-order slot_of."""
+    starts), fits mask, flat slot targets (drop bucket = spec.slots), the
+    placement key cid·K + min(rank, K − 1) (nondecreasing, equal to flat
+    where a row fits: K5 looks its rows up by it, `targets_of_keys`),
+    counted overflow and the particle-order slot_of."""
     N = cid_s.shape[0]
     K = spec.k
     slots = spec.slots
@@ -232,17 +234,29 @@ def _rank_and_slots(cid_s, order, spec: ContactSpec):
     fits = alive_s & (rank < K)
     overflow = torch.sum(alive_s & ~fits).to(torch.int32)
     flat = cid_s * K + rank                    # (z·ny + y)·L + x·K + m
+    key = (cid_s * K + torch.clamp(rank, max=K - 1)).to(torch.int32)
     flat = torch.where(fits, flat, slots).to(torch.int32)
     slot_of = torch.full((N,), slots, dtype=torch.int32, device=dev)
     slot_of[order] = flat                      # order is a permutation
-    return flat, fits, overflow, slot_of
+    return flat, fits, key, overflow, slot_of
+
+
+def targets_of_keys(key, slots: int):
+    """(flat, fits) from the placement keys: a row fits when its key is
+    below `slots` (a dead row's is not) and differs from the key of the row
+    before (a cell's overflow rows repeat the key of its rank-(K − 1) row);
+    flat is then the key, else the drop bucket `slots`. The same targets as
+    `_rank_and_slots`."""
+    prev = torch.cat([key[:1] - 1, key[:-1]])
+    fits = (key < slots) & (key != prev)
+    return torch.where(fits, key, slots).to(torch.int32), fits
 
 
 def _sort_with_payload(state: SimState, spec: ContactSpec):
     """The pack sort: a stable sort of the cell ids and ONE row gather of
     the 11 particle columns (pos, vel, ang_vel, radius, occupancy 1.0) —
     bitwise the permutation of the JAX package's payload lax.sort. Returns
-    (rows [N, 11] in sorted order, flat, fits, overflow, slot_of)."""
+    (rows [N, 11] in sorted order, flat, fits, key, overflow, slot_of)."""
     N = state.capacity
     cid = _cell_ids(state, spec)
     cid_s, order = torch.sort(cid, stable=True)
@@ -250,8 +264,7 @@ def _sort_with_payload(state: SimState, spec: ContactSpec):
     tbl = torch.cat([state.pos, state.vel, state.ang_vel,
                      state.radius[:, None], ones], dim=1)
     rows = tbl[order]
-    flat, fits, overflow, slot_of = _rank_and_slots(cid_s, order, spec)
-    return rows, flat, fits, overflow, slot_of
+    return (rows, *_rank_and_slots(cid_s, order, spec))
 
 
 def _scatter_sorted(cols, fills, flat, fits, spec: ContactSpec):
@@ -273,11 +286,11 @@ def _pack_args(state: SimState, spec: ContactSpec, expand: bool = False):
     """The pack: (fields [10][Z, Y, L], occ, slot_of, overflow).
     expand=True places the rows through ops.expand.expand_rows (K5 on a
     CUDA tensor, `_scatter_sorted` on a CPU one); both give the same bits."""
-    rows, flat, fits, overflow, slot_of = _sort_with_payload(state, spec)
+    rows, flat, fits, key, overflow, slot_of = _sort_with_payload(state, spec)
     if expand:
         from sph_tpu_torch.ops.expand import expand_rows
 
-        out = expand_rows(rows, flat, fits, PACK_FILLS, spec)
+        out = expand_rows(rows, key, PACK_FILLS, spec)
         arrs = [out[c].view(spec.shape()) for c in range(11)]
     else:
         arrs = _scatter_sorted(rows.unbind(1), PACK_FILLS, flat, fits, spec)

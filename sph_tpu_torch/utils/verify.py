@@ -12,16 +12,20 @@ chip_smoke.py asserts on the card; the rebin (K3) is bitwise on all 7
 payload fields (with −0 == +0) and on `dropped`. The colony contact sweep
 (K4) agrees to the twin tolerance on EVERY slot of its 6 components, for
 finite fields (csrc/contact_sweep.cu states what its skip hides from
-non-finite ones); the contact pack's placement (K5) is bitwise on all 11
-planes, −0 included.
+non-finite ones), and reports `bitwise` and `empty_zero` as K1/K2 do; the
+contact pack's placement (K5) is bitwise on all 11 planes, −0 included.
+`expand_lookup` is K5's row lookup written out in plain PyTorch, for the
+CPU tests.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from sph_tpu_torch.core.types import SimParams, SimState
 from sph_tpu_torch.ops.contact import contact_sweep
-from sph_tpu_torch.ops.expand import expand_rows
+from sph_tpu_torch.ops.expand import RANGE, expand_rows
 from sph_tpu_torch.ops.fluid import accel_sweep, density_sweep
 from sph_tpu_torch.ops.rebin import staged_rebin
 from sph_tpu_torch.physics import contact_dense as cd
@@ -165,7 +169,8 @@ def _close_everywhere(name: str, plain, kern) -> dict:
 
 def check_contact(state, params, spec) -> dict:
     """K4 against the plain sweep on the state's packed fields, every slot
-    of all 6 components; also counts the slots with a nonzero force
+    of all 6 components (`empty_zero`: every empty slot of the kernel's
+    result is +0); also counts the slots with a nonzero force
     (`contact_slots`)."""
     fields, occ, _, _ = cd._pack_args(state, spec)
     plain = cd._sweep_plain(
@@ -176,6 +181,8 @@ def check_contact(state, params, spec) -> dict:
                                   plain, kern)]
     out = max(results, key=lambda r: r["max_abs_err"])
     out["bitwise"] = all(r["bitwise"] for r in results)
+    empty = occ <= 0.5
+    out["empty_zero"] = not any(bool(_bits(k[empty]).any()) for k in kern)
     force = torch.stack(plain[:3])
     out["contact_slots"] = int((force != 0).any(dim=0).sum())
     return out
@@ -183,9 +190,10 @@ def check_contact(state, params, spec) -> dict:
 
 def check_expand(state, spec) -> dict:
     """K5 against the plain `_scatter_sorted` on the state's pack sort:
-    bitwise on all 11 planes (compared as int32 bits, so −0 ≠ +0)."""
-    rows, flat, fits, overflow, _ = cd._sort_with_payload(state, spec)
-    kern = expand_rows(rows, flat, fits, cd.PACK_FILLS, spec)
+    bitwise on all 11 planes (compared as int32 bits, so −0 ≠ +0). Also
+    reports the rows placed, the overflow and the dead rows."""
+    rows, flat, fits, key, overflow, _ = cd._sort_with_payload(state, spec)
+    kern = expand_rows(rows, key, cd.PACK_FILLS, spec)
     plain = cd._scatter_sorted(rows.unbind(1), cd.PACK_FILLS, flat, fits,
                                spec)
     n_diff = 0
@@ -195,7 +203,40 @@ def check_expand(state, spec) -> dict:
     if n_diff:
         raise AssertionError(f"expand: {n_diff} slots differ in their bits")
     return {"max_abs_err": 0.0, "rows": int(fits.sum()),
-            "overflow": int(overflow)}
+            "overflow": int(overflow),
+            "dead": int((key >= spec.slots).sum())}
+
+
+def expand_lookup(key, slots: int, range_slots: int = RANGE):
+    """K5's row lookup (csrc/expand_rows.cu) in plain PyTorch, step for
+    step: the start table (start[r] = the first row whose key ≥
+    r·range_slots, for r up to the number of ranges; row i fills the
+    entries (range(key[i − 1]), range(key[i])]), then per range its rows
+    [start[r], start[r + 1]) that fit — key in the range and unlike the
+    row before's. Returns (slot → row [slots] int64, −1 where the fill
+    stays; the start table). Refuses a key that is not nondecreasing, as
+    `flat` is once a cell overflows: no search can find a range's rows by
+    it."""
+    k = key.long()
+    n = k.numel()
+    if n > 1 and bool((k[1:] < k[:-1]).any()):
+        raise ValueError("expand_lookup: the key is not nondecreasing, so "
+                         "it cannot locate a range's rows (is it `flat`?)")
+    ranges = -(-slots // range_slots)
+    cur = torch.cat([torch.clamp(k // range_slots, max=ranges),
+                     torch.tensor([ranges])])
+    prev = torch.cat([torch.tensor([-1]), cur[:-1]])
+    start = torch.repeat_interleave(torch.arange(n + 1), cur - prev)
+    slot_row = torch.full((slots,), -1, dtype=torch.int64)
+    for r in range(ranges):
+        s0 = r * range_slots
+        span = min(range_slots, slots - s0)
+        i = torch.arange(int(start[r]), int(start[r + 1]))
+        ki = k[i]
+        before = torch.where(i > 0, k[torch.clamp(i - 1, min=0)], -1)
+        fit = (ki >= s0) & (ki - s0 < span) & (ki != before)
+        slot_row[ki[fit]] = i[fit]
+    return slot_row, start
 
 
 def compressed(state, factor: float):
@@ -206,3 +247,29 @@ def compressed(state, factor: float):
     c = pos[:n].mean(dim=0)
     pos[:n] = c + (pos[:n] - c) * factor
     return state.replace_fields(pos=pos)
+
+
+def blob(n: int = 400, k: int = 4, seed: int = 3, radius: float = 9.0,
+         spawn: float = 10.0, alive: int | None = None,
+         radii=(1.6, 2.0), device="cuda"):
+    """n cells in a ball of `radius` (cube-root radial law), moving and
+    spinning (normal velocity and spin × 0.5), radii uniform in `radii`,
+    the first `alive` of them live, drawn with numpy from `seed`: the
+    expand probe's scene (tools/repro_expand.py: n = 400, k = 4, spawn 10,
+    radii 2.0) and its variants. Returns (state, params, contact spec)."""
+    rng = np.random.default_rng(seed)
+    u = rng.normal(size=(n, 3))
+    u /= np.linalg.norm(u, axis=-1, keepdims=True)
+    r = radius * rng.uniform(size=(n, 1)) ** (1 / 3)
+    p = SimParams(capacity=n, spawn_radius=spawn, neighbor_mode="dense",
+                  dense_k=k)
+    f32 = dict(dtype=torch.float32, device=device)
+    state = SimState.zeros(n, p, device=device).replace_fields(
+        pos=torch.tensor(u * r, **f32),
+        vel=torch.tensor(rng.normal(size=(n, 3)) * 0.5, **f32),
+        ang_vel=torch.tensor(rng.normal(size=(n, 3)) * 0.5, **f32),
+        radius=torch.tensor(rng.uniform(*radii, n), **f32),
+        active_count=torch.tensor(n if alive is None else alive,
+                                  dtype=torch.int32, device=device))
+    spec = cd.make_contact_spec(p, k=k, cell_factor=p.dense_cell_factor)
+    return state, p, spec

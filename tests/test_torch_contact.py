@@ -91,8 +91,8 @@ def test_expand_wrapper_is_scatter_sorted():
     """The K5 wrapper on CPU tensors returns the plain placement."""
     _, ts, p = blob(n=400, k=4, seed=3)
     spec = specs(p)[1]
-    rows, flat, fits, _, _ = tcd._sort_with_payload(ts, spec)
-    out = expand_rows(rows, flat, fits, tcd.PACK_FILLS, spec)
+    rows, flat, fits, key, _, _ = tcd._sort_with_payload(ts, spec)
+    out = expand_rows(rows, key, tcd.PACK_FILLS, spec)
     planes = tcd._scatter_sorted(rows.unbind(1), tcd.PACK_FILLS, flat, fits,
                                  spec)
     assert out.shape == (11, spec.slots)

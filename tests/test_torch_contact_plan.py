@@ -1,0 +1,173 @@
+"""The colony kernels' host-side geometry, on the CPU: K4's band planner
+(ops/contact.py `band_plan`) and its halo indexing, and K5's row lookup
+(csrc/expand_rows.cu, written out in plain PyTorch as
+sph_tpu_torch.utils.verify `expand_lookup`) against the pack's own
+bookkeeping `_rank_and_slots`. The kernels themselves are checked on the
+card (tests/test_torch_cuda.py, chip_smoke.py)."""
+
+import dataclasses
+
+import pytest
+import torch
+
+from sph_tpu_torch.ops import contact as oc
+from sph_tpu_torch.ops.expand import RANGE, expand_rows
+from sph_tpu_torch.ops.fluid import SMEM_LIMIT, SMEM_TARGET
+from sph_tpu_torch.physics import contact_dense as cd
+from sph_tpu_torch.utils.verify import blob, expand_lookup
+
+torch.set_num_threads(1)
+
+
+def blob_spec(k, spawn=10.0):
+    return blob(n=8, k=k, spawn=spawn, device="cpu")[2]
+
+
+# chip_smoke.py's 1,048,576-cell colony: layout [186, 192, 384], K = 2.
+COLONY_1M = cd.ContactSpec(nz=186, ny=192, nx=186, nx_pad=192, k=2,
+                           cell=2.1, origin=(-195.3, -195.3, -195.3))
+SPECS = {
+    "colony_1m": lambda: COLONY_1M,
+    "blob_k4": lambda: blob_spec(4),
+    "blob_k1": lambda: blob_spec(1),
+    "y8": lambda: blob_spec(2, spawn=6.0),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SPECS))
+def test_band_plan_fits_and_covers(case):
+    spec = SPECS[case]()
+    if case == "y8":
+        assert spec.ny == 8
+    plan = oc.band_plan(spec)
+    # Two sweep blocks fit on an SM, and one more row would not keep them.
+    assert plan.smem_bytes <= SMEM_TARGET <= SMEM_LIMIT
+    assert plan.rows == min(oc.MAX_BAND_ROWS, spec.ny) or \
+        oc._plan(spec, plan.rows + 1).smem_bytes > SMEM_TARGET
+    # The halo row holds every lane offset of the stencil, 16-byte runs.
+    reach = 2 * spec.k - 1
+    assert plan.run == spec.L + 2 * oc.lane_pad(spec.k)
+    assert oc.lane_pad(spec.k) >= reach and oc.lane_pad(spec.k) % 4 == 0
+    # Every row of every plane is in exactly one band (the gate's grid).
+    seen = torch.zeros((spec.nz, spec.ny), dtype=torch.int64)
+    for band in range(spec.nz * plan.bands):
+        z, r0 = band // plan.bands, band % plan.bands * plan.rows
+        seen[z, r0:min(r0 + plan.rows, spec.ny)] += 1
+    assert bool((seen == 1).all())
+    if case == "colony_1m":
+        assert spec.shape() == (186, 192, 384)
+        assert (plan.rows, plan.bands, plan.smem_bytes) == (3, 64, 98_736)
+    # The work buffer holds the list and a whole number of 32-slot
+    # occupancy masks per band.
+    assert plan.rows * spec.L % 32 == 0
+    assert plan.rows * spec.L <= 32 * 1024      # the gate's mask buffer
+    bands = spec.nz * plan.bands
+    assert oc.work_ints(spec, plan) == 2 + bands * (1 + plan.rows * spec.L
+                                                   // 32)
+
+
+def test_band_plan_refuses_what_it_cannot_take():
+    with pytest.raises(ValueError, match="built for K"):
+        oc.band_plan(dataclasses.replace(COLONY_1M, k=3))
+    with pytest.raises(ValueError, match="more than"):
+        oc.band_plan(dataclasses.replace(COLONY_1M, nx_pad=4096))
+
+
+@pytest.mark.parametrize("case", ["blob_k4", "y8"])
+def test_band_halo_holds_the_rolled_partners(case):
+    """The sweep's halo, staged as the kernel stages it (planes and rows
+    wrapped; each row copied to lane kPad, then padded with its own wrapped
+    lanes), gives at every own slot of a band and every variant the plain
+    sweep's rolled partner — for the first band row, the last (short or at
+    the array's edge) and one inside, in the first, a middle and the last
+    plane."""
+    spec = SPECS[case]()
+    plan = oc.band_plan(spec)
+    Z, Y, L, pad = spec.nz, spec.ny, spec.L, oc.lane_pad(spec.k)
+    g = torch.Generator().manual_seed(1)
+    field = torch.rand((Z, Y, L), generator=g)
+    plane, run = (plan.rows + 2) * plan.run, plan.run
+    for z in (0, Z // 2, Z - 1):
+        for b in (0, plan.bands // 2, plan.bands - 1):
+            r0 = b * plan.rows
+            rows = min(plan.rows, Y - r0)
+            halo = torch.full((3 * plane,), float("nan"))
+            for t in range(3 * (rows + 2)):        # the copies
+                r, p = t % (rows + 2), t // (rows + 2)
+                at = p * plane + r * run
+                halo[at + pad:at + pad + L] = field[(z - 1 + p) % Z,
+                                                    (r0 - 1 + r) % Y]
+            for t in range(3 * (rows + 2) * 2 * pad):   # the pads
+                i, row = t % (2 * pad), t // (2 * pad)
+                at = row // (rows + 2) * plane + row % (rows + 2) * run
+                if i < pad:
+                    halo[at + i] = halo[at + L + i]
+                else:
+                    halo[at + L + i] = halo[at + i]
+            for dz, dy, o in cd.contact_variants(spec):
+                want = torch.roll(field, (-dz, -dy, -o), (0, 1, 2))
+                for ry in range(rows):
+                    own = plane + (ry + 1) * run + pad + torch.arange(L)
+                    got = halo[own + dz * plane + dy * run + o]
+                    assert torch.equal(got, want[z, r0 + ry]), \
+                        (z, b, dz, dy, o)
+
+
+def slot_rows(flat, fits, slots):
+    """The slot → sorted-row map that `_rank_and_slots` implies."""
+    want = torch.full((slots,), -1, dtype=torch.int64)
+    rows = torch.arange(flat.numel())
+    want[flat[fits].long()] = rows[fits]
+    return want
+
+
+@pytest.mark.parametrize("case,kw", [
+    ("overflow_and_dead", dict(n=400, k=4, alive=380)),
+    ("k2_crowded", dict(n=1500, k=2, radius=8.0, alive=1490)),
+    ("k1_all_live", dict(n=300, k=1, seed=5)),
+])
+@pytest.mark.parametrize("range_slots", [RANGE, 128])
+def test_expand_lookup_places_the_packs_rows(case, kw, range_slots):
+    st, p, spec = blob(device="cpu", **kw)
+    rows, flat, fits, key, overflow, _ = cd._sort_with_payload(st, spec)
+    if case != "k1_all_live":
+        assert int(overflow) > 0
+        assert int((key >= spec.slots).sum()) == st.capacity - kw["alive"]
+    got, start = expand_lookup(key, spec.slots, range_slots)
+    assert torch.equal(got, slot_rows(flat, fits, spec.slots))
+    assert start.numel() == -(-spec.slots // range_slots) + 1
+    assert bool((start[1:] >= start[:-1]).all())
+    # The key gives the pack's own targets, and the wrapper's plain route
+    # places by them.
+    tflat, tfits = cd.targets_of_keys(key, spec.slots)
+    assert torch.equal(tflat, flat) and torch.equal(tfits, fits)
+    out = expand_rows(rows, key, cd.PACK_FILLS, spec)
+    planes = cd._scatter_sorted(rows.unbind(1), cd.PACK_FILLS, flat, fits,
+                                spec)
+    for c, plane in enumerate(planes):
+        assert torch.equal(out[c].view(torch.int32),
+                           plane.reshape(-1).view(torch.int32)), c
+
+
+def test_expand_lookup_refuses_flat_where_a_cell_overflows():
+    st, _, spec = blob(n=400, k=4, alive=380, device="cpu")
+    _, flat, fits, key, overflow, _ = cd._sort_with_payload(st, spec)
+    assert int(overflow) > 0
+    # An overflow row's flat = slots sits before rows that fit.
+    assert bool((flat[1:] < flat[:-1]).any())
+    with pytest.raises(ValueError, match="not nondecreasing"):
+        expand_lookup(flat, spec.slots)
+    assert torch.equal(expand_lookup(key, spec.slots)[0],
+                       slot_rows(flat, fits, spec.slots))
+
+
+def test_expand_lookup_and_wrapper_with_no_rows():
+    spec = blob_spec(2)
+    key = torch.empty(0, dtype=torch.int32)
+    got, start = expand_lookup(key, spec.slots, 128)
+    assert bool((got == -1).all()) and bool((start == 0).all())
+    flat, fits = cd.targets_of_keys(key, spec.slots)
+    assert flat.numel() == 0 and fits.numel() == 0
+    out = expand_rows(torch.empty((0, 11)), key, cd.PACK_FILLS, spec)
+    want = torch.tensor(cd.PACK_FILLS, dtype=torch.float32)[:, None]
+    assert torch.equal(out, want.expand(11, spec.slots))

@@ -11,8 +11,8 @@ version's summation order, no FMA contraction, a screen that skips only
 exact ±0 terms), to bitwise equality on occupied slots — NaN where the
 plain version is NaN — and +0 on empty ones; K3 is bitwise. K4 (colony
 contact sweep) is held to the same tolerance on every slot and, by the
-same design, to bitwise equality; K5 (the contact pack's placement) is
-bitwise."""
+same design, to bitwise equality with +0 on empty slots; K5 (the contact
+pack's placement) is bitwise."""
 
 import dataclasses
 
@@ -24,6 +24,7 @@ from sph_tpu_torch.engine.colony import bonded_colony
 from sph_tpu_torch.engine.fluid import FluidSimulation
 from sph_tpu_torch.engine.simulation import Simulation
 from sph_tpu_torch.ops import LAUNCHES, reset_launches
+from sph_tpu_torch.ops import contact as oc
 from sph_tpu_torch.ops.contact import contact_sweep
 from sph_tpu_torch.ops.expand import expand_rows
 from sph_tpu_torch.ops.fluid import accel_sweep, band_plan, density_sweep
@@ -31,6 +32,7 @@ from sph_tpu_torch.physics import contact_dense as cd
 from sph_tpu_torch.sph import dense
 from sph_tpu_torch.utils.verify import (
     accel_inputs,
+    blob,
     check_contact,
     check_expand,
     check_fluid_twins,
@@ -246,6 +248,85 @@ def test_contact_and_expand_kernels_match_plain(cuda):
     assert check_expand(state, spec)["rows"] == 20000
 
 
+def contact_exact(fields, occ, params, spec):
+    """K4 against the plain sweep: the plain bits on every slot, and +0 on
+    the empty ones. Returns the number of slots with a nonzero force."""
+    plain = cd._sweep_plain(
+        fields, lambda *a: cd.contact_pair_terms(params, *a), 6, spec)
+    kern = contact_sweep(fields, occ, params, spec)
+    empty = occ <= 0.5
+    for a, b in zip(kern, plain):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert not bool(a[empty].view(torch.int32).any())
+    return int((torch.stack(plain[:3]) != 0).any(dim=0).sum())
+
+
+@pytest.mark.parametrize("k", [1, 2, 4])
+def test_contact_kernel_bitwise_at_each_k(cuda, k):
+    """K4 at each K it is built for, on a crowded ball of cells (many
+    contacts)."""
+    state, params, spec = blob(n=2000, k=k, radius=14.0, spawn=16.0,
+                               device=cuda)
+    fields, occ, _, _ = cd._pack_args(state, spec)
+    assert contact_exact(fields, occ, params, spec) > 100
+
+
+def test_contact_kernel_beside_an_empty_band_and_at_the_edges(cuda):
+    """An occupied band next to one emptied by hand (the gate zeroes it,
+    the sweep stages it as a halo); then the whole pack rolled to put the
+    colony's centre at index 0, so that it straddles every edge — bands at
+    the first and last row and plane, lanes that wrap — against the plain
+    sweep, which wraps as the kernel does."""
+    state, params, _, spec = colony(cuda, n=4000)
+    fields, occ, _, _ = cd._pack_args(compressed(state, 0.7), spec)
+    plan = oc.band_plan(spec)
+    live = (occ > 0.5).any(dim=2)                              # [Z, Y]
+    z = int(live.sum(dim=1).argmax())
+    bands = torch.nn.functional.pad(
+        live[z], (0, plan.bands * plan.rows - spec.ny)).view(
+            plan.bands, plan.rows).any(dim=1)
+    b = next(i for i in range(1, plan.bands - 1)
+             if bands[i - 1] and bands[i] and bands[i + 1])
+    cut = slice(b * plan.rows, (b + 1) * plan.rows)
+    fields = [f.clone() for f in fields]
+    occ = occ.clone()
+    for f, fill in zip(fields, cd.FIELD_FILLS):
+        f[z, cut] = fill
+    occ[z, cut] = cd.OCC_FILL
+    assert bool((occ[z, (b - 1) * plan.rows:cut.start] > 0.5).any())
+    assert contact_exact(fields, occ, params, spec) > 0
+    centre = torch.nonzero(occ > 0.5).float().mean(dim=0)
+    shift = tuple(-int(c) for c in centre)
+    fields = [torch.roll(f, shift, (0, 1, 2)) for f in fields]
+    occ = torch.roll(occ, shift, (0, 1, 2))
+    on = occ > 0.5
+    assert bool(on[0].any() and on[-1].any() and on[:, 0].any()
+                and on[:, -1].any() and on[..., 0].any()
+                and on[..., -1].any())
+    assert contact_exact(fields, occ, params, spec) > 0
+
+
+@pytest.mark.parametrize("kw", [
+    dict(n=4000, k=2, radius=9.0, alive=3900),     # overflow, dead rows
+    dict(n=400, k=4, alive=380),                   # the probe's scene
+    dict(n=3000, k=1, radius=4.0, alive=2990),     # ~100 rows a cell
+])
+def test_expand_kernel_bitwise_with_overflow_and_dead_rows(cuda, kw):
+    state, _, spec = blob(device=cuda, **kw)
+    r = check_expand(state, spec)
+    assert r["overflow"] > 0 and r["dead"] == kw["n"] - kw["alive"]
+
+
+def test_expand_kernel_with_no_rows(cuda):
+    spec = blob(n=8, k=2, device="cpu")[2]
+    out = expand_rows(torch.empty((0, 11), device=cuda),
+                      torch.empty(0, dtype=torch.int32, device=cuda),
+                      cd.PACK_FILLS, spec)
+    want = torch.tensor(cd.PACK_FILLS, device=cuda)[:, None].expand(
+        11, spec.slots).contiguous()
+    assert torch.equal(out.view(torch.int32), want.view(torch.int32))
+
+
 def test_contact_kernel_keeps_nan_overlap(cuda):
     """A NaN radius makes NaN overlaps, which the kernel does not skip: on
     occupied slots it equals the plain sweep, NaN for NaN."""
@@ -301,8 +382,8 @@ def test_colony_wrappers_refuse_bad_operands(cuda):
         contact_sweep([fields[0].double(), *fields[1:]], occ, params, spec)
     with pytest.raises(ValueError, match="shape"):
         contact_sweep([f[:, :8] for f in fields], occ, params, spec)
-    rows, flat, fits, _, _ = cd._sort_with_payload(state, spec)
+    rows, _, _, key, _, _ = cd._sort_with_payload(state, spec)
     with pytest.raises(ValueError, match="int32"):
-        expand_rows(rows, flat.long(), fits, cd.PACK_FILLS, spec)
+        expand_rows(rows, key.long(), cd.PACK_FILLS, spec)
     with pytest.raises(ValueError, match="fills"):
-        expand_rows(rows, flat, fits, cd.PACK_FILLS[:5], spec)
+        expand_rows(rows, key, cd.PACK_FILLS[:5], spec)

@@ -138,8 +138,9 @@ def main() -> int:
     return 0
 
 
-def sass(path) -> None:
-    """Opcode counts of each sweep kernel in the built library."""
+def sass(path, match: str = "sweep_kernel") -> None:
+    """Opcode counts of each kernel whose name holds `match` in the built
+    library."""
     from torch.utils.cpp_extension import CUDA_HOME
 
     out = subprocess.run([os.path.join(CUDA_HOME, "bin", "cuobjdump"),
@@ -149,7 +150,7 @@ def sass(path) -> None:
     for line in out.splitlines() + ["Function : end"]:
         m = re.search(r"Function : (\S+)", line)
         if m:
-            if name and "sweep_kernel" in name:
+            if name and match in name:
                 top = ", ".join(f"{k} {v}" for k, v in counts.most_common(24))
                 print(f"sass {name[-70:]}: {sum(counts.values())} "
                       f"instructions: {top}")
