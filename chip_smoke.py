@@ -15,13 +15,15 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
                with equal `dropped` > 0 under a crowding nudge.
 4. main      — config[3] through FluidSimulation for 60 steps = 10 rebins,
                launch counters reset just before: count conserved, dropped
-               == 0, positions finite and in bounds, every sweep and rebin
-               stage launched through the kernels. Then a small 2D scene
-               through the kernels against the plain versions.
+               == 0, positions finite and in bounds, every sweep and both
+               passes of every rebin (codes, placement) launched through
+               the kernels. Then a small 2D scene through the kernels
+               against the plain versions.
 5. fluid phases — where the time of a config[3] step goes (CUDA events
-               per phase, K1/K2 split into their gate and sweep launches
-               by torch.profiler), one step by host clock, and the
-               device's busy share under torch.profiler.
+               per phase; K1/K2 split into their gate and sweep launches
+               and K3 into its codes and placement launches by
+               torch.profiler), one step by host clock, and the device's
+               busy share under torch.profiler.
 6. colony kernels — the 1,048,576-cell bonded colony (bench.py's largest
                colony rung) built from scratch: the contact sweep (K4)
                against its plain version on every slot (rtol 1e-5 / atol
@@ -79,8 +81,8 @@ KERNELS = {
                 "sph_tpu/ops/pallas/fluid.py:124"),
     "accel": ("sph_tpu_torch/csrc/fluid_sweep.cu",
               "sph_tpu/ops/pallas/fluid.py:124"),
-    "rebin_stage": ("sph_tpu_torch/csrc/rebin_stage.cu",
-                    "sph_tpu/ops/pallas/rebin.py:39"),
+    "rebin": ("sph_tpu_torch/csrc/rebin.cu",
+              "sph_tpu/ops/pallas/rebin.py:39"),
     "contact": ("sph_tpu_torch/csrc/contact_sweep.cu",
                 "sph_tpu/ops/pallas/contact.py:64"),
     "expand": ("sph_tpu_torch/csrc/expand_rows.cu",
@@ -307,7 +309,7 @@ def main() -> int:
     m = check_state(sim, N_CONFIG3)
     rebins = MAIN_STEPS // sim.params.rebin_every
     want = {"density": MAIN_STEPS, "accel": MAIN_STEPS,
-            "rebin_stage": 3 * rebins, "contact": 0, "expand": 0}
+            "rebin": 2 * rebins, "contact": 0, "expand": 0}
     if launches != want:
         raise AssertionError(f"launches {launches} != {want}")
     say("main", f"config[3] {MAIN_STEPS} steps ({rebins} rebins): "
@@ -369,7 +371,7 @@ def main() -> int:
             None, bound(4 * plane + 8 * 4 * n_near,
                         n_pairs * ACCEL_PAIR_FLOPS)),
         # occupancy in, 7 planes out; 6 payload fields of occupied slots.
-        "rebin_stage": (
+        "rebin": (
             lambda: staged_rebin(d, d.px, d.py, d.pz, d.vx, d.vy, d.vz,
                                  p, spec),
             lambda: dense.rebin(d, d.px, d.py, d.pz, d.vx, d.vy, d.vz,
@@ -403,9 +405,9 @@ def main() -> int:
             "max_abs_err": checks[name]["max_abs_err"],
             "ms": ms, "plain_ms": plain_ms, **bnd, "library_ms": lib_ms,
         })
-    say("times", "rebin_stage times are one whole rebin: 3 stage launches "
-        "+ the sentinel cleanup, against the plain rebin; contact and "
-        "expand at the 1M colony after its main run")
+    say("times", "rebin times are one whole rebin: the codes and the "
+        "placement launch, against the plain rebin; contact and expand at "
+        "the 1M colony after its main run")
 
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -441,7 +443,7 @@ def device_busy(run, card) -> str:
 
 def fluid_phases(sim, card) -> None:
     """Phase 5: CUDA-event times of each part of a config[3] step (on the
-    state after the main run), the K1/K2 launches by kernel under
+    state after the main run), the K1/K2/K3 launches by kernel under
     torch.profiler, one step by host clock and the busy share."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -469,7 +471,7 @@ def fluid_phases(sim, card) -> None:
         "K2 accel sweep": lambda: accel_sweep(d, pr2, p, spec),
         "_integrate (gravity, obstacle, drag, vmax clamp, walls)":
             lambda: dense._integrate(d, *acc, p, vmax),
-        "one rebin (K3 stages + cleanup)": lambda: staged_rebin(
+        "one rebin (K3: codes + placement)": lambda: staged_rebin(
             d, *moved, p, spec),
     }
     total = 0.0
@@ -478,7 +480,8 @@ def fluid_phases(sim, card) -> None:
         total += ms / p.rebin_every if name.startswith("one rebin") else ms
         say("fluid phases", f"{name}: {ms:.4f} ms")
     for name, fn in (("K1", phases["K1 density sweep"]),
-                     ("K2", phases["K2 accel sweep"])):
+                     ("K2", phases["K2 accel sweep"]),
+                     ("K3", phases["one rebin (K3: codes + placement)"])):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -579,7 +582,7 @@ def colony_main(colony, card) -> dict:
     elapsed = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     m = sim.metrics()
-    want = {"density": 0, "accel": 0, "rebin_stage": 0,
+    want = {"density": 0, "accel": 0, "rebin": 0,
             "contact": COLONY_STEPS, "expand": COLONY_STEPS}
     if launches != want:
         raise AssertionError(f"colony launches {launches} != {want}")

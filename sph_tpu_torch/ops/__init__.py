@@ -1,12 +1,12 @@
 """Hand-written CUDA kernels and their wrappers: the dense fluid step
-(density, accel, rebin_stage) and the colony contact path (contact,
+(density, accel, rebin) and the colony contact path (contact,
 expand).
 
 LAUNCHES counts, per kernel, the launches its wrapper made (incremented
 only where the kernel is launched, never on the plain CPU route), so a run
 can show that its main path went through the kernels."""
 
-LAUNCHES = {"density": 0, "accel": 0, "rebin_stage": 0, "contact": 0,
+LAUNCHES = {"density": 0, "accel": 0, "rebin": 0, "contact": 0,
             "expand": 0}
 
 

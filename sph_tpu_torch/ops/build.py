@@ -22,7 +22,7 @@ from pathlib import Path
 
 import torch
 
-SOURCES = ("fluid_sweep.cu", "rebin_stage.cu", "contact_sweep.cu",
+SOURCES = ("fluid_sweep.cu", "rebin.cu", "contact_sweep.cu",
            "expand_rows.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -41,10 +41,12 @@ _ARGTYPES = {
     # px, py, pz, vx, vy, vz, rho, pr2, occ, 3 outputs, work, n0, k, c, x, stencil0, stencil1,
     # band_rows, smem_bytes, h, neg_m_spiky, visc_mc, r2_cut, stream
     "sph_accel_sweep": [_P] * 13 + [_I] * 8 + [_F] * 4 + [_P],
-    # in[7], out[7], dropped, n0, k, c, x, stage, axis, origin, cell,
-    # lo, hi, stream
-    "sph_rebin_stage": [ctypes.POINTER(_P)] * 2 + [_P] + [_I] * 6
-    + [_F] * 2 + [_I] * 2 + [_P],
+    # p0, p1, p2, occ, codes, dropped_in, dropped, n0, k, c, x, planes,
+    # origin0..2, cell, stream
+    "sph_rebin_codes": [_P] * 7 + [_I] * 5 + [_F] * 4 + [_P],
+    # in[6], out[7], codes, dropped, n0, k, c, x, planes, stream
+    "sph_rebin_place": [ctypes.POINTER(_P)] * 2 + [_P] * 2 + [_I] * 5
+    + [_P],
     # fields[10], occ, outs[6], work, Z, Y, L, K, band_rows, smem_bytes,
     # eps, slip_eps, repulsion, torque_factor, mult, stream
     "sph_contact_sweep": [ctypes.POINTER(_P), _P, ctypes.POINTER(_P), _P]

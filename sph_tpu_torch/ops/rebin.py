@@ -1,12 +1,12 @@
-"""Wrapper of the staged-rebin kernel K3, `csrc/rebin_stage.cu` — the
-counterpart of `rebin_pallas` / `_run_stage` (sph_tpu/ops/pallas/rebin.py).
+"""Wrapper of the rebin kernel K3, `csrc/rebin.cu` — the counterpart of
+`rebin_pallas` (sph_tpu/ops/pallas/rebin.py): its three `_stage_kernel`
+launches and the sentinel cleanup after them.
 
-A CPU tensor goes to the plain `sph_tpu_torch.sph.dense.rebin`; a CUDA
-tensor launches one kernel per stage (in-row cells, rows, planes) or
-raises. The final sentinel cleanup is plain torch, as it sits outside the
-Pallas kernel in JAX. Bitwise equal to the plain version given identical
-inputs (±0 aside: the plain version's masked sums give +0 where the kernel
-copies −0).
+A CPU tensor goes to the plain `sph_tpu_torch.sph.dense.rebin`; any other
+tensor launches the kernel's two passes (move codes, then placement) or
+raises. Bitwise equal to the plain version given identical inputs (±0
+aside: the plain version's masked sums give +0 where the kernel copies
+−0), `dropped` included.
 """
 
 from __future__ import annotations
@@ -22,47 +22,70 @@ from sph_tpu_torch.ops.build import (
     library,
     stream_of,
 )
+from sph_tpu_torch.ops.fluid import SMEM_LIMIT
 from sph_tpu_torch.sph import dense
 
 NF = 7  # payload: px, py, pz, vx, vy, vz, occ
+KS = (4, 8)         # the slot counts the kernel is built for
+THREADS = 256       # fused cells per placement block (csrc/rebin.cu)
 
 
-def rebin_stage(fields, stage: int, spec, dropped: torch.Tensor):
-    """Run one stage (layout dim `stage`: 2 in-row, 1 rows, 0 planes) on
-    the 7 payload fields; returns 7 fresh tensors and adds the stage's
-    casualties to `dropped` (a 1-element int32 CUDA tensor)."""
-    dev = fields[0].device
-    shape = (spec.n0, spec.k, spec.C)
-    check_operands("rebin_stage", fields, shape, dev)
-    if (dropped.device != dev or dropped.dtype != torch.int32
-            or dropped.numel() != 1):
-        raise ValueError("rebin_stage: dropped must be one int32 on "
-                         f"{dev}")
-    lib = library().lib
-    axis = spec.axis_map[stage]
-    n_cells = spec.world_cells()[axis]
-    lo = min(1, n_cells - 1)
-    hi = max(n_cells - 2, lo)
-    outs = [torch.empty_like(fields[0]) for _ in range(NF)]
-    ins_p = (ctypes.c_void_p * NF)(*(f.data_ptr() for f in fields))
-    outs_p = (ctypes.c_void_p * NF)(*(o.data_ptr() for o in outs))
-    with torch.cuda.device(dev):
-        rc = lib.sph_rebin_stage(
-            ins_p, outs_p, dropped.data_ptr(), spec.n0, spec.k, spec.C,
-            spec.X, stage, axis, float(spec.origin[axis]), float(spec.cell),
-            lo, hi, stream_of(dev),
-        )
-    check_launch("rebin_stage", rc)
-    LAUNCHES["rebin_stage"] += 1
-    return outs
+def halo_bytes(spec) -> int:
+    """Shared memory of one placement block: its code halo, one K-byte word
+    per cell over planes z±1 (one plane without a plane stage) and fused
+    offsets ±(X + 1) around its THREADS cells."""
+    planes = 3 if spec.stencil0 else 1
+    return planes * (THREADS + 2 * (spec.X + 1)) * spec.k
+
+
+def check_spec(spec) -> None:
+    """Raise ValueError for a spec the kernel is not built for."""
+    if spec.k not in KS:
+        raise ValueError(f"rebin: the kernel is built for K in {KS}, not "
+                         f"K = {spec.k}")
+    if not spec.stencil1:
+        raise ValueError("rebin: the kernel needs a row stage (stencil1)")
+    if halo_bytes(spec) > SMEM_LIMIT:
+        raise ValueError(f"rebin: a row of {spec.X} cells needs a "
+                         f"{halo_bytes(spec)}-byte code halo, more shared "
+                         f"memory than a block has")
 
 
 def staged_rebin(d, px, py, pz, vx, vy, vz, params, spec):
     """Drop-in for sph_tpu_torch.sph.dense.rebin (its plain version)."""
     if px.device.type == "cpu":
         return dense.rebin(d, px, py, pz, vx, vy, vz, params, spec)
+    check_spec(spec)
+    dev = px.device
     fields = [px, py, pz, vx, vy, vz, d.occ]
-    dropped = torch.zeros(1, dtype=torch.int32, device=px.device)
-    for stage in dense.rebin_stages(spec):
-        fields = rebin_stage(fields, stage, spec, dropped)
-    return dense.finish_rebin(d, fields, dropped[0])
+    check_operands("rebin", fields, (spec.n0, spec.k, spec.C), dev)
+    if (d.dropped.device != dev or d.dropped.dtype != torch.int32
+            or d.dropped.numel() != 1):
+        raise ValueError(f"rebin: the state's dropped must be one int32 on "
+                         f"{dev}")
+    lib = library().lib
+    outs = [torch.empty_like(px) for _ in range(NF)]
+    codes = torch.empty(spec.n0 * spec.C * spec.k, dtype=torch.uint8,
+                        device=dev)
+    dropped = torch.empty((), dtype=torch.int32, device=dev)
+    planes = int(spec.stencil0)
+    with torch.cuda.device(dev):
+        stream = stream_of(dev)
+        rc = lib.sph_rebin_codes(
+            *(fields[a].data_ptr() for a in spec.axis_map),
+            d.occ.data_ptr(), codes.data_ptr(), d.dropped.data_ptr(),
+            dropped.data_ptr(), spec.n0, spec.k, spec.C, spec.X, planes,
+            *(float(spec.origin[a]) for a in spec.axis_map),
+            float(spec.cell), stream)
+        check_launch("rebin codes", rc)
+        LAUNCHES["rebin"] += 1
+        rc = lib.sph_rebin_place(
+            (ctypes.c_void_p * 6)(*(f.data_ptr() for f in fields[:6])),
+            (ctypes.c_void_p * NF)(*(o.data_ptr() for o in outs)),
+            codes.data_ptr(), dropped.data_ptr(), spec.n0, spec.k, spec.C,
+            spec.X, planes, stream)
+        check_launch("rebin placement", rc)
+        LAUNCHES["rebin"] += 1
+    pxn, pyn, pzn, vxn, vyn, vzn, occn = outs
+    return d.replace_fields(px=pxn, py=pyn, pz=pzn, vx=vxn, vy=vyn, vz=vzn,
+                            occ=occn, dropped=dropped)

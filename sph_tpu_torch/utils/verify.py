@@ -14,8 +14,10 @@ payload fields (with −0 == +0) and on `dropped`. The colony contact sweep
 finite fields (csrc/contact_sweep.cu states what its skip hides from
 non-finite ones), and reports `bitwise` and `empty_zero` as K1/K2 do; the
 contact pack's placement (K5) is bitwise on all 11 planes, −0 included.
-`expand_lookup` is K5's row lookup written out in plain PyTorch, for the
-CPU tests.
+`expand_lookup` is K5's row lookup and `rebin_codes` / `rebin_walk` are
+K3's two passes, written out in plain PyTorch for the CPU tests;
+`empty_layout`, `place_particle`, `moved_layout` and `overflow_layout`
+build the rebin's test layouts.
 """
 
 from __future__ import annotations
@@ -117,7 +119,7 @@ def nudge(d, spec, params, seed: int = 0):
 
 
 def check_rebin(d, params, spec, seed: int = 0) -> dict:
-    """K3 (all stages + cleanup) against dense.rebin on nudged positions:
+    """K3 (both passes) against dense.rebin on nudged positions:
     bitwise on every field, equal `dropped`, and `dropped > 0`."""
     px, py, pz = nudge(d, spec, params, seed)
     args = (px, py, pz, d.vx, d.vy, d.vz, params, spec)
@@ -145,7 +147,7 @@ def check_fluid_twins(d, params, spec, seed: int = 0) -> dict:
     return {
         "density": check_density(d, params, spec),
         "accel": check_accel(accel_inputs(d, params, spec), params, spec),
-        "rebin_stage": check_rebin(d, params, spec, seed),
+        "rebin": check_rebin(d, params, spec, seed),
     }
 
 
@@ -237,6 +239,181 @@ def expand_lookup(key, slots: int, range_slots: int = RANGE):
         fit = (ki >= s0) & (ki - s0 < span) & (ki != before)
         slot_row[ki[fit]] = i[fit]
     return slot_row, start
+
+
+def rebin_codes(px, py, pz, occ, spec) -> torch.Tensor:
+    """K3's first pass (csrc/rebin.cu) in plain PyTorch: one code per slot
+    of the [Z, K, C] layout (int32), 0 where the slot is empty, else
+    0x40 | ez << 4 | ey << 2 | ex, where e is the move along that layout
+    axis (the bin coordinate of `dense.bin_coord` minus the cell's own)
+    plus 1, or 3 when the move is more than one cell; without a plane
+    stage (2D) ez is 1 (no move)."""
+    Z, _, C = px.shape
+    dev = px.device
+    iota_c = torch.arange(C, device=dev)
+    own = (torch.arange(Z, device=dev).view(Z, 1, 1),
+           torch.div(iota_c, spec.X, rounding_mode="floor").view(1, 1, C),
+           (iota_c % spec.X).view(1, 1, C))
+    dims = (spec.n0, spec.n1, spec.n2)
+    pos = (px, py, pz)
+    code = torch.full(px.shape, 0x40, dtype=torch.int32, device=dev)
+    for dim, shift in ((2, 0), (1, 2), (0, 4)):
+        e = torch.ones_like(code)
+        if dim > 0 or spec.stencil0:
+            wa = spec.axis_map[dim]
+            move = dense.bin_coord(pos[wa], spec.origin[wa], spec.cell,
+                                   dims[dim]) - own[dim]
+            e = torch.where(move.abs() <= 1, move + 1, 3).to(torch.int32)
+        code |= e << shift
+    return torch.where(occ > 0.5, code, 0)
+
+
+def rebin_walk(d, px, py, pz, vx, vy, vz, params, spec):
+    """K3's second pass (csrc/rebin.cu) in plain PyTorch, step for step and
+    vectorised over the cells: each cell walks its 27 source cells
+    (planes a, rows b, in-row c, by fused index, empty outside the array),
+    then each source slot, with the three counters r2 / r1 / r0 and the
+    drop owners the kernel's note sets out, and takes the payload of each
+    placed slot by copy. A drop-in for `dense.rebin`; never on the main
+    path."""
+    Z, K, C = px.shape
+    X = spec.X
+    dev = px.device
+    codes = rebin_codes(px, py, pz, d.occ, spec)
+    flat = torch.arange(Z * K * C, device=dev).view(Z, K, C)
+    pads = (X + 1, X + 1, 0, 0, 1, 1)
+    codes_p = torch.nn.functional.pad(codes, pads)
+    flat_p = torch.nn.functional.pad(flat, pads, value=-1)
+    src = torch.full((Z, K, C), -1, dtype=torch.int64, device=dev)
+    zeros = torch.zeros((Z, C), dtype=torch.int64, device=dev)
+    r0 = zeros.clone()
+    drops = torch.zeros((), dtype=torch.int64, device=dev)
+    zi, ci = torch.meshgrid(torch.arange(Z, device=dev),
+                            torch.arange(C, device=dev), indexing="ij")
+    for a in ((-1, 0, 1) if spec.stencil0 else (0,)):
+        r1 = zeros.clone()
+        for b in (-1, 0, 1):
+            r2 = zeros.clone()
+            for c in (-1, 0, 1):
+                o = X + 1 + b * X + c
+                nb_codes = codes_p[1 + a:1 + a + Z, :, o:o + C]
+                nb_flat = flat_p[1 + a:1 + a + Z, :, o:o + C]
+                for k in range(K):
+                    code = nb_codes[:, k]
+                    ex, ey, ez = code & 3, (code >> 2) & 3, (code >> 4) & 3
+                    m = code != 0
+                    if (a, b, c) == (0, 0, 0):
+                        drops += (m & (ex == 3)).sum()
+                    m = m & (ex == 1 - c)
+                    if a == 0 and b == 0:
+                        drops += (m & (r2 >= K)).sum()
+                    m = m & (r2 < K)
+                    r2 += m
+                    if a == 0 and b == 0:
+                        drops += (m & (ey == 3)).sum()
+                    m = m & (ey == 1 - b)
+                    if a == 0:
+                        drops += (m & (r1 >= K)).sum()
+                    m = m & (r1 < K)
+                    r1 += m
+                    if spec.stencil0:
+                        if a == 0:
+                            drops += (m & (ez == 3)).sum()
+                        m = m & (ez == 1 - a)
+                        drops += (m & (r0 >= K)).sum()
+                        m = m & (r0 < K)
+                    src[zi[m], r0[m], ci[m]] = nb_flat[:, k][m]
+                    r0 += m
+    placed = src >= 0
+    take = src.clamp(min=0)
+
+    def gather(f, fill):
+        return torch.where(placed, f.reshape(-1)[take], fill)
+
+    return d.replace_fields(
+        px=gather(px, dense.SENTINEL), py=gather(py, dense.SENTINEL),
+        pz=gather(pz, dense.SENTINEL), vx=gather(vx, 0.0),
+        vy=gather(vy, 0.0), vz=gather(vz, 0.0), occ=placed.to(torch.float32),
+        dropped=d.dropped + drops.to(torch.int32))
+
+
+def empty_layout(spec) -> dict:
+    """Numpy fields px, py, pz, vx, vy, vz, occ of an empty `spec` layout
+    (sentinel positions, zeros elsewhere)."""
+    shape = (spec.n0, spec.k, spec.C)
+    out = {f: np.full(shape, dense.SENTINEL, np.float32)
+           for f in ("px", "py", "pz")}
+    out.update({f: np.zeros(shape, np.float32)
+                for f in ("vx", "vy", "vz", "occ")})
+    return out
+
+
+def place_particle(lay, spec, slot, src, dst, rng) -> None:
+    """Put a particle in `slot` of layout cell `src` (z, r, x) at a random
+    point of layout cell `dst` (coordinates may leave the array: bin_coord
+    clips them), with a normal velocity."""
+    z, r, x = src
+    j = (z, slot, r * spec.X + x)
+    for dim, cell in enumerate(dst):
+        wa = spec.axis_map[dim]
+        u = rng.uniform(0.1, 0.9)
+        lay[("px", "py", "pz")[wa]][j] = np.float32(
+            spec.origin[wa] + (cell + u) * spec.cell)
+    for f in ("vx", "vy", "vz"):
+        lay[f][j] = np.float32(rng.normal())
+    lay["occ"][j] = 1.0
+
+
+def moved_layout(spec, seed: int, reach: int = 2, fill: float = 0.6) -> dict:
+    """A layout on `spec` drawn with numpy from `seed` (numpy arrays px, py,
+    pz, vx, vy, vz, occ): each slot of each interior cell holds a particle
+    with probability `fill` (slots left empty between them), moved by
+    whole cells in {−reach..reach} on every axis with a rebin stage, so
+    that "far" moves and crowded cells both occur."""
+    rng = np.random.default_rng(seed)
+    lay = empty_layout(spec)
+    dims = (spec.n0, spec.n1, spec.n2)
+    staged = (spec.stencil0, True, True)
+    ranges = [range(1, n - 1) if on else range(n)
+              for n, on in zip(dims, staged)]
+    for z in ranges[0]:
+        for r in ranges[1]:
+            for x in ranges[2]:
+                for slot in range(spec.k):
+                    if rng.uniform() >= fill:
+                        continue
+                    move = [int(rng.integers(-reach, reach + 1)) if on else 0
+                            for on in staged]
+                    dst = (z + move[0], r + move[1], x + move[2])
+                    place_particle(lay, spec, slot, (z, r, x), dst, rng)
+    return lay
+
+
+def overflow_layout(spec, stage: int, seed: int = 0) -> tuple[dict, tuple]:
+    """The case a one-stage shortcut gets wrong: a particle dropped at an
+    intermediate stage though its final cell has room. Stage 2: K
+    particles in (z, r+1, x−1) move to (z, r+1, x) and fill it in stage 2
+    before the own particle of (z, r+1, x), bound for (z, r, x), comes.
+    Stage 1: K particles in (z+1, r−1, x) move to (z+1, r, x) and fill it
+    in stage 1 before the particle of (z+1, r, x) bound for (z, r, x).
+    Returns (layout, its (z, r, x)), whose cell must end empty, with one
+    particle dropped."""
+    rng = np.random.default_rng(seed)
+    lay = empty_layout(spec)
+    z = spec.n0 // 2 if spec.stencil0 else 0
+    r, x = spec.n1 // 2, spec.n2 // 2
+    if stage == 2:
+        fillers, mover = (z, r + 1, x - 1), (z, r + 1, x)
+        fill_dst = (z, r + 1, x)
+    elif stage == 1 and spec.stencil0:
+        fillers, mover = (z + 1, r - 1, x), (z + 1, r, x)
+        fill_dst = (z + 1, r, x)
+    else:
+        raise ValueError(f"overflow_layout: no stage {stage} on this spec")
+    for slot in range(spec.k):
+        place_particle(lay, spec, slot, fillers, fill_dst, rng)
+    place_particle(lay, spec, 0, mover, (z, r, x), rng)
+    return lay, (z, r, x)
 
 
 def compressed(state, factor: float):

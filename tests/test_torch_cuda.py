@@ -9,7 +9,9 @@ Tolerances: K1/K2 are held to rtol 1e-5, atol 1e-6·max|x| on occupied
 slots (sph_tpu_torch.utils.verify) and, by their design (the plain
 version's summation order, no FMA contraction, a screen that skips only
 exact ±0 terms), to bitwise equality on occupied slots — NaN where the
-plain version is NaN — and +0 on empty ones; K3 is bitwise. K4 (colony
+plain version is NaN — and +0 on empty ones; K3 is bitwise (−0 == +0,
+`dropped` equal), also on random layouts with moves of up to two cells and
+on overflows at an intermediate stage, at each K it is built for. K4 (colony
 contact sweep) is held to the same tolerance on every slot and, by the
 same design, to bitwise equality with +0 on empty slots; K5 (the contact
 pack's placement) is bitwise."""
@@ -28,8 +30,10 @@ from sph_tpu_torch.ops import contact as oc
 from sph_tpu_torch.ops.contact import contact_sweep
 from sph_tpu_torch.ops.expand import expand_rows
 from sph_tpu_torch.ops.fluid import accel_sweep, band_plan, density_sweep
+from sph_tpu_torch.ops.rebin import staged_rebin
 from sph_tpu_torch.physics import contact_dense as cd
 from sph_tpu_torch.sph import dense
+from sph_tpu_torch.sph.scenes import dam_break_2d, dam_break_3d
 from sph_tpu_torch.utils.verify import (
     accel_inputs,
     blob,
@@ -37,6 +41,9 @@ from sph_tpu_torch.utils.verify import (
     check_expand,
     check_fluid_twins,
     compressed,
+    empty_layout,
+    moved_layout,
+    overflow_layout,
 )
 
 torch.set_num_threads(1)
@@ -94,7 +101,7 @@ def stepped(cuda, case, steps=12):
 def test_kernels_match_plain(cuda, case):
     d, p, spec = stepped(cuda, case)
     r = check_fluid_twins(d, p, spec, seed=3)
-    assert r["rebin_stage"]["dropped"] > 0
+    assert r["rebin"]["dropped"] > 0
     for name in ("density", "accel"):
         assert r[name]["bitwise"] and r[name]["empty_zero"], r[name]
         assert r[name]["max_abs_err"] == 0.0
@@ -197,7 +204,8 @@ def test_main_path_launches_kernels(cuda):
     reset_launches()
     sim.run(12)
     torch.cuda.synchronize()
-    assert LAUNCHES == {"density": 12, "accel": 12, "rebin_stage": 6,
+    # 2 rebins, each a codes and a placement launch.
+    assert LAUNCHES == {"density": 12, "accel": 12, "rebin": 4,
                         "contact": 0, "expand": 0}
     m = sim.metrics()
     assert m["n_particles"] == n0 and m["dropped"] == 0
@@ -217,6 +225,55 @@ def test_kernel_path_equals_plain_path(cuda):
                            getattr(sims[1].dstate, f)), f
 
 
+def small_spec(name):
+    """Params and spec of a small scene ("3d8": 3D at K = 8, "2d4": 2D at
+    K = 4, ...), for layouts built cell by cell."""
+    scene = dam_break_3d if name.startswith("3d") else dam_break_2d
+    _, p = scene(n_target=1000 if scene is dam_break_3d else 300,
+                 cell_factor=1.2)
+    return p, dense.make_dense_spec(p, k=int(name[2:]), cell_factor=1.2)
+
+
+def layout_state(lay, cuda):
+    t = {f: torch.from_numpy(a).to(cuda) for f, a in lay.items()}
+    zeros = torch.zeros_like(t["occ"])
+    i32 = torch.zeros((), dtype=torch.int32, device=cuda)
+    return dense.DenseFluidState(**t, rho=zeros, prs=zeros, dropped=i32,
+                                 clamped=i32, step_count=i32)
+
+
+def rebin_equal(d, p, spec):
+    """K3 against dense.rebin on d's own fields: equal values on all 7
+    fields (−0 == +0); returns (plain dropped, kernel dropped)."""
+    args = (d.px, d.py, d.pz, d.vx, d.vy, d.vz, p, spec)
+    a, b = dense.rebin(d, *args), staged_rebin(d, *args)
+    for f in ("px", "py", "pz", "vx", "vy", "vz", "occ"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    return int(a.dropped), int(b.dropped)
+
+
+@pytest.mark.parametrize("name", ["3d8", "3d4", "2d4", "2d8"])
+def test_rebin_kernel_on_far_moves_and_intermediate_overflow(cuda, name):
+    """K3 at each K and stage set it is built for, on random layouts with
+    moves of up to two cells (far codes, crowded cells, slots left empty
+    between occupied ones) and on the overflows at an intermediate stage
+    that a one-stage move would miss."""
+    p, spec = small_spec(name)
+    stages = (2, 1) if spec.stencil0 else (2,)
+    lays = [moved_layout(spec, seed) for seed in (0, 1)]
+    lays += [overflow_layout(spec, stage)[0] for stage in stages]
+    for lay in lays:
+        plain, kern = rebin_equal(layout_state(lay, cuda), p, spec)
+        assert plain == kern > 0
+
+
+def test_rebin_kernel_on_an_empty_layout(cuda):
+    """No particle at all: every block skips its walk and writes the fill."""
+    p, spec = small_spec("3d8")
+    assert rebin_equal(layout_state(empty_layout(spec), cuda), p,
+                       spec) == (0, 0)
+
+
 def test_wrappers_refuse_bad_operands(cuda):
     scene, kw = SCENES["2d"]
     sim = FluidSimulation.from_scene(scene, device=cuda, **kw)
@@ -230,6 +287,11 @@ def test_wrappers_refuse_bad_operands(cuda):
         density_sweep(d.px[:, :2], d.py, d.pz, d.occ, p, spec)
     with pytest.raises(ValueError, match="CUDA"):
         density_sweep(d.px, d.py.cpu(), d.pz, d.occ, p, spec)
+    args = (d.px, d.py, d.pz, d.vx, d.vy, d.vz, p)
+    with pytest.raises(ValueError, match="K in"):
+        staged_rebin(d, *args, dataclasses.replace(spec, k=6))
+    with pytest.raises(ValueError, match="CUDA"):
+        staged_rebin(d, d.px, d.py.cpu(), *args[2:], spec)
 
 
 def colony(cuda, n=20000):

@@ -52,11 +52,11 @@ def test_wrappers_take_plain_route_on_cpu(case):
     b = dense.rebin(d, px, py, pz, d.vx, d.vy, d.vz, p, spec)
     for f in ("px", "py", "pz", "vx", "vy", "vz", "occ", "dropped"):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
-    assert LAUNCHES == {"density": 0, "accel": 0, "rebin_stage": 0,
+    assert LAUNCHES == {"density": 0, "accel": 0, "rebin": 0,
                         "contact": 0, "expand": 0}
     # The live-card check runs end to end here too (trivially equal).
     r = check_fluid_twins(d, p, spec)
-    assert r["rebin_stage"]["dropped"] > 0
+    assert r["rebin"]["dropped"] > 0
     assert r["density"]["max_abs_err"] == 0.0
 
 
