@@ -12,7 +12,9 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
                steps) and at a small 2D spec: density and accel bitwise on
                occupied slots and +0 on empty ones (and within rtol 1e-5 /
                atol 1e-6·max|x|), with their band plans; the rebin bitwise
-               with equal `dropped` > 0 under a crowding nudge.
+               with equal `dropped` > 0 under a crowding nudge, and
+               bitwise with equal `dropped` on the config[3] state with a
+               NaN, a +inf and a −inf coordinate (NaN as NaN).
 4. main      — config[3] through FluidSimulation for 60 steps = 10 rebins,
                launch counters reset just before: count conserved, dropped
                == 0, positions finite and in bounds, every sweep and both
@@ -43,7 +45,23 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
 9. colony phases — where the time of a 1M step goes (CUDA events per
                phase), the host synchronisations of one step, and the
                device's busy share under torch.profiler.
-10. times    — each kernel's ms against its plain version's (and, for the
+10. grid     — the sort+gather grid path, which launches no kernel (the
+               launch counters stay 0 across it): config[0]
+               (dam_break_2d, 4,096 particles) through make_sph_step, 2 ×
+               20 steps, one step's density and accel against the
+               brute-force twins (tests/test_sph.py's tolerances); then
+               bench.py's 10,240-cell grid colony, 240 steps through
+               Simulation.step in chunks of 120, its contact forces
+               against the brute force (atol 1e-4); a CUDA-event split
+               of each (sort, bins, candidate gather, pair sums).
+11. host     — the reference scene from its shipped capacity 4 with
+               auto_grow on the grid for 1,000 steps against the golden
+               population (at least two resizes); a checkpoint round trip
+               of the 10k grid colony stepped 20 steps on each side,
+               bitwise; GuardedRun halting on an injected NaN (restored
+               bitwise to the last good state, the dump loads) and
+               recovering under rollback.
+12. times    — each kernel's ms against its plain version's (and, for the
                placement, one PyTorch index_copy), beside its bound; K4
                also on the compressed copy, K5 also at the probe's
                scene.
@@ -54,6 +72,7 @@ The line before the last is {"kernels": [...]}, preceded by the card's
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -75,6 +94,13 @@ COLONY_KW = dict(neighbor_mode="dense", grid_dim=48, grid_cell_size=4.0,
 COLONY_STEPS, COLONY_CHUNK = 40, 20
 DIVISION_STEPS = 1000
 GOLDEN = "tests/golden/reference_scenario_trace.json"
+# Config[0] (`_bench_2d_bruteforce`, bench.py:88-104: sph_step's
+# sort+gather) and bench.py's 10k grid colony rung (bench.py:151-157, 319).
+CONFIG0_N, CONFIG0_STEPS = 4096, 20
+GRID_COLONY_N = 10_240
+GRID_COLONY_KW = dict(neighbor_mode="grid", grid_dim=48, grid_cell_size=4.0,
+                      cell_capacity=16, max_splits_per_step=64)
+GRID_STEPS, GRID_CHUNK = 240, 120
 KERNELS = {
     # name: (source, TPU kernel it replaces)
     "density": ("sph_tpu_torch/csrc/fluid_sweep.cu",
@@ -232,6 +258,39 @@ def exact_sweeps(where: str, checks: dict) -> None:
             raise AssertionError(f"{where} {name}: not exact: {r}")
 
 
+def nonfinite_rebin(d, p, spec) -> dict:
+    """K3 against the plain rebin on `d` with three occupied slots' x, y
+    and z set to NaN, +inf and −inf (ROADMAP C1): equal bits on every
+    field (NaN as NaN: the card's arithmetic gives its canonical NaN where
+    K3 copies the input's; −0 == +0) and equal `dropped`."""
+    from sph_tpu_torch.ops.rebin import staged_rebin
+    from sph_tpu_torch.sph import dense
+
+    occupied = torch.nonzero((d.occ > 0.5).reshape(-1))[:, 0]
+    picks = occupied[torch.tensor([0, occupied.numel() // 2, -1],
+                                  device=occupied.device)]
+    fields = {f: getattr(d, f).clone() for f in ("px", "py", "pz")}
+    for f, slot, v in zip(("px", "py", "pz"), picks.tolist(),
+                          (float("nan"), float("inf"), float("-inf"))):
+        fields[f].view(-1)[slot] = v
+    args = (fields["px"], fields["py"], fields["pz"], d.vx, d.vy, d.vz, p,
+            spec)
+    a, b = dense.rebin(d, *args), staged_rebin(d, *args)
+    for f in ("px", "py", "pz", "vx", "vy", "vz", "occ"):
+        x, y = getattr(a, f), getattr(b, f)
+        same = ((x.view(torch.int32) == y.view(torch.int32))
+                | (x.isnan() & y.isnan()) | ((x == 0) & (y == 0)))
+        if not bool(same.all()):
+            raise AssertionError(f"non-finite rebin {f}: "
+                                 f"{int((~same).sum())} slots differ")
+    da, db = int(a.dropped - d.dropped), int(b.dropped - d.dropped)
+    if da != db:
+        raise AssertionError(f"non-finite rebin dropped: plain {da} != "
+                             f"kernel {db}")
+    return {"bitwise": True, "dropped": da,
+            "nan_slots": int(b.px.isnan().sum())}
+
+
 def check_state(sim, n_expected: int) -> dict:
     m = sim.metrics()
     pos = sim.particles()[0]
@@ -301,6 +360,8 @@ def main() -> int:
     for name, r in checks2.items():
         say("kernels", f"2D {list(s2.dstate.px.shape)} {name}: "
             f"{json.dumps(r)}")
+    say("kernels", f"config[3] rebin with non-finite coordinates: "
+        f"{json.dumps(nonfinite_rebin(sim.dstate, sim.params, sim.spec))}")
 
     # 4. main path: config[3], counters reset just before.
     reset_launches()
@@ -349,6 +410,10 @@ def main() -> int:
     colony_launches = colony_main(colony, card)
     colony_divisions(dev, card)
     colony_phases(colony, card)
+
+    # 10-11. The grid path and the host services.
+    grid_colony = grid_phase(dev, card)
+    host_phase(grid_colony, dev, card)
 
     # 10. times, each kernel at its main path's shapes
     d, p, spec = sim.dstate, sim.params, sim.spec
@@ -719,6 +784,290 @@ def colony_phases(colony, card) -> None:
             s = step(s, p, g)
 
     say("colony phases", f"profiled 5 steps: {device_busy(five_steps, card)}")
+
+
+# -- the grid path and the host services -----------------------------------
+
+
+def assert_no_launches(where: str) -> None:
+    from sph_tpu_torch.ops import LAUNCHES
+
+    if any(LAUNCHES.values()):
+        raise AssertionError(f"{where}: kernels launched {dict(LAUNCHES)}")
+
+
+def timed_steps(run, n: int) -> float:
+    """Steps/s of run() (n steps), host clock ending in a synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    return n / (time.perf_counter() - t0)
+
+
+def grid_phase(dev, card):
+    """Phase 10: config[0] through make_sph_step and the 10k grid colony
+    through Simulation.step, each held to its brute-force twin on the
+    card, with a CUDA-event split; no kernel is launched."""
+    from sph_tpu_torch.engine.colony import bonded_colony
+    from sph_tpu_torch.engine.simulation import Simulation
+    from sph_tpu_torch.ops import reset_launches
+    from sph_tpu_torch.ops import grid
+    from sph_tpu_torch.physics.contact import contact_forces_bruteforce
+    from sph_tpu_torch.sph import model
+    from sph_tpu_torch.sph.scenes import dam_break_2d
+    from sph_tpu_torch.utils.verify import compressed
+
+    reset_launches()
+    state, p = dam_break_2d(n_target=CONFIG0_N)
+    n = state.pos.shape[0]
+    f = model.make_sph_step(p, substeps=CONFIG0_STEPS, device=dev)
+    box = [state]
+
+    def run():
+        box[0] = f(box[0])
+
+    sps = [timed_steps(run, CONFIG0_STEPS) for _ in range(2)]
+    st = box[0]
+    spec = p.grid_spec()
+    rho_g, ovf = model.compute_density(st, p)
+    rho_b = model.compute_density_bruteforce(st, p)
+    np.testing.assert_allclose(rho_g.cpu().numpy(), rho_b.cpu().numpy(),
+                               rtol=1e-5)
+    st2 = dataclasses.replace(st, density=rho_g,
+                              pressure=model.eos_pressure(rho_g, p))
+    acc_g = model.compute_accel(st2, p)
+    acc_b = model.compute_accel_bruteforce(st2, p)
+    np.testing.assert_allclose(acc_g.cpu().numpy(), acc_b.cpu().numpy(),
+                               rtol=2e-4, atol=2e-3)
+    pos = st.pos.cpu().numpy()
+    lo = np.asarray(p.bounds_min, np.float32)[:2]
+    hi = np.asarray(p.bounds_max, np.float32)[:2]
+    if int(st.bin_overflow) != 0 or int(ovf) != 0:
+        raise AssertionError(f"config[0] bin overflow {int(st.bin_overflow)}")
+    if not (np.isfinite(pos).all() and (pos[:, :2] >= lo).all()
+            and (pos[:, :2] <= hi).all()):
+        raise AssertionError("config[0] positions non-finite or outside "
+                             "the tank")
+    say("grid", f"config[0] {n} particles, grid {list(spec.dim)} x "
+        f"{spec.cell_capacity}: 2 x {CONFIG0_STEPS} steps at "
+        f"{sps[0]:.2f} / {sps[1]:.2f} steps/s ({sps[1] * n:.4g} "
+        f"particle-steps/s), step {int(st.step_count)}, bin overflow 0; "
+        f"density and accel within rtol 1e-5 / rtol 2e-4 atol 2e-3 of the "
+        f"brute force | {card}")
+    order, bins = grid.sort_by_cell(st.pos, spec)
+    pos_s, vel_s = st.pos[order], st.vel[order]
+    coords = grid.cell_coords(pos_s, spec)
+    rho = model._density_sorted(pos_s, coords, bins, spec, p)
+    prs = model.eos_pressure(rho, p)
+    split = {
+        "sort (cell ids, stable sort, starts)":
+            lambda: grid.sort_by_cell(st.pos, spec),
+        "candidate gather (stencil_candidates_sorted, all rows)":
+            lambda: grid.stencil_candidates_sorted(coords, bins, spec),
+        "density pair sums (with their gather)":
+            lambda: model._density_sorted(pos_s, coords, bins, spec, p),
+        "accel pair sums (with their gather)":
+            lambda: model._accel_sorted(pos_s, vel_s, rho, prs, coords,
+                                        bins, spec, p),
+        "sph_step": lambda: model.sph_step(st, p),
+    }
+    for name, fn in split.items():
+        say("grid", f"config[0] {name}: {cuda_ms(fn, 10):.4f} ms")
+    say("grid", f"config[0] profiled {CONFIG0_STEPS} steps: "
+        f"{device_busy(run, card)}")
+
+    t0 = time.perf_counter()
+    cstate, cp, genome = bonded_colony(GRID_COLONY_N, device=dev,
+                                       **GRID_COLONY_KW)
+    bonds0 = int(cstate.bonds.active.sum())
+    sim = Simulation(genome, cp, device=dev)
+    sim.state = cstate
+    built = time.perf_counter() - t0
+    csps = [timed_steps(lambda: sim.step(GRID_CHUNK), GRID_CHUNK)
+            for _ in range(GRID_STEPS // GRID_CHUNK)]
+    m = sim.metrics()
+    if m["active_particles"] != GRID_COLONY_N or m["overflow"] != 0:
+        raise AssertionError(f"grid colony count {m['active_particles']}, "
+                             f"overflow {m['overflow']}")
+    if m["bond_count"] > bonds0:
+        raise AssertionError(f"grid colony bonds grew: {m['bond_count']} > "
+                             f"{bonds0}")
+    if not bool(torch.isfinite(sim.state.pos).all()):
+        raise AssertionError("non-finite grid colony positions")
+    # Settled, no pair touches: hold the sums on a copy compressed ×0.7
+    # about the centre too, where contacts fire.
+    contact = {}
+    for name, cstate in (("settled", sim.state),
+                         ("compressed x0.7", compressed(sim.state, 0.7))):
+        fg, tg, covf = grid.contact_forces_grid(cstate, cp)
+        fb, tb = contact_forces_bruteforce(cstate, cp)
+        np.testing.assert_allclose(fg.cpu().numpy(), fb.cpu().numpy(),
+                                   atol=1e-4)
+        np.testing.assert_allclose(tg.cpu().numpy(), tb.cpu().numpy(),
+                                   atol=1e-4)
+        contact[name] = (f"max |f| {float(fb.abs().max()):.4g}, grid "
+                         f"overflow {int(covf)}")
+    if contact["compressed x0.7"].startswith("max |f| 0,"):
+        raise AssertionError("compressed grid colony has no contact")
+    gspec = grid.GridSpec.from_params(cp)
+    say("grid", f"grid colony {GRID_COLONY_N} cells, {bonds0} bonds, grid "
+        f"{list(gspec.dim)} x {gspec.cell_capacity} (built in {built:.1f} "
+        f"s): {GRID_STEPS} steps in chunks of {GRID_CHUNK} at "
+        + " / ".join(f"{x:.2f}" for x in csps)
+        + f" steps/s ({csps[-1] * GRID_COLONY_N:.4g} cell-steps/s), "
+        f"overflow 0, bonds {bonds0} -> {m['bond_count']}; contact forces "
+        f"within atol 1e-4 of the brute force ({contact}) | {card}")
+    from sph_tpu_torch.physics.contact import alive_mask
+
+    cs = sim.state
+    alive = alive_mask(cs)
+    ccoords = grid.cell_coords(cs.pos, gspec)
+    cbins = grid.build_bins(cs.pos, alive, gspec)
+    blocks = list(grid.row_blocks(cs.capacity, 2048, dev))
+    cands = [grid.stencil_candidates(ccoords[r], cbins, gspec)
+             for r in blocks]
+    split = {
+        "sort (cell ids, stable sort)": lambda: torch.argsort(
+            grid.cell_ids(grid.cell_coords(cs.pos, gspec), gspec),
+            stable=True),
+        "bins (sort, ranks, placement)": lambda: grid.build_bins(
+            cs.pos, alive, gspec),
+        "candidate gather (stencil_candidates, all blocks)": lambda: [
+            grid.stencil_candidates(ccoords[r], cbins, gspec)
+            for r in blocks],
+        "pair sums (block_contact_sums, all blocks)": lambda: [
+            grid.block_contact_sums(cs, cp, r, c, alive)
+            for r, c in zip(blocks, cands)],
+        "contact_forces_grid": lambda: grid.contact_forces_grid(cs, cp),
+    }
+    for name, fn in split.items():
+        say("grid", f"grid colony {name}: {cuda_ms(fn, 10):.4f} ms")
+    one = 1e3 / timed_steps(lambda: sim.step(10), 10)
+    say("grid", f"grid colony one step (host clock, 10 steps) {one:.4f} ms"
+        f" | {card}")
+    say("grid", f"grid colony profiled 10 steps: "
+        f"{device_busy(lambda: sim.step(10), card)}")
+    assert_no_launches("grid phase")
+    return sim
+
+
+def host_phase(grid_sim, dev, card) -> None:
+    """Phase 11: auto-grow on the golden population, a checkpoint round
+    trip of the 10k grid colony, and GuardedRun on the card."""
+    import tempfile
+
+    from sph_tpu_torch.core.types import state_to_numpy
+    from sph_tpu_torch.engine.config import (
+        reference_genome,
+        reference_scene_params,
+    )
+    from sph_tpu_torch.engine.recovery import (
+        GuardedRun,
+        SimulationFault,
+        fault_flag,
+    )
+    from sph_tpu_torch.engine.simulation import Simulation
+
+    golden = {g["step"]: g["n"] for g in json.load(open(GOLDEN))}
+    p = reference_scene_params().replace(
+        dt=1 / 60, max_splits_per_step=4, max_bonds=2048,
+        neighbor_mode="grid")
+    sim = Simulation(reference_genome(), p, seed=0, auto_grow=True,
+                     device=dev)
+    grows = []
+    resize = sim.resize
+
+    def logged(n):
+        before = sim.state.capacity
+        resize(n)
+        if sim.state.capacity != before:
+            grows.append((int(sim.state.step_count), before,
+                          sim.state.capacity))
+
+    sim.resize = logged
+    t0 = time.perf_counter()
+    seen = []
+    for _ in range(DIVISION_STEPS // 50):
+        sim.step(50)
+        m = sim.metrics()
+        if m["active_particles"] != golden[m["step"]]:
+            raise AssertionError(
+                f"auto-grow step {m['step']}: population "
+                f"{m['active_particles']} != golden {golden[m['step']]}")
+        seen.append(m["active_particles"])
+    elapsed = time.perf_counter() - t0
+    if len(grows) < 2 or not bool(torch.isfinite(sim.state.pos).all()):
+        raise AssertionError(f"auto-grow: resizes {grows}")
+    say("host", f"reference scene from capacity {p.capacity}, auto_grow, "
+        f"grid, {DIVISION_STEPS} steps: population at each 50-step mark "
+        f"{seen} = golden; resizes (step, from, to) {grows}; overflow "
+        f"{m['overflow']}; {DIVISION_STEPS / elapsed:.1f} steps/s | {card}")
+    assert_no_launches("host phase, auto-grow")
+
+    def same(a, b) -> bool:
+        x, y = state_to_numpy(a), state_to_numpy(b)
+        return all(np.array_equal(x[k], y[k]) for k in x)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "grid_colony.npz")
+        grid_sim.save(path)
+        copy = Simulation.load(path, device=dev)
+        if not same(copy.state, grid_sim.state):
+            raise AssertionError("checkpoint: loaded state differs")
+        grid_sim.step(20)
+        copy.step(20)
+        if not same(copy.state, grid_sim.state):
+            raise AssertionError("checkpoint: 20 steps after the load "
+                                 "differ from the original's")
+        say("host", f"checkpoint of the {GRID_COLONY_N}-cell grid colony "
+            f"({os.path.getsize(path)} bytes): loaded bitwise, and bitwise "
+            f"after 20 more steps on each side")
+
+        start = int(grid_sim.state.step_count)
+        grid_sim.save(path)
+
+        def injector(at, always=False):
+            fired = []
+
+            def inject(s, step):
+                if step >= at and (always or not fired):
+                    fired.append(step)
+                    vel = s.state.vel.clone()
+                    vel[0, 0] = float("nan")
+                    s.state = s.state.replace_fields(vel=vel)
+            return inject
+
+        ref = Simulation.load(path, device=dev)
+        ref.step(20)
+        halted = Simulation.load(path, device=dev)
+        dump = os.path.join(tmp, "crash.npz")
+        guard = GuardedRun(halted, chunk=10, policy="halt", dump_path=dump,
+                           inject=injector(start + 20))
+        try:
+            guard.run(60)
+            raise AssertionError("GuardedRun did not halt on the NaN")
+        except SimulationFault as e:
+            if e.good_step != start + 20 or not same(halted.state,
+                                                     ref.state):
+                raise AssertionError(f"halt: restored to {e.good_step}, "
+                                     f"not bitwise the good state")
+        if int(fault_flag(Simulation.load(dump, device=dev).state)) != 1:
+            raise AssertionError("halt: the crash dump is not the fault")
+        rolled = Simulation.load(path, device=dev)
+        guard = GuardedRun(rolled, chunk=10, policy="rollback",
+                           dump_path=None, inject=injector(start + 20))
+        guard.run(40)
+        ref.step(20)
+        if len(guard.faults) != 1 or not same(rolled.state, ref.state):
+            raise AssertionError(f"rollback: faults {guard.faults}, state "
+                                 f"not bitwise a clean run's")
+        say("host", f"GuardedRun on the grid colony: halt at step "
+            f"{start + 30} restored bitwise to step {start + 20}, the dump "
+            f"loads with its fault; rollback recovered a one-off fault and "
+            f"equals a clean run bitwise at step "
+            f"{int(rolled.state.step_count)} | {card}")
+    assert_no_launches("host phase")
 
 
 def contact_pair(fields, occ, p, spec):

@@ -206,7 +206,7 @@ class SimParams:
     max_splits_per_step: int = 64
     grid_dim: int = 32
     grid_cell_size: float = 4.0
-    # "bruteforce" | "grid" (not ported yet) | "dense"
+    # "bruteforce" | "grid" | "dense"
     neighbor_mode: str = "bruteforce"
     cell_capacity: int = 32
     dense_k: int = 2

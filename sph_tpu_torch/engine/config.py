@@ -6,14 +6,15 @@ unchanged.
 (splitInterval 5, parentMakeAdhesion on, both children keep adhesion and
 stay mode 0, child yaws 90°, restLength 2.96, stiffness 200, damping 0,
 orientation strength 0.493); `reference_scene_params()` the shipped scene
-values (Particle Simulation.unity:150-178). The genome live-edit watcher
-(SceneWatcher) is not ported yet.
+values (Particle Simulation.unity:150-178); `SceneWatcher`/`watch_scene`
+the genome live-edit loop.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
+import sys
 from pathlib import Path
 
 from sph_tpu_torch.core.types import Genome, GenomeMode, SimParams
@@ -57,6 +58,66 @@ def save_scene(path: str | Path, params: SimParams, genome: Genome) -> None:
         "params": dataclasses.asdict(params),
         "genome": {"modes": [dataclasses.asdict(m) for m in genome.modes]},
     }, indent=2))
+
+
+class SceneWatcher:
+    """The genome live-edit loop — the reference's editor flow `OnValidate
+    → EditorApplication.delayCall → OnGenomeChanged → re-init`
+    (CellGenome.cs:90-105, ParticleSystemController.cs:357-367) as a
+    polling watcher over a scene or genome JSON file: call `poll()` once
+    per frame or between run chunks; when the file's (mtime, size)
+    changes, the genome is re-parsed and validated and
+    `sim.on_genome_changed(genome)` re-initialises the population.
+
+    A torn or partial write (invalid JSON mid-save) is skipped and retried
+    on the next poll (`on_error` gets the exception; default: print to
+    stderr). Takes a full scene ({params, genome}) or a bare genome
+    ({modes: [...]}); only the genome is reloaded (params changes need a
+    restart, as the reference's scene fields are frozen in play mode)."""
+
+    def __init__(self, sim, path: str | Path, on_error=None):
+        self.sim = sim
+        self.path = Path(path)
+        self.on_error = on_error
+        self._stamp = self._stat()
+
+    def _stat(self):
+        try:
+            st = self.path.stat()
+            return (st.st_mtime_ns, st.st_size)
+        except OSError:
+            return None
+
+    def _report(self, exc: Exception) -> None:
+        if self.on_error is not None:
+            self.on_error(exc)
+        else:
+            print(f"[watch] reload of {self.path} failed: {exc}",
+                  file=sys.stderr, flush=True)
+
+    def poll(self) -> bool:
+        """Check the file; fire on_genome_changed if it changed since the
+        last successful observation. Returns True iff the hook fired."""
+        stamp = self._stat()
+        if stamp is None or stamp == self._stamp:
+            return False
+        try:
+            data = json.loads(self.path.read_text())
+            gjson = data["genome"] if "genome" in data else data
+            genome = genome_from_json(json.dumps(gjson))
+        except (OSError, ValueError, KeyError, TypeError) as exc:
+            # A torn write or a bad edit: retry on the next poll.
+            self._report(exc)
+            return False
+        self._stamp = stamp
+        self.sim.on_genome_changed(genome)
+        return True
+
+
+def watch_scene(sim, path: str | Path, on_error=None) -> SceneWatcher:
+    """A SceneWatcher on `sim` for the JSON at `path`; the caller drives it
+    by calling `.poll()` periodically."""
+    return SceneWatcher(sim, path, on_error=on_error)
 
 
 def reference_genome() -> Genome:

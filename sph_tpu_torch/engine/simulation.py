@@ -1,12 +1,14 @@
 """Host-facing colony Simulation API — the counterpart of
 sph_tpu.engine.simulation.Simulation (single device): init (Start,
-cs:211-242), stepping, interactive drag (cs:975-1034), ids, bond visuals and
-metrics. Still to port (ROADMAP A14): resize and auto-grow, genome
-hot-reload, checkpoints and the device mesh.
+cs:211-242), stepping, capacity growth (ResizeParticleBuffers,
+cs:1162-1222), genome hot-reload (OnGenomeChanged, cs:357-367), interactive
+drag (cs:975-1034), ids, bond visuals, metrics and checkpoints. Still to
+port: the device mesh (ROADMAP A15).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -15,7 +17,13 @@ import torch
 from sph_tpu_torch.core import quat
 from sph_tpu_torch.core.init import init_particles
 from sph_tpu_torch.core.types import Genome, SimParams, SimState, formatted_id
-from sph_tpu_torch.engine.step import run_steps
+from sph_tpu_torch.engine.step import step
+
+# SimState fields that a resize carries over whole: the tables whose
+# capacities do not change, the counters and the PRNG key. Every other
+# field is a per-slot array.
+_CARRIED = ("bonds", "pending", "drag_input", "active_count", "next_uid",
+            "step_count", "overflow", "rng")
 
 
 class Simulation:
@@ -27,34 +35,58 @@ class Simulation:
     """
 
     def __init__(self, genome: Genome, params: SimParams, seed: int = 0,
-                 rng_mode: str = "jax", device="cuda"):
+                 rng_mode: str = "jax", auto_grow: bool = False,
+                 device="cuda"):
         """A fresh population from init_particles; to start from another
         state (a bonded colony, a state carried across from the JAX
         package), assign `sim.state` a SimState on `sim.device`."""
-        self.genome = genome.validate_for_simulation()
+        self._setup(genome.validate_for_simulation(), params, seed, rng_mode,
+                    auto_grow, device)
+
+    def _setup(self, genome: Genome, params: SimParams, seed: int,
+               rng_mode: str, auto_grow: bool, device,
+               state: SimState | None = None) -> None:
+        """Every attribute of a sim, for __init__ and load: a fresh
+        population unless `state` is given."""
+        self.genome = genome
         self.params = params
         self.seed = seed
         self.rng_mode = rng_mode
+        self.auto_grow = auto_grow
         self.device = torch.device(device)
-        self.genome_dev = self.genome.to_device(self.device)
-        self.state: SimState = init_particles(
-            params, self.genome_dev, n_modes=len(self.genome.modes),
-            initial_mode=self.genome.initial_mode_index,
-            capacity=params.capacity, seed=seed, rng_mode=rng_mode,
-            device=self.device)
+        self.genome_dev = genome.to_device(self.device)
+        self.state: SimState = (self._fresh(params.capacity) if state is None
+                                else state)
         self._steps_per_sec = float("nan")
         self.last_selected = -1   # lastSelectedParticleID (cs:125)
+
+    def _fresh(self, capacity: int) -> SimState:
+        """A fresh population of `capacity` slots under this sim's genome,
+        seed and rng mode."""
+        return init_particles(
+            self.params, self.genome_dev, n_modes=len(self.genome.modes),
+            initial_mode=self.genome.initial_mode_index, capacity=capacity,
+            seed=self.seed, rng_mode=self.rng_mode, device=self.device)
 
     # -- stepping ------------------------------------------------------------
 
     def step(self, n: int = 1, dt=None) -> None:
         """Advance n physics steps. dt: a scalar for all n steps or a
-        length-n sequence (variable-dt compat, cs:246); None = params.dt."""
+        length-n sequence (variable-dt compat, cs:246); None = params.dt.
+
+        Under auto_grow the grow check runs before every step (one host
+        read each). The JAX package checks between its scan chunks, but it
+        scans only where the headroom covers the whole chunk, so the
+        condition cannot come true inside one: it grows at the same
+        steps."""
         dts = None
         if dt is not None:
             dts = np.broadcast_to(np.asarray(dt, np.float32), (n,))
-        self.state = run_steps(self.state, self.params, self.genome_dev, n,
-                               dts=dts)
+        for i in range(n):
+            if self.auto_grow:
+                self._maybe_grow()
+            self.state = step(self.state, self.params, self.genome_dev,
+                              dt=None if dts is None else float(dts[i]))
 
     def run(self, n_steps: int) -> float:
         """Run n steps; returns physics steps per second (host clock
@@ -66,6 +98,45 @@ class Simulation:
         dt = time.perf_counter() - t0
         self._steps_per_sec = n_steps / dt if dt > 0 else float("inf")
         return self._steps_per_sec
+
+    # -- capacity and genome -------------------------------------------------
+
+    def _maybe_grow(self) -> None:
+        """Grow capacity when the population could exceed it next step
+        (the growth policy of cs:788-792: max(needed, 2×current))."""
+        active = int(self.state.active_count)
+        cap = self.state.capacity
+        if cap - active > max(1, self.params.max_splits_per_step // 2):
+            return
+        self.resize(max(active + self.params.max_splits_per_step, cap * 2))
+
+    def resize(self, new_capacity: int) -> None:
+        """Migrate the state into a larger fixed capacity
+        (ResizeParticleBuffers, cs:1162-1222): a fresh population at the
+        new capacity with the old rows copied over; the bond table, the
+        pending splits, the drag input, the counters and the PRNG key carry
+        over unchanged."""
+        if new_capacity <= self.state.capacity:
+            return
+        old = self.state
+        fresh = self._fresh(new_capacity)
+        n = old.capacity
+        upd = {}
+        for f in dataclasses.fields(SimState):
+            ov, nv = getattr(old, f.name), getattr(fresh, f.name)
+            if f.name in _CARRIED:
+                upd[f.name] = ov
+            else:
+                nv[:n] = ov
+                upd[f.name] = nv
+        self.state = SimState(**upd)
+
+    def on_genome_changed(self, genome: Genome) -> None:
+        """Hot-reload hook: re-initialise the particles under the new genome
+        at the current capacity (cs:357-367)."""
+        self.genome = genome.validate_for_simulation()
+        self.genome_dev = self.genome.to_device(self.device)
+        self.state = self._fresh(self.state.capacity)
 
     # -- interaction ---------------------------------------------------------
 
@@ -185,3 +256,28 @@ class Simulation:
             "steps_per_sec": self._steps_per_sec,
         }
 
+    # -- checkpoint / resume -------------------------------------------------
+
+    def save(self, path: str) -> None:
+        """A checkpoint in the JAX package's format (engine/checkpoint.py)
+        with this sim's seed and rng mode."""
+        from sph_tpu_torch.engine.checkpoint import save_checkpoint
+
+        save_checkpoint(path, self.state, self.params, self.genome,
+                        sim_meta={"seed": self.seed,
+                                  "rng_mode": self.rng_mode})
+
+    @classmethod
+    def load(cls, path: str, device="cuda") -> "Simulation":
+        """Resume from a checkpoint written by either package. The seed and
+        rng mode come back from its header (older files without them fall
+        back to the constructor's defaults), so a later resize() draws the
+        grown rows from the same stream as a run never checkpointed."""
+        from sph_tpu_torch.engine.checkpoint import load_checkpoint
+
+        state, params, genome, meta = load_checkpoint(path, device=device)
+        sim = cls.__new__(cls)
+        sim._setup(genome, params, int(meta.get("seed", 0)),
+                   str(meta.get("rng_mode", "jax")), False, device,
+                   state=state)
+        return sim

@@ -28,19 +28,20 @@ from sph_tpu_torch.physics.integrate import update_motion, update_rotation
 
 
 def contact_forces(state: SimState, params: SimParams):
-    """Neighbour-sum dispatch: brute force (the executable spec) or the
-    dense sweep. Returns (force, torque, overflow)."""
+    """Neighbour-sum dispatch: brute force (the executable spec), the
+    sort+gather grid or the dense sweep. Returns (force, torque,
+    overflow)."""
     if params.neighbor_mode == "bruteforce":
         f, t = contact_forces_bruteforce(state, params)
         return f, t, 0
+    if params.neighbor_mode == "grid":
+        from sph_tpu_torch.ops.grid import contact_forces_grid
+
+        return contact_forces_grid(state, params)
     if params.neighbor_mode == "dense":
         from sph_tpu_torch.physics.contact_dense import contact_forces_dense
 
         return contact_forces_dense(state, params)
-    if params.neighbor_mode == "grid":
-        raise NotImplementedError(
-            "neighbor_mode='grid' (the sort+gather grid, ops/grid.py) is "
-            "not ported yet: ROADMAP A13")
     raise ValueError(f"unknown neighbor_mode {params.neighbor_mode!r}")
 
 

@@ -30,6 +30,7 @@ from dataclasses import dataclass
 import torch
 
 from sph_tpu_torch.core.types import SimParams, SimState
+from sph_tpu_torch.ops.grid import cell_index
 from sph_tpu_torch.physics.contact import alive_mask
 from sph_tpu_torch.sph.dense import SENTINEL
 
@@ -203,12 +204,11 @@ def _cell_ids(state: SimState, spec: ContactSpec):
     [1, dim−2] so the margin ring stays sentinel-only (an out-of-domain
     division child bins into the nearest edge cell, compute:104). The
     quotient divides by a 0-dim tensor (a Python-scalar divisor becomes a
-    reciprocal multiply on CUDA) and is clamped before the int cast (an
-    out-of-domain position would overflow int32); for integer bounds
-    clamp-then-truncate equals truncate-then-clamp."""
+    reciprocal multiply on CUDA) and converts as `ops.grid.cell_index`
+    does: NaN → 0, then the clamp, then the cast, so a NaN position bins
+    as in JAX and an out-of-domain one never overflows int32."""
     org, cell, hi = _binning_constants(spec, state.device)
-    q = torch.div(state.pos - org, cell)
-    cc = torch.clamp(torch.clamp(q, min=1.0), max=hi).to(torch.int32)
+    cc = cell_index(torch.div(state.pos - org, cell), 1.0, hi)
     ix, iy, iz = cc.unbind(-1)
     cid = (iz * spec.ny + iy) * spec.nx_pad + ix
     dead = torch.full_like(cid, spec.nz * spec.ny * spec.nx_pad)

@@ -32,6 +32,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from sph_tpu_torch.ops.grid import cell_index
 from sph_tpu_torch.sph import kernels as KN
 from sph_tpu_torch.sph.model import (
     SPHParams,
@@ -521,12 +522,16 @@ def _compact_stage(fields, occ, own_coord, target_fn, axis_roll,
     unreachable = (occ > 0.5) & (torch.abs(tgt - own_coord) > 1)
     dropped = dropped + torch.sum(unreachable)
 
-    # Masked-sum compaction, as the JAX twin does it (K reductions).
+    # Selected-sum compaction (K reductions): each output slot sums its one
+    # selected candidate and +0s. The JAX XLA twin multiplies by a 0/1 mask
+    # instead, so a non-finite candidate (0·NaN, 0·inf) writes NaN into
+    # every slot of its window; its Pallas kernel, K3 and this version copy
+    # it into its own slot only. Equal for finite values (−0 == +0).
     outs, occ_outs = [], []
     for k in range(K):
-        mk = (keep & (rank == k)).to(torch.float32)   # [Z, 3K, C]
-        outs.append(torch.sum(mk[..., None] * cand, dim=1))
-        occ_outs.append(torch.sum(mk, dim=1))
+        mk = keep & (rank == k)                       # [Z, 3K, C]
+        outs.append(torch.sum(torch.where(mk[..., None], cand, 0.0), dim=1))
+        occ_outs.append(torch.sum(mk.to(torch.float32), dim=1))
     return torch.stack(outs, dim=1), torch.stack(occ_outs, dim=1), dropped
 
 
@@ -535,14 +540,15 @@ def bin_coord(p, origin_w: float, cell: float, n_cells: int):
     interior [1, n−2] (margins stay sentinel). The divisor is a 0-dim tensor
     on p's device: dividing a CUDA tensor by a Python scalar multiplies by
     its reciprocal, which is not the IEEE quotient the kernel and JAX use.
-    Clamping before the cast keeps sentinel lanes (1e9) out of the
-    undefined float→int range; for integer bounds it equals trunc-then-clip.
+    The conversion is `ops.grid.cell_index`'s: NaN → 0 before the clamp,
+    as XLA converts before it clips, so a NaN position lands in cell lo as
+    in JAX.
     """
     lo = min(1, n_cells - 1)
     hi = max(n_cells - 2, lo)
     q = torch.div(p - origin_w,
                   torch.tensor(cell, dtype=torch.float32, device=p.device))
-    return torch.clamp(q, lo, hi).to(torch.int32)
+    return cell_index(q, lo, hi)
 
 
 def is_rebin_step(step: int, params: SPHParams) -> bool:

@@ -1,6 +1,7 @@
 """Weakly-compressible SPH (WCSPH) fluid model — the counterpart of
-sph_tpu.sph.model for the dense path: parameters, flat state, interactive
-drag, SDF obstacles, the Tait EOS and box walls.
+sph_tpu.sph.model: parameters, flat state, interactive drag, SDF obstacles,
+the Tait EOS and box walls, and the sort+gather grid path (`sph_step`,
+`make_sph_step`, config[0]) with its brute-force twins.
 
 Scalars: a Python float meeting an f32 tensor is rounded to f32 at the op,
 exactly where JAX rounds its weak-typed scalars.
@@ -12,6 +13,15 @@ import dataclasses
 from dataclasses import dataclass
 
 import torch
+
+from sph_tpu_torch.ops.grid import (
+    GridSpec,
+    cell_coords,
+    row_blocks,
+    sort_by_cell,
+    stencil_candidates_sorted,
+)
+from sph_tpu_torch.sph import kernels as K
 
 
 @dataclass(frozen=True)
@@ -49,6 +59,26 @@ class SPHParams:
     def tait_b(self) -> float:
         return self.rest_density * self.sound_speed ** 2 / self.gamma
 
+    def grid_spec(self) -> GridSpec:
+        """The sort+gather grid: cell size h (one 27-cell stencil covers the
+        kernel support) and one cell of margin so wall-adjacent particles
+        never clamp across; one cell deep in 2D."""
+        lo, hi = self.bounds_min, self.bounds_max
+        dims = []
+        for a in range(3):
+            extent = hi[a] - lo[a]
+            dims.append(max(1, int(-(-extent // self.h)) + 2)
+                        if extent > 0 else 1)
+        if self.ndim == 2:
+            dims[2] = 1
+        return GridSpec(
+            dim=tuple(dims),
+            cell_size=self.h,
+            origin=(lo[0] - self.h, lo[1] - self.h,
+                    lo[2] - (self.h if self.ndim == 3 else 0.0)),
+            cell_capacity=self.cell_capacity,
+        )
+
     def replace(self, **kw) -> "SPHParams":
         return dataclasses.replace(self, **kw)
 
@@ -64,6 +94,11 @@ class SPHState:
     pressure: torch.Tensor
     step_count: torch.Tensor
     bin_overflow: torch.Tensor
+
+    def to(self, device) -> "SPHState":
+        """The state on `device` (itself if every field is there)."""
+        return SPHState(**{f.name: getattr(self, f.name).to(device)
+                           for f in dataclasses.fields(self)})
 
     @staticmethod
     def from_positions(pos: torch.Tensor, params: SPHParams) -> "SPHState":
@@ -182,3 +217,184 @@ def apply_boundaries(pos, vel, params: SPHParams):
     pos = torch.clamp(pos, lo, hi)
     vel = torch.where(hit, -params.boundary_damping * vel, vel)
     return pos, vel
+
+
+# ---------------------------------------------------------------------------
+# The sort+gather grid path (config[0]): density and force passes over
+# particle rows sorted by cell, each row summing its [27·K] candidates.
+# ---------------------------------------------------------------------------
+
+
+def _row_blocked(N: int, row_block: int, block_fn, device):
+    """block_fn over the row blocks (`ops.grid.row_blocks`), concatenated
+    and cut to N rows (the blocks bound the [R, 27K] candidate tensors)."""
+    return torch.cat([block_fn(rows) for rows in
+                      row_blocks(N, row_block, device)])[:N]
+
+
+def _density_sorted(pos, coords, bins, spec, params: SPHParams):
+    """ρ over SORTED particle rows (self term included via the r² = 0
+    lane)."""
+    N = pos.shape[0]
+    h2 = params.h * params.h
+
+    def block(rows):
+        cand = stencil_candidates_sorted(coords[rows], bins, spec)
+        cj = torch.clamp(cand, 0, N - 1).long()
+        d = pos[rows][:, None, :] - pos[cj]
+        r2 = torch.sum(d * d, dim=-1)
+        w = torch.where((cand >= 0) & (r2 < h2),
+                        K.w_poly6(r2, params.h, params.ndim), 0.0)
+        return params.particle_mass * torch.sum(w, dim=1)
+
+    return torch.clamp_min(
+        _row_blocked(N, params.row_block, block, pos.device), 1e-6)
+
+
+def _accel_sorted(pos, vel, rho, p, coords, bins, spec, params: SPHParams):
+    """Pressure + viscosity acceleration over SORTED rows."""
+    N = pos.shape[0]
+    h = params.h
+    m = params.particle_mass
+    p_over_rho2 = p / (rho * rho)
+
+    def block(rows):
+        cand = stencil_candidates_sorted(coords[rows], bins, spec)
+        cj = torch.clamp(cand, 0, N - 1).long()
+        d = pos[rows][:, None, :] - pos[cj]
+        r2 = torch.sum(d * d, dim=-1)
+        r = torch.sqrt(torch.clamp_min(r2, 1e-18))
+        near = ((cand >= 0) & (r2 < h * h) & (r2 > 1e-16))[..., None]
+
+        grad = K.grad_w_spiky(d, r, h, params.ndim)
+        pij = p_over_rho2[rows][:, None] + p_over_rho2[cj]
+        a_press = -m * torch.sum(
+            torch.where(near, grad * pij[..., None], 0.0), dim=1)
+        lap = K.lap_w_viscosity(r, h, params.ndim)
+        dv = vel[cj] - vel[rows][:, None, :]
+        a_visc = params.viscosity * m * torch.sum(
+            torch.where(near,
+                        dv * (lap / (rho[rows][:, None] * rho[cj]))[..., None],
+                        0.0),
+            dim=1)
+        return a_press + a_visc
+
+    return _row_blocked(N, params.row_block, block, pos.device)
+
+
+def _external_accel(pos, acc, params: SPHParams):
+    """Gravity, the obstacles' push, and z held at 0 in 2D."""
+    g = torch.zeros(3, dtype=torch.float32, device=pos.device)
+    g[1] = -params.gravity
+    acc = acc + g
+    if params.obstacles:
+        acc = acc + obstacle_accel(pos, params)
+    if params.ndim == 2:
+        acc = acc.clone()
+        acc[:, 2] = 0.0
+    return acc
+
+
+def _unsort(order, x):
+    """Rows of x (in sorted order) back to input order."""
+    out = torch.empty_like(x)
+    out[order] = x
+    return out
+
+
+def compute_density(state: SPHState, params: SPHParams):
+    """(ρ in input particle order, bin overflow): the sorted pipeline, then
+    the inverse permutation."""
+    spec = params.grid_spec()
+    order, bins = sort_by_cell(state.pos, spec)
+    pos_s = state.pos[order]
+    rho_s = _density_sorted(pos_s, cell_coords(pos_s, spec), bins, spec,
+                            params)
+    return _unsort(order, rho_s), bins.overflow
+
+
+def compute_accel(state: SPHState, params: SPHParams) -> torch.Tensor:
+    """Acceleration in input particle order (sorted pipeline inside)."""
+    spec = params.grid_spec()
+    order, bins = sort_by_cell(state.pos, spec)
+    pos_s, vel_s = state.pos[order], state.vel[order]
+    rho_s, p_s = state.density[order], state.pressure[order]
+    acc_s = _accel_sorted(pos_s, vel_s, rho_s, p_s, cell_coords(pos_s, spec),
+                          bins, spec, params)
+    return _unsort(order, _external_accel(pos_s, acc_s, params))
+
+
+def sph_step(state: SPHState, params: SPHParams) -> SPHState:
+    """One WCSPH step: sort by cell → density → EOS → forces → symplectic
+    Euler → walls. Fluid particles carry no identity, so the cell-sort
+    permutation is kept: the output state is in sorted order, as the JAX
+    package's is."""
+    spec = params.grid_spec()
+    order, bins = sort_by_cell(state.pos, spec)
+    pos = state.pos[order]
+    vel = state.vel[order]
+    coords = cell_coords(pos, spec)
+
+    rho = _density_sorted(pos, coords, bins, spec, params)
+    p = eos_pressure(rho, params)
+    acc = _accel_sorted(pos, vel, rho, p, coords, bins, spec, params)
+    acc = _external_accel(pos, acc, params)
+
+    vel = vel + acc * params.dt
+    pos = pos + vel * params.dt
+    pos, vel = apply_boundaries(pos, vel, params)
+    return SPHState(
+        pos=pos, vel=vel, density=rho, pressure=p,
+        step_count=state.step_count + 1,
+        bin_overflow=state.bin_overflow + bins.overflow,
+    )
+
+
+def make_sph_step(params: SPHParams, substeps: int = 1, device="cuda"):
+    """`f(state) -> state` advancing `substeps` steps of `sph_step` in a
+    host loop on `device` (the state is moved there first if it lies
+    elsewhere) — the JAX package's jitted scan of the same steps."""
+    device = torch.device(device)
+
+    def f(state: SPHState) -> SPHState:
+        state = state.to(device)
+        for _ in range(substeps):
+            state = sph_step(state, params)
+        return state
+
+    return f
+
+
+# -- brute-force reference paths (executable spec; BASELINE config[0]) -------
+
+
+def compute_density_bruteforce(state: SPHState, params: SPHParams):
+    d = state.pos[:, None, :] - state.pos[None, :, :]
+    r2 = torch.sum(d * d, dim=-1)
+    w = torch.where(r2 < params.h ** 2,
+                    K.w_poly6(r2, params.h, params.ndim), 0.0)
+    return torch.clamp_min(params.particle_mass * torch.sum(w, dim=1), 1e-6)
+
+
+def compute_accel_bruteforce(state: SPHState, params: SPHParams):
+    h = params.h
+    m = params.particle_mass
+    rho, p = state.density, state.pressure
+    pr2 = p / (rho * rho)
+    d = state.pos[:, None, :] - state.pos[None, :, :]
+    r2 = torch.sum(d * d, dim=-1)
+    r = torch.sqrt(torch.clamp_min(r2, 1e-18))
+    near = ((r2 < h * h) & (r2 > 1e-16))[..., None]
+    grad = K.grad_w_spiky(d, r, h, params.ndim)
+    a_press = -m * torch.sum(
+        torch.where(near, grad * (pr2[:, None] + pr2[None, :])[..., None],
+                    0.0),
+        dim=1)
+    lap = K.lap_w_viscosity(r, h, params.ndim)
+    dv = state.vel[None, :, :] - state.vel[:, None, :]
+    a_visc = params.viscosity * m * torch.sum(
+        torch.where(near,
+                    dv * (lap / (rho[:, None] * rho[None, :]))[..., None],
+                    0.0),
+        dim=1)
+    return _external_accel(state.pos, a_press + a_visc, params)

@@ -1,7 +1,8 @@
 """Carrying state across from the JAX package: its SPHParams (as the dict
-`dataclasses.asdict` gives, or a checkpoint header's JSON of it) and the
-fields of its DenseFluidState (as numpy arrays); for the colony its
-SimParams, its genome JSON and its SimState (the `state_to_numpy` dict)."""
+`dataclasses.asdict` gives, or a checkpoint header's JSON of it), the
+fields of its DenseFluidState and of its flat SPHState (config[0]'s grid
+path) as numpy arrays; for the colony its SimParams, its genome JSON and
+its SimState (the `state_to_numpy` dict)."""
 
 from __future__ import annotations
 
@@ -14,7 +15,7 @@ from sph_tpu_torch.core.types import Genome, SimParams, SimState
 from sph_tpu_torch.core.types import state_from_numpy as sim_state_from_numpy
 from sph_tpu_torch.engine.config import genome_from_json
 from sph_tpu_torch.sph.dense import DenseFluidState
-from sph_tpu_torch.sph.model import SPHParams
+from sph_tpu_torch.sph.model import SPHParams, SPHState
 
 _COUNTERS = ("dropped", "clamped", "step_count")
 
@@ -46,6 +47,19 @@ def state_from_numpy(arrays: dict, device="cuda") -> DenseFluidState:
         dtype = torch.int32 if f.name in _COUNTERS else torch.float32
         out[f.name] = torch.from_numpy(a).to(device=device, dtype=dtype)
     return DenseFluidState(**out)
+
+
+def sph_state_from_numpy(arrays: dict, device="cuda") -> SPHState:
+    """The flat SPHState on `device` from numpy arrays of every field: f32
+    pos/vel [N, 3] and density/pressure [N], int32 scalar counters
+    (copied, so the state never aliases the caller's buffers)."""
+    out = {}
+    for f in dataclasses.fields(SPHState):
+        a = np.array(arrays[f.name], copy=True)
+        dtype = (torch.int32 if f.name in ("step_count", "bin_overflow")
+                 else torch.float32)
+        out[f.name] = torch.from_numpy(a).to(device=device, dtype=dtype)
+    return SPHState(**out)
 
 
 # -- the colony -------------------------------------------------------------

@@ -87,6 +87,36 @@ def test_pack_bitwise(expand):
                                       err_msg=f"field {i}")
 
 
+def test_pack_bitwise_with_nan_and_inf_positions():
+    """ROADMAP C1 at the colony site: NaN and ±inf coordinates bin as
+    XLA's convert-then-clip bins them (NaN → the interior's first cell,
+    ±inf → its edges), so the pack equals JAX's `_pack_args` (its default
+    XLA column scatters) bit for bit. JAX's Pallas expand route
+    (expand=True, interpret mode) is no reference here: with these inputs
+    it writes NaN into 260 further slots of the rows' tile (measured),
+    where its scatter route and the port place the one row."""
+    js, _, p = blob(alive=380)
+    pos = np.asarray(js.pos).copy()
+    pos[5] = (np.nan, 1.0, 2.0)
+    pos[6] = (np.inf, -np.inf, 0.5)
+    pos[7] = (0.5, np.nan, -np.inf)
+    js = js.replace_fields(pos=jnp.asarray(pos))
+    ts = ttypes.state_from_numpy(jtypes.state_to_numpy(js), device="cpu")
+    jspec, tspec = specs(p)
+    np.testing.assert_array_equal(tcd._cell_ids(ts, tspec).numpy(),
+                                  np.asarray(jcd._cell_ids(js, jspec)))
+    jf, jocc, jslot, jovr = jcd._pack_args(js, jspec)
+    tf, tocc, tslot, tovr = tcd._pack_args(ts, tspec)
+    assert int(tovr) == int(jovr)
+    np.testing.assert_array_equal(tslot.numpy(), np.asarray(jslot))
+    np.testing.assert_array_equal(tocc.numpy(), np.asarray(jocc))
+    for i, (a, b) in enumerate(zip(tf, jf)):
+        np.testing.assert_array_equal(a.numpy().view(np.int32),
+                                      np.asarray(b).view(np.int32),
+                                      err_msg=f"field {i}")
+    assert bool(tf[0].isnan().any())
+
+
 def test_expand_wrapper_is_scatter_sorted():
     """The K5 wrapper on CPU tensors returns the plain placement."""
     _, ts, p = blob(n=400, k=4, seed=3)

@@ -18,6 +18,7 @@ pack's placement) is bitwise."""
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -44,6 +45,7 @@ from sph_tpu_torch.utils.verify import (
     empty_layout,
     moved_layout,
     overflow_layout,
+    place_particle,
 )
 
 torch.set_num_threads(1)
@@ -272,6 +274,34 @@ def test_rebin_kernel_on_an_empty_layout(cuda):
     p, spec = small_spec("3d8")
     assert rebin_equal(layout_state(empty_layout(spec), cuda), p,
                        spec) == (0, 0)
+
+
+def test_rebin_kernel_keeps_nan_and_inf_positions(cuda):
+    """ROADMAP C1: NaN and ±inf coordinates. K3 clamps with fmaxf/fminf
+    (NaN → lo), the plain rebin converts NaN to 0 before its clamp: both
+    bin as JAX does, and both copy a non-finite coordinate into its own
+    slot only. Equal bits on every field (NaN as NaN: the card's
+    arithmetic gives its canonical NaN where K3 copies the input's; −0 ==
+    +0) and equal `dropped` (the two ±inf particles move far: 2)."""
+    p, spec = small_spec("3d8")
+    lay = empty_layout(spec)
+    rng = np.random.default_rng(0)
+    for cell in ((1, 1, 1), (2, 2, 2), (5, 5, 5), (6, 6, 6)):
+        place_particle(lay, spec, 0, cell, cell, rng)
+    X = spec.X
+    lay["px"][1, 0, X + 1] = np.nan
+    lay["py"][5, 0, 5 * X + 5] = np.inf
+    lay["pz"][6, 0, 6 * X + 6] = -np.inf
+    d = layout_state(lay, cuda)
+    args = (d.px, d.py, d.pz, d.vx, d.vy, d.vz, p, spec)
+    a, b = dense.rebin(d, *args), staged_rebin(d, *args)
+    for f in ("px", "py", "pz", "vx", "vy", "vz", "occ"):
+        x, y = getattr(a, f), getattr(b, f)
+        same = ((x.view(torch.int32) == y.view(torch.int32))
+                | (x.isnan() & y.isnan()) | ((x == 0) & (y == 0)))
+        assert bool(same.all()), f
+    assert int(a.dropped) == int(b.dropped) == 2
+    assert int(a.px.isnan().sum()) == 1 and int(a.occ.sum()) == 2
 
 
 def test_wrappers_refuse_bad_operands(cuda):

@@ -171,7 +171,9 @@ def test_port_imports_no_jax():
     modules = sorted(
         ".".join(path.relative_to(PKG.parent).with_suffix("").parts)
         for path in PKG.rglob("*.py") if path.name != "__init__.py")
-    assert "sph_tpu_torch.engine.simulation" in modules
+    for name in ("engine.simulation", "engine.checkpoint", "engine.recovery",
+                 "engine.config", "ops.grid", "sph.model"):
+        assert f"sph_tpu_torch.{name}" in modules, name
     code = (f"import sys; import {', '.join(modules)};"
             " assert 'jax' not in sys.modules, 'jax imported';"
             " assert not any(m == 'sph_tpu' or m.startswith('sph_tpu.')"

@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from sph_tpu.sph import dense as jdense
 from sph_tpu_torch.ops import LAUNCHES, reset_launches
 from sph_tpu_torch.ops.rebin import check_spec, halo_bytes, staged_rebin
 from sph_tpu_torch.sph import dense
@@ -150,6 +151,71 @@ def test_walk_matches_pallas_interpret(twins, name):
                        tw.tspec)
         assert_rebin_equal(a, b)
         assert int(a.dropped) > 0
+
+
+def nan_layout(spec, far_inf: bool, seed=0):
+    """ROADMAP C1's scene: the layout emptied, one particle in layout cell
+    (1, 1, 1) whose world x is NaN, one in (2, 2, 2); with `far_inf`, two
+    more in (5, 5, 5) and (6, 6, 6) whose y is +inf and z is −inf (each
+    then bins to an edge of the interior, a far move: dropped)."""
+    lay = empty_layout(spec)
+    rng = np.random.default_rng(seed)
+    cells = ((1, 1, 1), (2, 2, 2)) + (((5, 5, 5), (6, 6, 6)) if far_inf
+                                      else ())
+    for cell in cells:
+        place_particle(lay, spec, 0, cell, cell, rng)
+    X = spec.X
+    lay["px"][1, 0, X + 1] = np.nan
+    if far_inf:
+        lay["py"][5, 0, 5 * X + 5] = np.inf
+        lay["pz"][6, 0, 6 * X + 6] = -np.inf
+    return lay
+
+
+def assert_bits(got, want, where=None):
+    """Equal bits on every field where `where` (default: everywhere); NaN
+    counts as equal to NaN (IEEE leaves its payload open, and x86 gives a
+    NaN made by arithmetic another sign than numpy's)."""
+    for f in FIELDS:
+        a, b = getattr(got, f).numpy(), np.asarray(getattr(want, f))
+        m = np.ones(a.shape, bool) if where is None else where
+        np.testing.assert_array_equal(np.isnan(a[m]), np.isnan(b[m]),
+                                      err_msg=f)
+        ok = m & ~np.isnan(b)
+        np.testing.assert_array_equal(a[ok].view(np.int32),
+                                      b[ok].view(np.int32), err_msg=f)
+
+
+@pytest.mark.parametrize("far_inf", [False, True])
+def test_nan_position_rebins_as_jax(twins, far_inf):
+    """A NaN coordinate bins to the interior's first cell, as XLA's
+    convert (NaN → 0) and clip give it; ±inf to its edges. The port's
+    plain rebin and K3's walk equal JAX's Pallas rebin (interpret mode)
+    bit for bit with equal `dropped` (0 for the C1 scene). Against JAX's
+    XLA twin `dense.rebin`: equal occupancy and `dropped`, and equal bits
+    wherever the twin is finite — the twin's 0/1-mask compaction also
+    writes NaN into the other particles of the NaN's windows
+    (`_compact_stage`)."""
+    from sph_tpu.ops.pallas.rebin import rebin_pallas
+
+    tw = twin(twins, "3d8")
+    jd, td = tw.states(nan_layout(tw.tspec, far_inf))
+    kern = jax.jit(lambda d: rebin_pallas(d, d.px, d.py, d.pz, d.vx, d.vy,
+                                          d.vz, tw.jp, tw.jspec))(jd)
+    xla = jdense.rebin(jd, jd.px, jd.py, jd.pz, jd.vx, jd.vy, jd.vz,
+                       tw.jp, tw.jspec)
+    args = (td.px, td.py, td.pz, td.vx, td.vy, td.vz, tw.tp, tw.tspec)
+    finite = np.isfinite(np.asarray(xla.px)) & np.isfinite(
+        np.asarray(xla.py)) & np.isfinite(np.asarray(xla.pz))
+    for got in (dense.rebin(td, *args), rebin_walk(td, *args)):
+        assert_bits(got, kern)
+        assert_bits(got, xla, where=finite)
+        np.testing.assert_array_equal(got.occ.numpy(), np.asarray(xla.occ))
+        assert int(got.dropped) == int(kern.dropped) == int(xla.dropped) \
+            == (2 if far_inf else 0)
+        assert int(got.occ.sum()) == 2 and bool(got.px.isnan().any())
+    # The twin's NaN reached the particle in (2, 2, 2).
+    assert not finite[2, 0, 2 * tw.tspec.X + 2]
 
 
 def test_codes_name_each_move(twins):

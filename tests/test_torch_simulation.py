@@ -229,14 +229,16 @@ def test_pick_drag_and_metrics_match_jax():
 def test_entry_points_default_to_cuda():
     """Entry points run on the card unless the caller passes device='cpu'
     (checked on the signatures: this host has no card)."""
+    from sph_tpu_torch.engine.checkpoint import load_checkpoint
     from sph_tpu_torch.sph.dense import pack
-    from sph_tpu_torch.sph.model import FluidDrag
+    from sph_tpu_torch.sph.model import FluidDrag, make_sph_step
     from sph_tpu_torch.utils import convert
 
-    for fn in (Simulation.__init__, FluidSimulation.__init__,
+    for fn in (Simulation.__init__, Simulation.load, FluidSimulation.__init__,
                FluidSimulation.from_scene, FluidSimulation.load, pack,
                FluidDrag.at, convert.state_from_numpy,
-               convert.colony_from_jax, bonded_colony,
-               ttypes.state_from_numpy):
+               convert.sph_state_from_numpy, convert.colony_from_jax,
+               bonded_colony, ttypes.state_from_numpy, load_checkpoint,
+               make_sph_step):
         assert inspect.signature(fn).parameters["device"].default == \
             "cuda", fn.__qualname__
