@@ -65,6 +65,31 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
                placement, one PyTorch index_copy), beside its bound; K4
                also on the compressed copy, K5 also at the probe's
                scene.
+13. render   — FluidSimulation.render_frame (800×450) of the config[3]
+               state: twice on the card bitwise, within atol 1e-4 of the
+               port's render of the same state copied to the CPU, finite,
+               in [0, 1], brightest pixel > 0.3; a CUDA-event split
+               (projection, the size classes' segment sums, blur, tone
+               map, readback); the z-buffer at config[3] and the sphere
+               impostors and z-buffer at bench.py's 10,240-cell dense
+               colony, each twice bitwise and against the CPU. No kernel
+               is launched.
+14. viewer   — ViewerLoop(800×450, 4 substeps) on the 10k dense colony
+               for 30 scripted frames (press on a cell's pixel, move three
+               times, hold, release), counters reset just before: the
+               pick equals a brute-force ray test's, the dragged cell
+               closes on its target, drag_slot is -1 after release, and
+               the contact and expand kernels launched 4 times a frame;
+               frames/s and a per-frame split (stepping, impostor,
+               readback, overlay commands, rasterisation, PNG encoding);
+               one frame written as a PNG and read back bitwise.
+15. app      — `python -m sph_tpu_torch.app` in process: `fluid` at
+               config[3]'s scene and particle count (30 steps, a frame
+               every 15), counters reset just before: exit 0, two frames,
+               `dropped` 0, and the sweeps and the rebin launched as many
+               times as the steps it ran ask; then `cells` with
+               --render-every and `view` with a script at their default
+               sizes; and utils.profiling.step_breakdown at config[3].
 
 The line before the last is {"kernels": [...]}, preceded by the card's
 `nvidia-smi` name and power limit; the last line is {"ok": true, ...}.
@@ -81,6 +106,8 @@ import time
 
 import numpy as np
 import torch
+
+from sph_tpu_torch.utils.profiling import F32_FLOPS, HBM_BYTES_PER_S
 
 CONFIG3 = dict(n_target=1_000_000, cell_factor=1.38, dense_k=8,
                rebin_every=6)
@@ -114,9 +141,9 @@ KERNELS = {
     "expand": ("sph_tpu_torch/csrc/expand_rows.cu",
                "sph_tpu/ops/pallas/expand.py:80"),
 }
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and non-tensor f32 FLOP/s.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
+# bench.py's 10k dense colony rung (bench.py:318-324): the viewer's scene.
+VIEW_COLONY_N = 10_240
+VIEW_W, VIEW_H, VIEW_SUBSTEPS, VIEW_FRAMES = 800, 450, 4, 30
 # Operations per candidate pair, counted from the pair code: the poly6
 # term with its two accumulations, the pressure + viscosity term with its
 # six, the contact overlap screen, and the contact terms past the screen.
@@ -473,6 +500,11 @@ def main() -> int:
     say("times", "rebin times are one whole rebin: the codes and the "
         "placement launch, against the plain rebin; contact and expand at "
         "the 1M colony after its main run")
+
+    # 13-15. The render and host layers.
+    view_colony = render_phase(sim, dev, card)
+    viewer_phase(view_colony, card)
+    app_phase(sim, card)
 
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -1068,6 +1100,327 @@ def host_phase(grid_sim, dev, card) -> None:
             f"equals a clean run bitwise at step "
             f"{int(rolled.state.step_count)} | {card}")
     assert_no_launches("host phase")
+
+
+# -- the render and host layers ---------------------------------------------
+
+
+def host_copy(sim):
+    """A FluidSimulation on the CPU holding a copy of `sim`'s state, as
+    FluidSimulation.load builds one."""
+    from sph_tpu_torch.engine.fluid import FluidSimulation
+    from sph_tpu_torch.utils.convert import state_from_numpy
+
+    host = FluidSimulation.__new__(FluidSimulation)
+    host.params, host.spec = sim.params, sim.spec
+    host._start(state_from_numpy(
+        {f.name: getattr(sim.dstate, f.name).cpu().numpy()
+         for f in dataclasses.fields(sim.dstate)}, device="cpu"),
+        sim._step, sim.substeps)
+    return host
+
+
+def repeat_and_hold(name: str, card_fn, cpu_value, atol: float) -> None:
+    """card_fn() twice on the card, bitwise equal, and within atol of the
+    CPU's value on the same inputs (inf where the CPU has inf)."""
+    a, b = card_fn(), card_fn()
+    if not torch.equal(a, b):
+        raise AssertionError(f"{name}: two renders on the card differ in "
+                             f"{int((a != b).sum())} values")
+    got, want = a.cpu().numpy(), cpu_value.numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=atol, err_msg=name)
+    finite = np.isfinite(want)
+    err = float(np.abs(got[finite] - want[finite]).max(initial=0.0))
+    say("render", f"{name} {list(a.shape)}: twice bitwise on the card; max "
+        f"|card - CPU| {err:.3g} (atol {atol:g})")
+
+
+def render_phase(sim, dev, card) -> dict:
+    """Phase 13: render_frame of config[3], the z-buffer, and the sphere
+    impostors of the 10k dense colony, each held against the CPU and
+    repeated bitwise, with a CUDA-event split of the splat frame."""
+    from sph_tpu_torch.engine.colony import bonded_colony
+    from sph_tpu_torch.engine.fluid import tank_camera
+    from sph_tpu_torch.engine.simulation import Simulation
+    from sph_tpu_torch.core.types import state_from_numpy, state_to_numpy
+    from sph_tpu_torch.ops import reset_launches
+    from sph_tpu_torch.render import splat
+    from sph_tpu_torch.render.image import frame_bytes
+    from sph_tpu_torch.render.overlay import cells_image, default_camera
+    from sph_tpu_torch.sph import dense
+
+    reset_launches()
+    w, h = VIEW_W, VIEW_H
+    host = host_copy(sim)
+    img = sim.render_frame(width=w, height=h)
+    repeat_and_hold("config[3] render_frame",
+                    lambda: sim.render_frame(width=w, height=h),
+                    host.render_frame(width=w, height=h), 1e-4)
+    if not (bool(torch.isfinite(img).all()) and float(img.min()) >= 0.0
+            and float(img.max()) <= 1.0 and float(img.max()) > 0.3):
+        raise AssertionError(f"config[3] frame: min {float(img.min())}, "
+                             f"max {float(img.max())}")
+    vp = tank_camera(sim.params).view_params()
+    pos, _, _, _, mask = dense.unpack(sim.dstate)
+    hpos, _, _, _, hmask = dense.unpack(host.dstate)
+    repeat_and_hold("config[3] zbuffer",
+                    lambda: splat.zbuffer(pos, vp, w, h, mask=mask),
+                    splat.zbuffer(hpos, vp, w, h, mask=hmask), 0.0)
+
+    # The split of one frame, each part on the previous part's output.
+    eye, right, up, fwd, tanf = splat.camera_tensors(vp, dev)
+    radius = torch.full((pos.shape[0],), sim.params.h * 0.5,
+                        dtype=torch.float32, device=dev)
+
+    def project():
+        p, r = splat._drop_masked(mask, pos, radius)
+        px, py, z, vis = splat.project_points(p, eye, right, up, fwd, tanf,
+                                              w, h)
+        return (splat.pixel_ids(px, py, vis, w, h), z, vis,
+                splat.depth_colors(z, vis), r)
+
+    pid, z, vis, colors, r = project()
+    sums = splat.splat_sums(pid, z, vis, colors, w, h, tanf, r)
+    blurred = splat.blur_classes(sums, r)
+    toned = splat.tone_map(blurred)
+    parts = {
+        "drop masked slots, project, pixel ids, depth colours": project,
+        "segment sums (4 size classes, one stable sort)":
+            lambda: splat.splat_sums(pid, z, vis, colors, w, h, tanf, r),
+        "blur (4 classes, 2 depthwise convs each)":
+            lambda: splat.blur_classes(sums, r),
+        "tone map": lambda: splat.tone_map(blurred),
+        "readback (uint8 bytes to the host)": lambda: frame_bytes(toned),
+        "render_frame (all of the above but the readback)":
+            lambda: sim.render_frame(width=w, height=h),
+    }
+    n_vis = int(vis.sum())
+    for name, fn in parts.items():
+        say("render", f"config[3] {name}: {cuda_ms(fn, 10):.4f} ms")
+    say("render", f"config[3] frame: {pos.shape[0]} slots, "
+        f"{int(mask.sum())} occupied, {n_vis} in view; classes "
+        f"{[int(x) for x in (sums.sum(dim=(1, 2, 3)) > 0)]} lit | {card}")
+
+    t0 = time.perf_counter()
+    state, params, genome = bonded_colony(VIEW_COLONY_N, device=dev,
+                                          **COLONY_KW)
+    csim = Simulation(genome, params, device=dev)
+    csim.state = state
+    chost = Simulation(genome, params, device="cpu")
+    chost.state = state_from_numpy(state_to_numpy(state), device="cpu")
+    cam = default_camera(csim)
+    say("render", f"{VIEW_COLONY_N}-cell dense colony built in "
+        f"{time.perf_counter() - t0:.1f} s, "
+        f"{int(state.bonds.active.sum())} bonds")
+    repeat_and_hold("colony render_spheres",
+                    lambda: cells_image(csim, cam, w, h),
+                    cells_image(chost, cam, w, h), 1e-4)
+    cvp = cam.view_params()
+    cmask = (torch.arange(state.capacity, device=dev) < state.active_count)
+    def zbuffer():
+        return splat.zbuffer(state.pos, cvp, w, h, mask=cmask)
+
+    repeat_and_hold("colony zbuffer", zbuffer,
+                    splat.zbuffer(chost.state.pos, cvp, w, h,
+                                  mask=cmask.cpu()), 0.0)
+    say("render", f"colony render_spheres: "
+        f"{cuda_ms(lambda: cells_image(csim, cam, w, h), 10):.4f} ms, "
+        f"zbuffer {cuda_ms(zbuffer, 10):.4f} ms | {card}")
+    assert_no_launches("render phase")
+    return {"sim": csim, "bonds": int(state.bonds.active.sum())}
+
+
+def brute_pick(pos: np.ndarray, origin, d, r: float) -> int:
+    """The slot a ray through (origin, d) meets first among spheres of
+    radius r, in float64: the viewer's pick, computed independently."""
+    o, d = np.float64(origin), np.float64(d)
+    rel = pos.astype(np.float64) - o
+    along = rel @ d
+    miss2 = np.einsum("ij,ij->i", rel, rel) - along * along
+    hit = (along >= 0) & (miss2 <= r * r)
+    t = np.where(hit, along - np.sqrt(np.maximum(r * r - miss2, 0.0)),
+                 np.inf)
+    return int(np.argmin(t)) if np.isfinite(t).any() else -1
+
+
+def viewer_phase(colony, card) -> None:
+    """Phase 14: a scripted ViewerLoop session on the 10k dense colony,
+    its frame rate and a per-frame split, and one frame as a PNG."""
+    import tempfile
+
+    from sph_tpu_torch.app.viewer import ViewerLoop
+    from sph_tpu_torch.ops import LAUNCHES, reset_launches
+    from sph_tpu_torch.render import overlay, raster
+    from sph_tpu_torch.render.image import encode_png, frame_bytes, read_png
+
+    sim = colony["sim"]
+    w, h = VIEW_W, VIEW_H
+    v = ViewerLoop(sim, width=w, height=h, substeps=VIEW_SUBSTEPS)
+    n = int(sim.state.active_count)
+    pos = sim.state.pos[:n].cpu().numpy()
+    px, py, vis = overlay._project(pos, v.camera, w, h)
+    # The cell in view nearest the frame's centre.
+    near = np.where(vis, (px - w / 2) ** 2 + (py - h / 2) ** 2, np.inf)
+    cell = int(np.argmin(near))
+    x, y = int(round(float(px[cell]))), int(round(float(py[cell])))
+    want = brute_pick(pos, *v.camera.pixel_ray(x, y, w, h),
+                      sim.params.max_radius)
+    script = {0: [{"type": "mouse_down", "x": x, "y": y}],
+              1: [{"type": "mouse_move", "x": x + 40, "y": y}],
+              2: [{"type": "mouse_move", "x": x + 80, "y": y}],
+              3: [{"type": "mouse_move", "x": x + 120, "y": y - 20}],
+              VIEW_FRAMES - 1: [{"type": "mouse_up"}]}
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    for i in range(VIEW_FRAMES):
+        frame = v.frame(script.get(i, []))
+        if i == 0 and v.drag_slot != want:
+            raise AssertionError(f"pick at ({x}, {y}): slot {v.drag_slot}, "
+                                 f"brute force {want}")
+        if i == 3:
+            slot = v.drag_slot
+            target = sim.state.drag_input.target.cpu().numpy()
+            gap0 = float(np.linalg.norm(
+                sim.state.pos[slot].cpu().numpy() - target))
+        if i == VIEW_FRAMES - 2:
+            gap1 = float(np.linalg.norm(
+                sim.state.pos[slot].cpu().numpy() - target))
+    elapsed = time.perf_counter() - t0
+    launches = dict(LAUNCHES)
+    per = VIEW_SUBSTEPS * VIEW_FRAMES
+    if launches != {"density": 0, "accel": 0, "rebin": 0, "contact": per,
+                    "expand": per}:
+        raise AssertionError(f"viewer launches {launches}, want {per} "
+                             f"contact and expand")
+    if not gap1 < gap0:
+        raise AssertionError(f"dragged cell {slot}: gap to its target "
+                             f"{gap0} -> {gap1}")
+    if v.drag_slot != -1 or int(sim.state.drag_input.selected_slot) != -1:
+        raise AssertionError("drag not released")
+    if not bool(torch.isfinite(sim.state.pos).all()):
+        raise AssertionError("non-finite positions in the viewer run")
+    say("viewer", f"{VIEW_COLONY_N} cells, {colony['bonds']} bonds, "
+        f"{VIEW_FRAMES} frames x {VIEW_SUBSTEPS} substeps: pick ({x}, {y}) "
+        f"-> slot {want} = brute force; dragged gap {gap0:.3f} -> "
+        f"{gap1:.3f}; released; launches {launches}; "
+        f"{VIEW_FRAMES / elapsed:.2f} frames/s by host clock (loop's own "
+        f"fps {v.fps:.2f}) | {card}")
+
+    # The split of a frame: each part synchronised, 10 frames.
+    split = {k: 0.0 for k in ("step", "impostor", "readback",
+                              "overlay inputs (bond_lines, ids)",
+                              "overlay commands", "rasterise",
+                              "PNG encode")}
+    sizes = []
+    for _ in range(10):
+        marks = [time.perf_counter()]
+        sim.step(VIEW_SUBSTEPS)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        img = overlay.cells_image(sim, v.camera, w, h)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        arr = frame_bytes(img)
+        marks.append(time.perf_counter())
+        inputs = overlay.overlay_inputs(sim, False, True, False)
+        marks.append(time.perf_counter())
+        cmds = overlay.overlay_commands(v.camera, w, h, show_anchors=True,
+                                        **inputs)
+        marks.append(time.perf_counter())
+        raster.rasterize(arr, cmds)
+        marks.append(time.perf_counter())
+        sizes.append(len(encode_png(arr)))
+        marks.append(time.perf_counter())
+        for k, a, b in zip(split, marks, marks[1:]):
+            split[k] += (b - a) * 1e3 / 10
+    say("viewer", "per-frame split (ms, host clock, synchronised, 10 "
+        "frames): " + ", ".join(f"{k} {t:.3f}" for k, t in split.items())
+        + f"; sum {sum(split.values()):.3f}; {len(cmds)} draw commands, "
+        f"PNG {int(np.mean(sizes))} bytes | {card}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "view.png")
+        frame.save(path)
+        back = read_png(path)
+        if not np.array_equal(back, np.asarray(frame)):
+            raise AssertionError("PNG read back differs from the frame")
+        say("viewer", f"frame written as PNG ({os.path.getsize(path)} "
+            f"bytes) and read back bitwise {list(back.shape)}")
+
+
+def app_phase(sim, card) -> None:
+    """Phase 15: the app's fluid, cells and view commands in process, and
+    step_breakdown at config[3]."""
+    import contextlib
+    import io
+    import tempfile
+
+    from sph_tpu_torch.app.__main__ import main as app_main
+    from sph_tpu_torch.ops import LAUNCHES, reset_launches
+    from sph_tpu_torch.render.image import read_png
+    from sph_tpu_torch.utils.profiling import step_breakdown
+
+    def run(argv):
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = app_main(argv)
+        elapsed = time.perf_counter() - t0
+        if rc != 0:
+            raise AssertionError(f"app {argv}: exit {rc}")
+        lines = [json.loads(l) for l in out.getvalue().splitlines()
+                 if l.startswith("{")]
+        return lines, elapsed
+
+    with tempfile.TemporaryDirectory() as tmp:
+        fluid_out = os.path.join(tmp, "fluid")
+        torch.cuda.synchronize()
+        reset_launches()
+        lines, elapsed = run(["fluid", "--scene", "dam_break_3d_obstacle",
+                              "--n", "1000000", "--steps", "30",
+                              "--render-every", "15", "--out", fluid_out])
+        launches = dict(LAUNCHES)
+        m = lines[-1]
+        steps = m["step"]
+        frames = sorted(os.listdir(fluid_out))
+        if (m["dropped"] != 0 or m["n_particles"] != N_CONFIG3
+                or frames != ["frame_00000.png", "frame_00001.png"]):
+            raise AssertionError(f"app fluid: {m}, frames {frames}")
+        if not (launches["density"] == launches["accel"] == steps
+                and launches["rebin"] > 0 and launches["rebin"] % 2 == 0
+                and launches["contact"] == launches["expand"] == 0):
+            raise AssertionError(f"app fluid launches {launches} for "
+                                 f"{steps} steps")
+        shape = read_png(os.path.join(fluid_out, frames[-1])).shape
+        say("app", f"fluid dam_break_3d_obstacle --n 1000000: exit 0 in "
+            f"{elapsed:.1f} s, {m['n_particles']} particles, {steps} steps "
+            f"({m['steps_per_sec']:.2f} steps/s in its last run), dropped "
+            f"0, frames {frames} {list(shape)}; launches {launches} | "
+            f"{card}")
+        reset_launches()
+        lines, elapsed = run(["cells", "--render-every", "100", "--out",
+                              os.path.join(tmp, "cells")])
+        frames = sorted(os.listdir(os.path.join(tmp, "cells")))
+        if len(frames) != 6 or lines[-1]["step"] != 600:
+            raise AssertionError(f"app cells: {lines[-1]}, frames {frames}")
+        say("app", f"cells (capacity 64, 600 steps, a frame every 100): exit"
+            f" 0 in {elapsed:.1f} s, {lines[-1]['active_particles']} cells, "
+            f"{lines[-1]['bond_count']} bonds, {len(frames)} frames; "
+            f"launches {dict(LAUNCHES)}")
+        script = os.path.join(tmp, "script.json")
+        with open(script, "w") as f:
+            json.dump({"0": [{"type": "mouse_down", "x": 400, "y": 225}],
+                       "1": [{"type": "mouse_move", "x": 450, "y": 225}],
+                       "60": [{"type": "mouse_up"}, {"type": "orbit"}]}, f)
+        lines, elapsed = run(["view", "--script", script])
+        if lines[-1]["frame"] != 119 or lines[-1]["drag_slot"] != -1:
+            raise AssertionError(f"app view: {lines[-1]}")
+        say("app", f"view (capacity 64, 120 frames x 4 substeps, scripted):"
+            f" exit 0 in {elapsed:.1f} s, last {json.dumps(lines[-1])}")
+    bd = step_breakdown(sim.dstate, sim.params, sim.spec)
+    say("app", f"step_breakdown at config[3] (CUDA events, best of 4 x 30):"
+        f" {json.dumps(bd)} | {card}")
 
 
 def contact_pair(fields, occ, p, spec):

@@ -14,6 +14,13 @@ from __future__ import annotations
 import torch
 
 
+def identity(shape=(), device="cuda") -> torch.Tensor:
+    """Identity quaternion(s) [0, 0, 0, 1] with the given batch shape."""
+    q = torch.zeros((*shape, 4), dtype=torch.float32, device=device)
+    q[..., 3] = 1.0
+    return q
+
+
 def cross(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a × b over the last axis, broadcasting like jnp.cross."""
     a0, a1, a2 = a.unbind(-1)

@@ -2,7 +2,8 @@
 sph_tpu.engine.fluid.FluidSimulation (single device): scene setup, stepping
 on the dense engine, pick and drag, metrics, and checkpoints in the JAX
 package's format (npz of the DenseFluidState fields plus a JSON header), so
-a checkpoint written by either package loads in the other."""
+a checkpoint written by either package loads in the other, and on-device
+rendering."""
 
 from __future__ import annotations
 
@@ -22,6 +23,22 @@ from sph_tpu_torch.sph.dense import (
 )
 from sph_tpu_torch.sph.model import FluidDrag, SPHParams, SPHState
 from sph_tpu_torch.utils.convert import params_from_jax, state_from_numpy
+
+
+def tank_camera(params: SPHParams):
+    """render_frame's default camera: above and in front of the tank,
+    looking at its centre from 1.6 × its diagonal."""
+    from sph_tpu_torch.render.camera import Camera
+
+    lo = np.asarray(params.bounds_min)
+    hi = np.asarray(params.bounds_max)
+    center = (lo + hi) / 2
+    extent = float(np.linalg.norm(hi - lo))
+    camera = Camera(position=np.array(
+        [center[0], center[1] + 0.3 * extent,
+         center[2] - 1.6 * extent], np.float32))
+    camera.focus_on(center, distance=1.6 * extent)
+    return camera
 
 
 class FluidSimulation:
@@ -137,6 +154,26 @@ class FluidSimulation:
             "clamped": int(self.dstate.clamped),
             "steps_per_sec": self._steps_per_sec,
         }
+
+    def render_frame(self, path: str | None = None, camera=None,
+                     width: int = 800, height: int = 450):
+        """On-device point splat of the current state ([H, W, 3] f32 on
+        the sim's device); optionally saved as a PNG."""
+        from sph_tpu_torch.render.splat import render_points, save_image
+
+        if camera is None:
+            camera = tank_camera(self.params)
+        pos, _, _, _, mask = unpack(self.dstate)
+        # Screen-space radius scaling (projected-size splat classes): SPH
+        # particles render at their smoothing-scale footprint h/2.
+        img = render_points(
+            pos, camera.view_params(), width=width, height=height, mask=mask,
+            radius=torch.full((pos.shape[0],), self.params.h * 0.5,
+                              dtype=torch.float32, device=pos.device),
+        )
+        if path:
+            save_image(img, path)
+        return img
 
     # -- checkpoint / resume ---------------------------------------------------
 

@@ -14,7 +14,10 @@ plain version is NaN — and +0 on empty ones; K3 is bitwise (−0 == +0,
 on overflows at an intermediate stage, at each K it is built for. K4 (colony
 contact sweep) is held to the same tolerance on every slot and, by the
 same design, to bitwise equality with +0 on empty slots; K5 (the contact
-pack's placement) is bitwise."""
+pack's placement) is bitwise. The render (plain PyTorch) is held to itself
+twice on the card bitwise and to the CPU's render of the same state within
+atol 1e-4 (the z-buffer, a minimum, exactly); the app's `fluid` command
+must launch the sweeps once a step and the rebin twice a rebin."""
 
 import dataclasses
 
@@ -479,3 +482,67 @@ def test_colony_wrappers_refuse_bad_operands(cuda):
         expand_rows(rows, key.long(), cd.PACK_FILLS, spec)
     with pytest.raises(ValueError, match="fills"):
         expand_rows(rows, key, cd.PACK_FILLS[:5], spec)
+
+
+# -- render and app (plain PyTorch on the card; the app launches K1–K5) ----
+
+
+def test_render_repeats_bitwise_and_matches_cpu(cuda):
+    """The splat frame, the z-buffer and the impostor frame rendered twice
+    on the card are bitwise equal, and within atol 1e-4 of the CPU's on
+    the same state (the z-buffer, a minimum, equal)."""
+    from sph_tpu_torch.core.types import state_from_numpy as colony_on
+    from sph_tpu_torch.engine.fluid import tank_camera
+    from sph_tpu_torch.render import splat
+    from sph_tpu_torch.render.overlay import cells_image, default_camera
+    from sph_tpu_torch.utils.convert import state_from_numpy
+
+    sim = FluidSimulation.from_scene(SCENES["3d"][0], substeps=6,
+                                     device=cuda, **SCENES["3d"][1])
+    sim.run(12)
+    a, b = sim.render_frame(), sim.render_frame()
+    assert torch.equal(a, b)
+    host = FluidSimulation.from_scene(SCENES["3d"][0], substeps=6,
+                                      device="cpu", **SCENES["3d"][1])
+    host.dstate = state_from_numpy(
+        {f.name: getattr(sim.dstate, f.name).cpu().numpy()
+         for f in dataclasses.fields(sim.dstate)}, device="cpu")
+    np.testing.assert_allclose(a.cpu().numpy(), host.render_frame().numpy(),
+                               rtol=0, atol=1e-4)
+    assert bool(torch.isfinite(a).all()) and float(a.max()) > 0.3
+    vp = tank_camera(sim.params).view_params()
+    pos, _, _, _, mask = dense.unpack(sim.dstate)
+    z1, z2 = (splat.zbuffer(pos, vp, 800, 450, mask=mask) for _ in range(2))
+    assert torch.equal(z1, z2)
+    hpos, _, _, _, hmask = dense.unpack(host.dstate)
+    assert torch.equal(z1.cpu(), splat.zbuffer(hpos, vp, 800, 450,
+                                               mask=hmask))
+
+    state, params, genome, _ = colony(cuda, n=4000)
+    csim = Simulation(genome, params, device=cuda)
+    csim.state = state
+    camera = default_camera(csim)
+    i1, i2 = cells_image(csim, camera), cells_image(csim, camera)
+    assert torch.equal(i1, i2)
+    chost = Simulation(genome, params, device="cpu")
+    chost.state = colony_on(state_to_numpy(state), device="cpu")
+    np.testing.assert_allclose(i1.cpu().numpy(),
+                               cells_image(chost, camera).numpy(), rtol=0,
+                               atol=1e-4)
+
+
+def test_app_launches_the_kernels(cuda, tmp_path, capsys):
+    from sph_tpu_torch.app.__main__ import main
+
+    reset_launches()
+    rc = main(["fluid", "--scene", "dam_break_3d_obstacle", "--n", "20000",
+               "--steps", "12", "--substeps", "6", "--render-every", "6",
+               "--out", str(tmp_path), "--device", "cuda"])
+    assert rc == 0
+    assert LAUNCHES["density"] == 12 and LAUNCHES["accel"] == 12
+    assert LAUNCHES["rebin"] == 4
+    lines = [l for l in capsys.readouterr().out.splitlines()
+             if l.startswith("{")]
+    assert len(lines) == 2 and '"dropped": 0' in lines[-1]
+    assert sorted(p.name for p in tmp_path.iterdir()) == [
+        "frame_00000.png", "frame_00001.png"]

@@ -1,6 +1,6 @@
 """Port vs reference for the whole slice: FluidSimulation runs, carrying a
 JAX checkpoint across, the port's own checkpoints, pick/drag, and the rule
-that the port imports no JAX.
+that the port imports no JAX (nor PIL).
 
 The 60-step runs compare statistics, never slot-for-slot arrays: XLA may
 contract FMAs where torch on the CPU does not, and a particle within an ulp
@@ -166,16 +166,20 @@ def test_port_imports_no_jax():
                 continue
             for name in names:
                 root = name.split(".")[0]
-                assert root not in ("jax", "jaxlib", "sph_tpu"), (
+                assert root not in ("jax", "jaxlib", "sph_tpu", "PIL"), (
                     f"{path.relative_to(PKG.parent)} imports {name}")
     modules = sorted(
         ".".join(path.relative_to(PKG.parent).with_suffix("").parts)
         for path in PKG.rglob("*.py") if path.name != "__init__.py")
     for name in ("engine.simulation", "engine.checkpoint", "engine.recovery",
-                 "engine.config", "ops.grid", "sph.model"):
+                 "engine.config", "ops.grid", "sph.model", "render.camera",
+                 "render.splat", "render.impostor", "render.overlay",
+                 "render.raster", "render.image", "app.viewer",
+                 "app.__main__", "utils.profiling"):
         assert f"sph_tpu_torch.{name}" in modules, name
     code = (f"import sys; import {', '.join(modules)};"
             " assert 'jax' not in sys.modules, 'jax imported';"
+            " assert 'PIL' not in sys.modules, 'PIL imported';"
             " assert not any(m == 'sph_tpu' or m.startswith('sph_tpu.')"
             " for m in sys.modules), 'sph_tpu imported'")
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
