@@ -61,11 +61,32 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
                bitwise; GuardedRun halting on an injected NaN (restored
                bitwise to the last good state, the dump loads) and
                recovering under rollback.
-12. times    — each kernel's ms against its plain version's (and, for the
+12. shard    — the sharded paths (sph_tpu_torch/parallel): config[4]
+               (dam_break_3d, 4,012,092 particles, [234, 8, 16384]) 45
+               steps on one device; K1 and K2 on its halo-padded blocks
+               (a 4-ring's [61, 8, 16384], a 2×2 mesh's [119, 8, 10240])
+               and K4 on the 1M colony's, bitwise to their plain versions,
+               timed against them beside their bounds. Then one world of 4
+               ranks sharing the card over gloo (halos through pinned host
+               buffers): config[4] on a 4-ring and a 2×2 mesh, 45 steps
+               each, every block bitwise to one device with its counters,
+               K1/K2 45 launches a rank and K3 none; checkpoints saved on
+               the ring and loaded on one device, and the reverse, each 15
+               more steps bitwise; the random fluid of tests/test_dist.py
+               at 262,144 particles, 12 steps on the ring (population
+               conserved, particles crossing seams); the 1M colony (5
+               steps) and the division window of tests/test_dist.py (8
+               steps) through Simulation(mesh=…) on both meshes, every
+               rank bitwise to one device, K4/K5 a launch a step on every
+               rank. A one-rank nccl world runs config[3] 12 steps
+               bitwise; a world whose rank raises must fail. Steps/s,
+               halo and staged bytes and host-staging ms are those of
+               ranks sharing one card, not a multi-GPU speed.
+13. times    — each kernel's ms against its plain version's (and, for the
                placement, one PyTorch index_copy), beside its bound; K4
                also on the compressed copy, K5 also at the probe's
                scene.
-13. render   — FluidSimulation.render_frame (800×450) of the config[3]
+14. render   — FluidSimulation.render_frame (800×450) of the config[3]
                state: twice on the card bitwise, within atol 1e-4 of the
                port's render of the same state copied to the CPU, finite,
                in [0, 1], brightest pixel > 0.3; a CUDA-event split
@@ -74,7 +95,7 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
                impostors and z-buffer at bench.py's 10,240-cell dense
                colony, each twice bitwise and against the CPU. No kernel
                is launched.
-14. viewer   — ViewerLoop(800×450, 4 substeps) on the 10k dense colony
+15. viewer   — ViewerLoop(800×450, 4 substeps) on the 10k dense colony
                for 30 scripted frames (press on a cell's pixel, move three
                times, hold, release), counters reset just before: the
                pick equals a brute-force ray test's, the dragged cell
@@ -83,7 +104,7 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
                frames/s and a per-frame split (stepping, impostor,
                readback, overlay commands, rasterisation, PNG encoding);
                one frame written as a PNG and read back bitwise.
-15. app      — `python -m sph_tpu_torch.app` in process: `fluid` at
+16. app      — `python -m sph_tpu_torch.app` in process: `fluid` at
                config[3]'s scene and particle count (30 steps, a frame
                every 15), counters reset just before: exit 0, two frames,
                `dropped` 0, and the sweeps and the rebin launched as many
@@ -151,6 +172,8 @@ DENSITY_PAIR_FLOPS = 14
 ACCEL_PAIR_FLOPS = 42
 CONTACT_SCREEN_FLOPS = 14
 CONTACT_PAIR_FLOPS = 110
+# Calls a timing takes of a kernel and of its plain version (`turns`).
+TURN_REPS_KERN, TURN_REPS_PLAIN = 20, 3
 
 
 def say(phase: str, msg: str) -> None:
@@ -348,7 +371,6 @@ def main() -> int:
     from sph_tpu_torch.engine.fluid import FluidSimulation
     from sph_tpu_torch.ops import LAUNCHES, reset_launches
     from sph_tpu_torch.ops.build import library
-    from sph_tpu_torch.ops.fluid import accel_sweep, density_sweep
     from sph_tpu_torch.ops.rebin import staged_rebin
     from sph_tpu_torch.sph import dense
     from sph_tpu_torch.utils.verify import check_fluid_twins
@@ -442,26 +464,16 @@ def main() -> int:
     grid_colony = grid_phase(dev, card)
     host_phase(grid_colony, dev, card)
 
-    # 10. times, each kernel at its main path's shapes
+    # 12. The sharded paths (ranks sharing the card over gloo, and a
+    # one-rank nccl world).
+    shard_phase(colony, dev, card)
+
+    # 13. times, each kernel at its main path's shapes
     d, p, spec = sim.dstate, sim.params, sim.spec
-    pr2 = d.prs / (d.rho * d.rho)
-    irho = torch.reciprocal(d.rho)
     plane = d.px.numel() * 4
     n_pairs, n_near, n_occ = fluid_pairs(d, spec)
     pairs = {
-        # occupancy in, density out; 3 positions where a partner is.
-        "density": (
-            lambda: density_sweep(d.px, d.py, d.pz, d.occ, p, spec),
-            lambda: dense.density_raw(d.px, d.py, d.pz, p, spec),
-            None, bound(2 * plane + 3 * 4 * n_near,
-                        n_pairs * DENSITY_PAIR_FLOPS)),
-        # occupancy in, 3 accelerations out; positions, velocities, 1/ρ
-        # and p/ρ² where a partner is.
-        "accel": (
-            lambda: accel_sweep(d, pr2, p, spec),
-            lambda: dense.accel_raw(d, irho, pr2, p, spec),
-            None, bound(4 * plane + 8 * 4 * n_near,
-                        n_pairs * ACCEL_PAIR_FLOPS)),
+        **sweep_time_pairs(d, p, spec, n_pairs, n_near),
         # occupancy in, 7 planes out; 6 payload fields of occupied slots.
         "rebin": (
             lambda: staged_rebin(d, d.px, d.py, d.pz, d.vx, d.vy, d.vz,
@@ -478,12 +490,7 @@ def main() -> int:
     checks.update(colony["checks"])
     rows = []
     for name, (kern, plain, library_call, bnd) in pairs.items():
-        # Turns plain, kernel, kernel, plain on one card.
-        p1 = cuda_ms(plain, 3)
-        k1 = cuda_ms(kern, 20)
-        k2 = cuda_ms(kern, 20)
-        p2 = cuda_ms(plain, 3)
-        ms, plain_ms = (k1 + k2) / 2, (p1 + p2) / 2
+        ms, plain_ms, (p1, k1, k2, p2) = turns(kern, plain)
         lib_ms = (None if library_call is None
                   else cuda_ms(library_call, 20))
         say("times", f"{name}: kernel {ms:.4f} ms ({k1:.4f}, {k2:.4f}), "
@@ -501,7 +508,7 @@ def main() -> int:
         "placement launch, against the plain rebin; contact and expand at "
         "the 1M colony after its main run")
 
-    # 13-15. The render and host layers.
+    # 14-16. The render and host layers.
     view_colony = render_phase(sim, dev, card)
     viewer_phase(view_colony, card)
     app_phase(sim, card)
@@ -1112,7 +1119,7 @@ def host_copy(sim):
     from sph_tpu_torch.utils.convert import state_from_numpy
 
     host = FluidSimulation.__new__(FluidSimulation)
-    host.params, host.spec = sim.params, sim.spec
+    host.params, host.spec, host.mesh = sim.params, sim.spec, None
     host._start(state_from_numpy(
         {f.name: getattr(sim.dstate, f.name).cpu().numpy()
          for f in dataclasses.fields(sim.dstate)}, device="cpu"),
@@ -1423,6 +1430,43 @@ def app_phase(sim, card) -> None:
         f" {json.dumps(bd)} | {card}")
 
 
+def sweep_time_pairs(d, p, spec, n_pairs: int, n_near: int) -> dict:
+    """(kernel, plain, library call, bound) of K1 and K2 on a state (or a
+    rank's halo-padded block) with its pair counts (`fluid_pairs`)."""
+    from sph_tpu_torch.ops.fluid import accel_sweep, density_sweep
+    from sph_tpu_torch.sph import dense
+
+    pr2 = d.prs / (d.rho * d.rho)
+    irho = torch.reciprocal(d.rho)
+    plane = d.px.numel() * 4
+    return {
+        # occupancy in, density out; 3 positions where a partner is.
+        "density": (
+            lambda: density_sweep(d.px, d.py, d.pz, d.occ, p, spec),
+            lambda: dense.density_raw(d.px, d.py, d.pz, p, spec),
+            None, bound(2 * plane + 3 * 4 * n_near,
+                        n_pairs * DENSITY_PAIR_FLOPS)),
+        # occupancy in, 3 accelerations out; positions, velocities, 1/ρ
+        # and p/ρ² where a partner is.
+        "accel": (
+            lambda: accel_sweep(d, pr2, p, spec),
+            lambda: dense.accel_raw(d, irho, pr2, p, spec),
+            None, bound(4 * plane + 8 * 4 * n_near,
+                        n_pairs * ACCEL_PAIR_FLOPS)),
+    }
+
+
+def turns(kern, plain):
+    """(kernel ms, plain ms, the four runs): plain, kernel, kernel, plain
+    on one card, the kernel over TURN_REPS_KERN calls, the plain version
+    over TURN_REPS_PLAIN."""
+    p1 = cuda_ms(plain, TURN_REPS_PLAIN)
+    k1 = cuda_ms(kern, TURN_REPS_KERN)
+    k2 = cuda_ms(kern, TURN_REPS_KERN)
+    p2 = cuda_ms(plain, TURN_REPS_PLAIN)
+    return (k1 + k2) / 2, (p1 + p2) / 2, (p1, k1, k2, p2)
+
+
 def contact_pair(fields, occ, p, spec):
     """(what the sweep must do, (kernel, plain, library call, bound)) of K4
     on packed fields."""
@@ -1430,7 +1474,7 @@ def contact_pair(fields, occ, p, spec):
     from sph_tpu_torch.physics import contact_dense as cd
 
     w = contact_work(fields, occ, p, spec)
-    plane = spec.slots * 4
+    plane = occ.numel() * 4
     return w, (
         lambda: contact_sweep(fields, occ, p, spec),
         lambda: cd._sweep_plain(
@@ -1493,6 +1537,521 @@ def colony_time_pairs(colony, card) -> dict:
         f"ms, bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} | {card}")
     return {"contact": contact, "expand": expand_pair(st, spec)}
 
+
+# -- 12. shard: the sharded paths (sph_tpu_torch/parallel) -------------------
+
+# BASELINE's config[4] (bench.py:193-201 → _bench_dense, bench.py:57-70):
+# dam_break_3d at 4M particles, k = 8, cell_factor 1.35, rebin every 6,
+# kernels on; the bench's 45 steps in blocks of 15.
+CONFIG4 = dict(n_target=4_000_000, cell_factor=1.35, dense_k=8,
+               rebin_every=6, use_pallas=True)
+N_CONFIG4 = 4_012_092
+SHARD_STEPS, SHARD_SUBSTEPS, SHARD_MORE = 45, 15, 15
+SHARD_RANKS = 4
+# tests/test_dist.py's random fluid at 262,144 particles, 12 steps, with 8
+# slots a cell: its ~0.77 particles a cell at cell_factor 1.3 put more
+# than 4 in some of the 1.2M cells at this size.
+STRESS_N, STRESS_STEPS, STRESS_K = 262_144, 12, 8
+COLONY_SHARD_STEPS = 5
+# tests/test_dist.py's division window: 256 cells resized to 320, 16
+# timers armed to split within the 8 steps.
+WINDOW_N, WINDOW_CAPACITY, WINDOW_ARMED, WINDOW_STEPS = 256, 320, 16, 8
+NCCL_STEPS = 12
+SHARD_TIMEOUT = 900.0
+SHARD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "build", "shard")
+SHARED_CARD = "4 ranks sharing one card over gloo"
+
+
+def random_fluid(n: int, k: int, seed: int = 0):
+    """tests/test_dist.py's random fluid (numpy draws in its order) with k
+    slots a cell: ~0.35 particles a cell at cell_factor 1, cell_factor
+    1.3, rebin every 3, random velocities that carry particles across the
+    ranks' seams; kernels on."""
+    from sph_tpu_torch.sph.model import SPHParams, SPHState
+
+    rng = np.random.default_rng(seed)
+    pos = rng.uniform(0.05, 0.95, (n, 3)).astype(np.float32)
+    h = float((0.15 * 0.729 / n) ** (1 / 3))
+    params = SPHParams(
+        ndim=3, h=h, particle_mass=1000.0 / n, bounds_min=(0.0, 0.0, 0.0),
+        bounds_max=(1.0, 1.0, 1.0), dt=0.25 * h / 60.0, sound_speed=60.0,
+        viscosity=0.05, dense_k=k, cell_factor=1.3, use_pallas=True,
+        rebin_every=3)
+    state = SPHState.from_positions(torch.from_numpy(pos), params)
+    vel = rng.normal(0, 2.0, (n, 3)).astype(np.float32)
+    return dataclasses.replace(state, vel=torch.from_numpy(vel)), params
+
+
+def save_reference(d, path: str) -> str:
+    """Every field of a dense state as one .npy file each (read back by
+    the ranks memory-mapped, a block at a time), counters as JSON."""
+    from sph_tpu_torch.parallel.dist import FIELDS
+
+    os.makedirs(path, exist_ok=True)
+    for f in FIELDS:
+        np.save(os.path.join(path, f"{f}.npy"), getattr(d, f).cpu().numpy())
+    with open(os.path.join(path, "counters.json"), "w") as fh:
+        json.dump({f: int(getattr(d, f)) for f in
+                   ("dropped", "clamped", "step_count")}, fh)
+    return path
+
+
+def same_block(sim, ref: str) -> dict:
+    """This rank's block of a FluidSimulation (the whole state without a
+    mesh) against the same cells of a reference saved by save_reference:
+    the slots that differ per field (−0 == +0, as K3 and the plain rebin
+    are held to each other), whether the padding past the global layout
+    still holds its fills, the counters, and the block's particles."""
+    from sph_tpu_torch.parallel.dist import FIELDS, _pad_fill, blocks
+
+    d, spec = sim.dstate, sim.spec
+    shape = (1,) if sim.mesh is None else sim.mesh.shape
+    coords = (0,) if sim.mesh is None else sim.mesh.coords
+    planes, rows = blocks(spec, shape)
+    z0 = coords[0] * planes
+    c0 = coords[1] * rows * spec.X if len(shape) == 2 else 0
+    nz = min(planes, spec.n0 - z0)
+    nc = min(d.px.shape[2], spec.C - c0)
+    fills = _pad_fill(sim.params)
+    differ, pads = {}, True
+    for f in FIELDS:
+        want = np.load(os.path.join(ref, f"{f}.npy"), mmap_mode="r")
+        want = torch.from_numpy(np.array(
+            want[z0:z0 + nz, :, c0:c0 + nc])).to(d.px.device)
+        got = getattr(d, f)
+        n = int((got[:nz, :, :nc] != want).sum())
+        if n:
+            differ[f] = {"slots": n, "max_abs_err": float(
+                (got[:nz, :, :nc] - want).abs().max())}
+        pads &= bool((got[nz:] == fills[f]).all()
+                     and (got[:, :, nc:] == fills[f]).all())
+    with open(os.path.join(ref, "counters.json")) as fh:
+        want_counters = json.load(fh)
+    counters = {f: int(getattr(d, f)) for f in want_counters}
+    return {"differ": differ, "pads": pads, "counters": counters,
+            "want_counters": want_counters,
+            "particles": int(d.occ[:nz, :, :nc].sum())}
+
+
+def fluid_on_mesh(mesh, job: dict, name: str) -> dict:
+    """config[4] through FluidSimulation on `mesh`: 45 steps, counters
+    reset just before; its block against the single-device run. On the
+    ring also the checkpoints: saved on the ring after 45 steps, the ring
+    stepped 15 more; that checkpoint loaded on one device (rank 0) and
+    the single-device checkpoint loaded on the ring, each stepped 15."""
+    from sph_tpu_torch.engine.fluid import FluidSimulation
+    from sph_tpu_torch.ops import LAUNCHES, reset_launches
+
+    t0 = time.perf_counter()
+    sim = FluidSimulation.from_scene("dam_break_3d", mesh=mesh,
+                                     substeps=SHARD_SUBSTEPS, **job["scene"])
+    setup_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    mesh.reset_stats()
+    reset_launches()
+    sps = sim.run(job["steps"])
+    out = {"setup_s": setup_s, "sps": sps, "launches": dict(LAUNCHES),
+           "stats": dict(mesh.stats), "block": list(sim.dstate.px.shape),
+           "same": same_block(sim, job["ref"])}
+    if name != "ring":
+        return out
+    ckpt = os.path.join(job["dir"], "ring.npz")
+    sim.save(ckpt)
+    sim.run(job["more"])
+    out["same_more"] = same_block(sim, job["ref_more"])
+    del sim
+    if mesh.rank == 0:
+        one = FluidSimulation.load(ckpt, device=mesh.device)
+        one.run(job["more"])
+        out["one_from_ring"] = same_block(one, job["ref_more"])
+        del one
+    mesh.barrier()
+    ring = FluidSimulation.load(job["ckpt"], mesh=mesh)
+    ring.run(job["more"])
+    out["ring_from_one"] = same_block(ring, job["ref_more"])
+    return out
+
+
+def stress_on_mesh(mesh, job: dict) -> dict:
+    """The random fluid on `mesh`: the block's particles before and after,
+    and the block against the single-device run."""
+    from sph_tpu_torch.engine.fluid import FluidSimulation
+
+    state, params = random_fluid(job["n"], job["k"])
+    sim = FluidSimulation(state, params, substeps=job["steps"], mesh=mesh)
+    before = int(sim.dstate.occ.sum())
+    sim.run(job["steps"])
+    return {"before": before, "after": int(sim.dstate.occ.sum()),
+            "same": same_block(sim, job["ref"])}
+
+
+def colony_on_mesh(mesh, job: dict) -> dict:
+    """Simulation.load(checkpoint, mesh=…) stepped `steps` steps, counters
+    reset just before: the launches, a digest of the whole state (equal on
+    every rank) and, on rank 0, the fields that differ from the
+    single-device run."""
+    import hashlib
+
+    from sph_tpu_torch.core.types import state_to_numpy
+    from sph_tpu_torch.engine.simulation import Simulation
+    from sph_tpu_torch.ops import LAUNCHES, reset_launches
+
+    sim = Simulation.load(job["ckpt"], mesh=mesh)
+    torch.cuda.synchronize()
+    mesh.reset_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    sim.step(job["steps"])
+    torch.cuda.synchronize()
+    out = {"sps": job["steps"] / (time.perf_counter() - t0),
+           "launches": dict(LAUNCHES), "stats": dict(mesh.stats),
+           "active": int(sim.state.active_count)}
+    flat = state_to_numpy(sim.state)
+    h = hashlib.sha256()
+    for k in sorted(flat):
+        h.update(k.encode() + np.ascontiguousarray(flat[k]).tobytes())
+    out["digest"] = h.hexdigest()
+    if mesh.rank == 0:
+        with np.load(job["ref"]) as ref:
+            out["differ"] = [k for k in ref.files
+                             if not np.array_equal(ref[k], flat[k])]
+    return out
+
+
+def shard_rank(job: dict) -> dict:
+    """One rank of the shard phase's world: config[4] on a 4-ring and on a
+    2×2 mesh, the migration stress on the ring, the 1M colony and the
+    division window on both meshes."""
+    from sph_tpu_torch.parallel.dist import make_mesh_2d, make_multislice_mesh
+
+    meshes = {"ring": make_multislice_mesh(device=job["device"]),
+              "2x2": make_mesh_2d((2, 2), axis_names=("z", "y"),
+                                  device=job["device"])}
+    out = {"backend": meshes["ring"].backend,
+           "device": str(meshes["ring"].device)}
+    for name, mesh in meshes.items():
+        out[f"config4_{name}"] = fluid_on_mesh(mesh, job["config4"], name)
+    out["stress"] = stress_on_mesh(meshes["ring"], job["stress"])
+    for case in ("colony", "window"):
+        for name, mesh in meshes.items():
+            out[f"{case}_{name}"] = colony_on_mesh(mesh, job[case])
+    return out
+
+
+def nccl_rank(job: dict) -> dict:
+    """The one rank of an nccl world: config[3] through FluidSimulation on
+    a ring of one rank, counters reset just before."""
+    from sph_tpu_torch.engine.fluid import FluidSimulation
+    from sph_tpu_torch.ops import LAUNCHES, reset_launches
+    from sph_tpu_torch.parallel.dist import make_multislice_mesh
+
+    mesh = make_multislice_mesh(device=job["device"])
+    sim = FluidSimulation.from_scene("dam_break_3d_obstacle", mesh=mesh,
+                                     substeps=6, **job["scene"])
+    torch.cuda.synchronize()
+    reset_launches()
+    sps = sim.run(job["steps"])
+    return {"backend": mesh.backend, "sps": sps, "launches": dict(LAUNCHES),
+            "same": same_block(sim, job["ref"])}
+
+
+def failing_rank() -> None:
+    """Rank 1 raises; rank 0 waits in a collective rank 1 never joins."""
+    import torch.distributed as dist
+
+    if dist.get_rank() == 1:
+        raise RuntimeError("rank 1 fails on purpose")
+    dist.all_reduce(torch.zeros(1))
+
+
+def exact_same(where: str, r: dict, counters: bool = True) -> None:
+    """A block (or state) must equal the single-device run's in every
+    field, keep its padding, and (unless told) match its counters."""
+    if r["differ"] or not r["pads"]:
+        raise AssertionError(f"{where}: differs from one device: {r}")
+    if counters and r["counters"] != r["want_counters"]:
+        raise AssertionError(f"{where}: counters {r['counters']} != "
+                             f"{r['want_counters']}")
+
+
+def slab_kernels(d, p, spec, colony, card) -> None:
+    """K1 and K2 on config[4]'s halo-padded blocks (ring rank 0; rank
+    (0, 1) of the 2×2 mesh, whose rows take the y halo) and K4 on the 1M
+    colony's (ring rank 1; 2×2 rank (1, 0)), each bitwise to its plain
+    version and timed against it, beside its bound: one line of times
+    and counts each."""
+    from sph_tpu_torch.parallel.dist import contact_block, fluid_slab
+    from sph_tpu_torch.physics import contact_dense as cd
+    from sph_tpu_torch.utils.verify import (
+        accel_inputs,
+        check_accel,
+        check_contact_fields,
+        check_density,
+        compressed,
+    )
+
+    rows = []
+    for shape, coords in (((SHARD_RANKS,), (0,)), ((2, 2), (0, 1))):
+        slab, sspec = fluid_slab(d, p, spec, shape, coords)
+        checks = {"density": check_density(slab, p, sspec),
+                  "accel": check_accel(accel_inputs(slab, p, sspec), p,
+                                       sspec)}
+        where = f"config[4] block {coords} of {shape}"
+        exact_sweeps(where, checks)
+        n_pairs, n_near, n_occ = fluid_pairs(slab, sspec)
+        for name, (kern, plain, _, bnd) in sweep_time_pairs(
+                slab, p, sspec, n_pairs, n_near).items():
+            ms, plain_ms, runs = turns(kern, plain)
+            rows.append({"kernel": name, "where": where,
+                         "shape": list(slab.px.shape), "ms": ms,
+                         "plain_ms": plain_ms, "turns_pkkp_ms": runs, **bnd,
+                         "occupied": n_occ, "pairs": n_pairs})
+    st, cp, cspec = colony["sim"].state, colony["sim"].params, colony["spec"]
+    fields, occ, _, _ = cd._pack_args(st, cspec, expand=True)
+    squeezed = cd._pack_args(compressed(st, 0.7), cspec, expand=True)[:2]
+    for shape, coords in (((SHARD_RANKS,), (1,)), ((2, 2), (1, 0))):
+        where = f"1M colony block {coords} of {shape}"
+        # Bitwise on the compressed copy too, where contacts occur.
+        block, sspec = contact_block([*squeezed[0], squeezed[1]], cspec,
+                                     shape, coords)
+        r = check_contact_fields(block[:10], block[10], cp, sspec)
+        exact_contact(f"{where}, compressed x0.7", r)
+        if r["contact_slots"] == 0:
+            raise AssertionError(f"{where}: no contact in the compressed "
+                                 f"block")
+        block, sspec = contact_block([*fields, occ], cspec, shape, coords)
+        f_s, occ_s = block[:10], block[10]
+        exact_contact(where, check_contact_fields(f_s, occ_s, cp, sspec))
+        w, (kern, plain, _, bnd) = contact_pair(f_s, occ_s, cp, sspec)
+        ms, plain_ms, runs = turns(kern, plain)
+        rows.append({"kernel": "contact", "where": where,
+                     "shape": list(occ_s.shape), "ms": ms,
+                     "plain_ms": plain_ms, "turns_pkkp_ms": runs, **bnd,
+                     **w})
+    for r in rows:
+        say("shard", f"{r['kernel']} at {r['where']}, bitwise: "
+            f"{json.dumps(r)} | {card}")
+
+
+def shard_phase(colony, dev, card) -> None:
+    """Phase 12: config[4] on one device, then on 4 ranks sharing the
+    card over gloo (a 4-ring and a 2×2 mesh), the migration stress, the
+    1M colony and the division window on both meshes, checkpoints across
+    meshes both ways; a one-rank nccl world at config[3]; a rank that
+    raises fails its world. Every sharded run is held bitwise to the
+    single-device run; K1, K2, K4 and K5 must launch on every rank, K3
+    (the sharded rebin is the plain one) never."""
+    import shutil
+
+    from sph_tpu_torch.core.types import state_to_numpy
+    from sph_tpu_torch.engine.colony import bonded_colony
+    from sph_tpu_torch.engine.fluid import FluidSimulation
+    from sph_tpu_torch.engine.simulation import Simulation
+    from sph_tpu_torch.ops import LAUNCHES, reset_launches
+    from sph_tpu_torch.parallel.launch import spawn
+
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+    os.makedirs(SHARD_DIR)
+
+    def path(name):
+        return os.path.join(SHARD_DIR, name)
+
+    # config[4] on one device: the reference of every sharded fluid run.
+    t0 = time.perf_counter()
+    one = FluidSimulation.from_scene("dam_break_3d", substeps=SHARD_SUBSTEPS,
+                                     device=dev, **CONFIG4)
+    d, spec = one.dstate, one.spec
+    occupied = float(d.occ.sum()) / d.occ.numel()
+    say("shard", f"config[4] packed: layout {list(d.px.shape)} "
+        f"({d.px.numel() * 4 / 1e6:.1f} MB a field, {occupied:.1%} of slots "
+        f"occupied), {time.perf_counter() - t0:.1f} s")
+    reset_launches()
+    sps = one.run(SHARD_STEPS)
+    launches = dict(LAUNCHES)
+    m = check_state(one, N_CONFIG4)
+    want = {"density": SHARD_STEPS, "accel": SHARD_STEPS,
+            "rebin": 2 * (SHARD_STEPS // CONFIG4["rebin_every"]),
+            "contact": 0, "expand": 0}
+    if launches != want:
+        raise AssertionError(f"config[4] launches {launches} != {want}")
+    say("shard", f"config[4] one device, {SHARD_STEPS} steps: {sps:.2f} "
+        f"steps/s, {sps * N_CONFIG4:.4g} particle-steps/s, dropped "
+        f"{m['dropped']}, clamped {m['clamped']}, launches {launches} | "
+        f"{card}")
+    slab_kernels(one.dstate, one.params, spec, colony, card)
+    ref = save_reference(one.dstate, path("config4"))
+    one.save(path("one.npz"))
+    one.run(SHARD_MORE)
+    ref_more = save_reference(one.dstate, path("config4_more"))
+    del one, d
+
+    state, params = random_fluid(STRESS_N, STRESS_K)
+    stress = FluidSimulation(state, params, substeps=STRESS_STEPS,
+                             device=dev)
+    stress.run(STRESS_STEPS)
+    ref_stress = save_reference(stress.dstate, path("stress"))
+    say("shard", f"migration stress: {STRESS_N} particles, layout "
+        f"{list(stress.dstate.px.shape)}, {STRESS_STEPS} steps on one device")
+    del stress
+
+    colony["sim"].save(path("colony.npz"))
+    sim = Simulation.load(path("colony.npz"), device=dev)
+    sim.step(COLONY_SHARD_STEPS)
+    np.savez(path("colony_ref.npz"), **state_to_numpy(sim.state))
+    del sim
+    wstate, wparams, wgenome = bonded_colony(
+        WINDOW_N, neighbor_mode="dense", dense_k=2, use_pallas=True,
+        max_splits_per_step=32, device=dev)
+    sim = Simulation(wgenome, wparams, device=dev)
+    sim.state = wstate
+    sim.resize(WINDOW_CAPACITY)
+    timer = sim.state.split_timer.clone()
+    timer[:WINDOW_ARMED] = (wgenome.modes[0].split_interval
+                            - 2 * wparams.dt)
+    sim.state = sim.state.replace_fields(split_timer=timer)
+    sim.save(path("window.npz"))
+    sim = Simulation.load(path("window.npz"), device=dev)
+    sim.step(WINDOW_STEPS)
+    if int(sim.state.active_count) != WINDOW_N + WINDOW_ARMED:
+        raise AssertionError(f"division window: {int(sim.state.active_count)}"
+                             f" cells, want {WINDOW_N + WINDOW_ARMED}")
+    np.savez(path("window_ref.npz"), **state_to_numpy(sim.state))
+    del sim
+    torch.cuda.empty_cache()
+
+    job = {
+        "device": "cuda",
+        "config4": {"scene": CONFIG4, "steps": SHARD_STEPS,
+                    "more": SHARD_MORE, "ref": ref, "ref_more": ref_more,
+                    "ckpt": path("one.npz"), "dir": SHARD_DIR},
+        "stress": {"n": STRESS_N, "k": STRESS_K, "steps": STRESS_STEPS,
+                   "ref": ref_stress},
+        "colony": {"ckpt": path("colony.npz"), "ref": path("colony_ref.npz"),
+                   "steps": COLONY_SHARD_STEPS},
+        "window": {"ckpt": path("window.npz"), "ref": path("window_ref.npz"),
+                   "steps": WINDOW_STEPS},
+    }
+    t0 = time.perf_counter()
+    ranks = spawn(shard_rank, SHARD_RANKS, "gloo", "cuda", path("init"),
+                  args=(job,), timeout=SHARD_TIMEOUT)
+    say("shard", f"world of {SHARD_RANKS} ranks, backend "
+        f"{ranks[0]['backend']}, devices "
+        f"{sorted({r['device'] for r in ranks})}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    shard_report(ranks, card)
+
+    # A one-rank nccl world at config[3] (the nccl path: its collectives;
+    # a ring of one rank exchanges with itself).
+    one = FluidSimulation.from_scene("dam_break_3d_obstacle", substeps=6,
+                                     device=dev, **CONFIG3)
+    one.run(NCCL_STEPS)
+    ref3 = save_reference(one.dstate, path("config3"))
+    del one
+    r = spawn(nccl_rank, 1, "nccl", "cuda", path("init_nccl"),
+              args=({"device": "cuda", "scene": CONFIG3, "steps": NCCL_STEPS,
+                     "ref": ref3},), timeout=SHARD_TIMEOUT)[0]
+    exact_same("nccl config[3]", r["same"])
+    want = {"density": NCCL_STEPS, "accel": NCCL_STEPS, "rebin": 0,
+            "contact": 0, "expand": 0}
+    if r["backend"] != "nccl" or r["launches"] != want:
+        raise AssertionError(f"nccl world: {r['backend']} {r['launches']}")
+    say("shard", f"config[3] on a one-rank nccl world, {NCCL_STEPS} steps: "
+        f"{r['sps']:.2f} steps/s, launches {r['launches']}, bitwise to "
+        f"one device | {card}")
+
+    try:
+        spawn(failing_rank, 2, "gloo", "cuda", path("init_fail"),
+              timeout=120.0)
+    except RuntimeError as e:
+        if "rank 1 of 2 failed" not in str(e):
+            raise
+        say("shard", "a rank that raises fails its world: spawn raised "
+            "RuntimeError('rank 1 of 2 failed')")
+    else:
+        raise AssertionError("a failing rank did not fail its world")
+    shutil.rmtree(SHARD_DIR, ignore_errors=True)
+
+
+def shard_report(ranks, card) -> None:
+    """Checks and prints the results of the shard world's ranks."""
+    for name in ("ring", "2x2"):
+        rs = [r[f"config4_{name}"] for r in ranks]
+        for i, r in enumerate(rs):
+            exact_same(f"config[4] {name} rank {i}", r["same"])
+            want = {"density": SHARD_STEPS, "accel": SHARD_STEPS,
+                    "rebin": 0, "contact": 0, "expand": 0}
+            if r["launches"] != want:
+                raise AssertionError(f"config[4] {name} rank {i} launches "
+                                     f"{r['launches']} != {want}")
+        total = sum(r["same"]["particles"] for r in rs)
+        if total != N_CONFIG4:
+            raise AssertionError(f"config[4] {name}: {total} particles")
+        sps = [r["sps"] for r in rs]
+        st = rs[0]["stats"]
+        say("shard", f"config[4] on the {name} mesh ({SHARED_CARD}), "
+            f"blocks {[r['block'] for r in rs]}, {SHARD_STEPS} steps: "
+            f"{min(sps):.2f}–{max(sps):.2f} steps/s over ranks, rank 0 "
+            f"halo {st['halo_bytes'] / SHARD_STEPS / 1e6:.3f} MB a step, "
+            f"staged {st['staged_bytes'] / SHARD_STEPS / 1e6:.3f} MB a step,"
+            f" host staging {st['staging_s'] * 1e3 / SHARD_STEPS:.3f} ms a "
+            f"step, {st['messages']} messages; launches a rank "
+            f"{rs[0]['launches']}; particles a block "
+            f"{[r['same']['particles'] for r in rs]}; counters "
+            f"{rs[0]['same']['counters']}; bitwise to one device | {card}")
+    ring = [r["config4_ring"] for r in ranks]
+    for i, r in enumerate(ring):
+        exact_same(f"ring after more steps, rank {i}", r["same_more"],
+                   counters=False)
+        exact_same(f"ring from one device's checkpoint, rank {i}",
+                   r["ring_from_one"], counters=False)
+    exact_same("one device from the ring's checkpoint",
+               ring[0]["one_from_ring"], counters=False)
+    say("shard", f"checkpoints: saved on the ring, loaded on one device; "
+        f"saved on one device, loaded on the ring; each {SHARD_MORE} more "
+        f"steps bitwise to one device (counters "
+        f"{ring[0]['one_from_ring']['counters']} vs "
+        f"{ring[0]['one_from_ring']['want_counters']})")
+
+    stress = [r["stress"] for r in ranks]
+    for i, r in enumerate(stress):
+        exact_same(f"stress rank {i}", r["same"], counters=False)
+    before = sum(r["before"] for r in stress)
+    after = sum(r["after"] for r in stress)
+    crossed = sum(abs(r["after"] - r["before"]) for r in stress) // 2
+    if before != after or before != STRESS_N or crossed == 0:
+        raise AssertionError(f"stress: {before} -> {after}, crossed "
+                             f"{crossed}")
+    say("shard", f"migration stress ({STRESS_N} particles, {STRESS_STEPS} "
+        f"steps on the ring): population {before} -> {after}, at least "
+        f"{crossed} particles crossed a seam (blocks "
+        f"{[r['before'] for r in stress]} -> "
+        f"{[r['after'] for r in stress]}), counters "
+        f"{stress[0]['same']['counters']} (one device "
+        f"{stress[0]['same']['want_counters']}), bitwise")
+
+    for case, steps in (("colony", COLONY_SHARD_STEPS),
+                        ("window", WINDOW_STEPS)):
+        for name in ("ring", "2x2"):
+            rs = [r[f"{case}_{name}"] for r in ranks]
+            if len({r["digest"] for r in rs}) != 1 or rs[0]["differ"]:
+                raise AssertionError(f"{case} {name}: ranks differ or "
+                                     f"differ from one device: "
+                                     f"{rs[0]['differ']}")
+            want = {"density": 0, "accel": 0, "rebin": 0,
+                    "contact": steps, "expand": steps}
+            for i, r in enumerate(rs):
+                if r["launches"] != want:
+                    raise AssertionError(f"{case} {name} rank {i} launches "
+                                         f"{r['launches']} != {want}")
+            st = rs[0]["stats"]
+            say("shard", f"{case} on the {name} mesh ({SHARED_CARD}), "
+                f"{steps} steps: {min(r['sps'] for r in rs):.2f} steps/s "
+                f"(slowest rank), {rs[0]['active']} cells, rank 0 halo "
+                f"{st['halo_bytes'] / steps / 1e6:.3f} MB and staged "
+                f"{st['staged_bytes'] / steps / 1e6:.3f} MB a step, "
+                f"launches a rank {rs[0]['launches']}; every rank bitwise "
+                f"to one device | {card}")
 
 if __name__ == "__main__":
     sys.exit(main())

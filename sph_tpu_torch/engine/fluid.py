@@ -1,8 +1,9 @@
 """Host-facing fluid simulation API — the counterpart of
-sph_tpu.engine.fluid.FluidSimulation (single device): scene setup, stepping
-on the dense engine, pick and drag, metrics, and checkpoints in the JAX
-package's format (npz of the DenseFluidState fields plus a JSON header), so
-a checkpoint written by either package loads in the other, and on-device
+sph_tpu.engine.fluid.FluidSimulation: scene setup, stepping on the dense
+engine (on one device, or sharded over a mesh of ranks), pick and drag,
+metrics, and checkpoints in the JAX package's format (npz of the
+DenseFluidState fields plus a JSON header), so a checkpoint written by
+either package, on a mesh or not, loads in the other, and on-device
 rendering."""
 
 from __future__ import annotations
@@ -48,22 +49,43 @@ class FluidSimulation:
     ...                                  device="cuda")
     >>> sim.run(600)
     >>> sim.metrics()
+
+    mesh: a parallel.dist.Mesh (1D ring or 2D): every rank of it builds the
+    simulation from the same state and then holds and steps its own block
+    on the mesh's device (spatial domain decomposition with halo exchange,
+    BASELINE config[4]); the result is bitwise the single-device run's.
+    On a mesh, `particles`, `pick`, `render_frame`, `metrics` and `save`
+    are collective: every rank calls them.
     """
 
     def __init__(self, state: SPHState, params: SPHParams,
-                 substeps: int = 10, device="cuda"):
+                 substeps: int = 10, device="cuda", mesh=None):
         self.params = params
+        self.mesh = mesh
         self.spec = make_dense_spec(
             params, k=params.dense_k, cell_factor=params.cell_factor
         )
-        self._start(pack(state, params, self.spec, device=device), 0,
-                    substeps)
+        self._start(pack(state, params, self.spec,
+                         device="cpu" if mesh else device), 0, substeps)
 
     def _start(self, dstate: DenseFluidState, step: int, substeps: int):
+        """Step functions and host state; on a mesh, `dstate` is the global
+        state and this rank keeps its block."""
+        if self.mesh is None:
+            self._step_fn = make_dense_step(self.params, self.spec, substeps)
+        else:
+            from sph_tpu_torch.parallel.dist import (
+                make_sharded_step,
+                shard_dense_state,
+            )
+
+            dstate = shard_dense_state(dstate, self.mesh, self.spec,
+                                       self.params)
+            self._step_fn = make_sharded_step(self.params, self.spec,
+                                              self.mesh, substeps)
         self.dstate = dstate
         self.device = dstate.px.device
         self.substeps = substeps
-        self._step_fn = make_dense_step(self.params, self.spec, substeps)
         # Host mirror of dstate.step_count: the rebin cadence is decided
         # from it, so stepping never waits for the device.
         self._step = step
@@ -72,12 +94,13 @@ class FluidSimulation:
 
     @classmethod
     def from_scene(cls, scene: str, substeps: int = 10, device="cuda",
-                   **scene_kwargs):
+                   mesh=None, **scene_kwargs):
         from sph_tpu_torch.sph import scenes
 
         builder = getattr(scenes, scene)
         state, params = builder(**scene_kwargs)
-        return cls(state, params, substeps=substeps, device=device)
+        return cls(state, params, substeps=substeps, device=device,
+                   mesh=mesh)
 
     # -- stepping -------------------------------------------------------------
 
@@ -121,6 +144,9 @@ class FluidSimulation:
         """Engage the space-anchored drag sphere (model.FluidDrag):
         particles within `radius` (default 3h) of `center` are pulled
         toward `target`."""
+        if self.mesh is not None:
+            raise NotImplementedError("interactive drag is single-device "
+                                      "for now")
         if radius is None:
             radius = 3.0 * self.params.h
         self._drag = FluidDrag.at(center, target, radius, strength,
@@ -131,9 +157,17 @@ class FluidSimulation:
 
     # -- observability --------------------------------------------------------
 
+    def _global_state(self) -> DenseFluidState:
+        """The whole state: on a mesh, gathered from every rank."""
+        if self.mesh is None:
+            return self.dstate
+        from sph_tpu_torch.parallel.dist import unshard_dense_state
+
+        return unshard_dense_state(self.dstate, self.mesh, self.spec)
+
     def particles(self):
         """(pos, vel, rho, prs) numpy arrays of alive particles."""
-        pos, vel, rho, prs, mask = unpack(self.dstate)
+        pos, vel, rho, prs, mask = unpack(self._global_state())
         m = mask.cpu().numpy()
         return tuple(a.cpu().numpy()[m] for a in (pos, vel, rho, prs))
 
@@ -163,7 +197,7 @@ class FluidSimulation:
 
         if camera is None:
             camera = tank_camera(self.params)
-        pos, _, _, _, mask = unpack(self.dstate)
+        pos, _, _, _, mask = unpack(self._global_state())
         # Screen-space radius scaling (projected-size splat classes): SPH
         # particles render at their smoothing-scale footprint h/2.
         img = render_points(
@@ -178,20 +212,27 @@ class FluidSimulation:
     # -- checkpoint / resume ---------------------------------------------------
 
     def save(self, path: str) -> None:
-        flat = {
-            f.name: getattr(self.dstate, f.name).cpu().numpy()
-            for f in dataclasses.fields(DenseFluidState)
-        }
-        header = json.dumps({
-            "params": dataclasses.asdict(self.params),
-            "substeps": self.substeps,
-        })
-        np.savez_compressed(path, __header__=header, **flat)
+        """The whole state (on a mesh: gathered, and written by rank 0;
+        every rank returns once the file is complete)."""
+        d = self._global_state()
+        if self.mesh is None or self.mesh.rank == 0:
+            flat = {
+                f.name: getattr(d, f.name).cpu().numpy()
+                for f in dataclasses.fields(DenseFluidState)
+            }
+            header = json.dumps({
+                "params": dataclasses.asdict(self.params),
+                "substeps": self.substeps,
+            })
+            np.savez_compressed(path, __header__=header, **flat)
+        if self.mesh is not None:
+            self.mesh.barrier()
 
     @classmethod
-    def load(cls, path: str, device="cuda") -> "FluidSimulation":
+    def load(cls, path: str, device="cuda", mesh=None) -> "FluidSimulation":
         """Resume from a checkpoint written by this class or by the JAX
-        package's FluidSimulation.save."""
+        package's FluidSimulation.save — on one device, or onto a mesh
+        (checkpoints hold the whole state whatever wrote them)."""
         with np.load(path, allow_pickle=False) as data:
             header = json.loads(str(data["__header__"]))
             flat = {k: data[k] for k in data.files if k != "__header__"}
@@ -199,10 +240,11 @@ class FluidSimulation:
         flat.setdefault("clamped", np.int32(0))
         sim = cls.__new__(cls)
         sim.params = params_from_jax(header["params"])
+        sim.mesh = mesh
         sim.spec = make_dense_spec(
             sim.params, k=sim.params.dense_k,
             cell_factor=sim.params.cell_factor,
         )
-        sim._start(state_from_numpy(flat, device),
+        sim._start(state_from_numpy(flat, "cpu" if mesh else device),
                    int(flat["step_count"]), header["substeps"])
         return sim

@@ -2,8 +2,8 @@
 sph_tpu.engine.simulation.Simulation (single device): init (Start,
 cs:211-242), stepping, capacity growth (ResizeParticleBuffers,
 cs:1162-1222), genome hot-reload (OnGenomeChanged, cs:357-367), interactive
-drag (cs:975-1034), ids, bond visuals, metrics and checkpoints. Still to
-port: the device mesh (ROADMAP A15).
+drag (cs:975-1034), ids, bond visuals, metrics and checkpoints, on one
+device or with the contact sweep sharded over a mesh of ranks.
 """
 
 from __future__ import annotations
@@ -36,16 +36,22 @@ class Simulation:
 
     def __init__(self, genome: Genome, params: SimParams, seed: int = 0,
                  rng_mode: str = "jax", auto_grow: bool = False,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         """A fresh population from init_particles; to start from another
         state (a bonded colony, a state carried across from the JAX
-        package), assign `sim.state` a SimState on `sim.device`."""
+        package), assign `sim.state` a SimState on `sim.device`.
+
+        mesh: a parallel.dist.Mesh (1D ring or 2D): every rank of it runs
+        the simulation alike on the mesh's device, with the contact sweep
+        decomposed over the ranks (dense neighbour mode only); division,
+        bonds and integration stay replicated, and every rank holds
+        bitwise the single-device state after every step."""
         self._setup(genome.validate_for_simulation(), params, seed, rng_mode,
-                    auto_grow, device)
+                    auto_grow, device, mesh=mesh)
 
     def _setup(self, genome: Genome, params: SimParams, seed: int,
                rng_mode: str, auto_grow: bool, device,
-               state: SimState | None = None) -> None:
+               state: SimState | None = None, mesh=None) -> None:
         """Every attribute of a sim, for __init__ and load: a fresh
         population unless `state` is given."""
         self.genome = genome
@@ -53,7 +59,9 @@ class Simulation:
         self.seed = seed
         self.rng_mode = rng_mode
         self.auto_grow = auto_grow
-        self.device = torch.device(device)
+        self.mesh = mesh
+        self.contact_fn = self._make_contact_fn(mesh)
+        self.device = torch.device(device if mesh is None else mesh.device)
         self.genome_dev = genome.to_device(self.device)
         self.state: SimState = (self._fresh(params.capacity) if state is None
                                 else state)
@@ -67,6 +75,23 @@ class Simulation:
             self.params, self.genome_dev, n_modes=len(self.genome.modes),
             initial_mode=self.genome.initial_mode_index, capacity=capacity,
             seed=self.seed, rng_mode=self.rng_mode, device=self.device)
+
+    def _make_contact_fn(self, mesh):
+        """The contact sweep sharded over a 1D z-slab ring or a 2D
+        (z-slab × y-block) mesh (parallel/dist.py); None on one device."""
+        if mesh is None:
+            return None
+        if self.params.neighbor_mode != "dense":
+            raise ValueError("mesh-sharded contact requires neighbor_mode="
+                             f"'dense' (got {self.params.neighbor_mode!r})")
+        from sph_tpu_torch.parallel.dist import (
+            make_sharded_contact_forces,
+            make_sharded_contact_forces_2d,
+        )
+
+        if mesh.ndim == 2:
+            return make_sharded_contact_forces_2d(self.params, mesh)
+        return make_sharded_contact_forces(self.params, mesh)
 
     # -- stepping ------------------------------------------------------------
 
@@ -86,7 +111,8 @@ class Simulation:
             if self.auto_grow:
                 self._maybe_grow()
             self.state = step(self.state, self.params, self.genome_dev,
-                              dt=None if dts is None else float(dts[i]))
+                              dt=None if dts is None else float(dts[i]),
+                              contact_fn=self.contact_fn)
 
     def run(self, n_steps: int) -> float:
         """Run n steps; returns physics steps per second (host clock
@@ -268,16 +294,20 @@ class Simulation:
                                   "rng_mode": self.rng_mode})
 
     @classmethod
-    def load(cls, path: str, device="cuda") -> "Simulation":
-        """Resume from a checkpoint written by either package. The seed and
-        rng mode come back from its header (older files without them fall
-        back to the constructor's defaults), so a later resize() draws the
-        grown rows from the same stream as a run never checkpointed."""
+    def load(cls, path: str, device="cuda", mesh=None) -> "Simulation":
+        """Resume from a checkpoint written by either package, on one
+        device or onto a mesh (checkpoints are mesh-agnostic). The seed
+        and rng mode come back from its header (older files without them
+        fall back to the constructor's defaults), so a later resize() draws
+        the grown rows from the same stream as a run never
+        checkpointed."""
         from sph_tpu_torch.engine.checkpoint import load_checkpoint
 
+        if mesh is not None:
+            device = mesh.device
         state, params, genome, meta = load_checkpoint(path, device=device)
         sim = cls.__new__(cls)
         sim._setup(genome, params, int(meta.get("seed", 0)),
                    str(meta.get("rng_mode", "jax")), False, device,
-                   state=state)
+                   state=state, mesh=mesh)
         return sim

@@ -46,16 +46,25 @@ def contact_forces(state: SimState, params: SimParams):
 
 
 def step(state: SimState, params: SimParams, genome: GenomeDevice,
-         dt=None) -> SimState:
+         dt=None, contact_fn=None) -> SimState:
     """One full frame (DESIGN.md §3). `dt` overrides params.dt for every
-    dt-dependent pass (the variable-dt compat mode, cs:246)."""
+    dt-dependent pass (the variable-dt compat mode, cs:246).
+
+    `contact_fn` (optional, `state -> (force, torque, overflow)`) replaces
+    the neighbour-sum dispatch: the hook through which a Simulation on a
+    mesh runs the contact sweep decomposed over its ranks
+    (parallel.dist.make_sharded_contact_forces[_2d]) while division, bonds
+    and integration stay replicated; the result is bitwise the same."""
     # 1-2. Division: apply last step's queued splits, then advance timers
     #      and queue new ones (cs:253 runs before all dispatches).
     state = process_pending_splits(state, params, genome)
     state = queue_splits(state, params, genome, dt=dt)
 
     # 3-4. Neighbour structure + contact forces.
-    force, torque, cell_overflow = contact_forces(state, params)
+    if contact_fn is None:
+        force, torque, cell_overflow = contact_forces(state, params)
+    else:
+        force, torque, cell_overflow = contact_fn(state)
     state = apply_contact(state, params, force, torque, dt=dt)
     state = state.replace_fields(overflow=state.overflow + cell_overflow)
 
@@ -77,10 +86,11 @@ def step(state: SimState, params: SimParams, genome: GenomeDevice,
 
 
 def run_steps(state: SimState, params: SimParams, genome: GenomeDevice,
-              n_steps: int, dts=None) -> SimState:
+              n_steps: int, dts=None, contact_fn=None) -> SimState:
     """n physics steps as a host loop; `dts` optionally gives each step's
-    dt (variable-dt compat, cs:246)."""
+    dt (variable-dt compat, cs:246); `contact_fn` as in `step`."""
     for i in range(n_steps):
         state = step(state, params, genome,
-                     dt=None if dts is None else float(dts[i]))
+                     dt=None if dts is None else float(dts[i]),
+                     contact_fn=contact_fn)
     return state

@@ -140,10 +140,37 @@ def library() -> Library:
 def check_operands(name: str, tensors, shape, device) -> None:
     """Raise unless every tensor is a contiguous f32 CUDA tensor of `shape`
     on `device`, small enough for the kernels' 32-bit indexing."""
+    check_device(name, tensors, device)
+    check_layout(name, tensors, shape)
+
+
+def check_device(name: str, tensors, device) -> None:
+    """Raise unless every tensor lies on `device`, a CUDA device."""
     for t in tensors:
         if t.device != device or device.type != "cuda":
             raise ValueError(f"{name}: expected CUDA tensors on {device}, "
                              f"got {t.device}")
+
+
+def slab_planes(name: str, tensors, rest) -> int:
+    """The plane count of a sweep's operands, which may be a halo-padded
+    slab of a sharded step: raises unless every tensor is a contiguous,
+    16-byte aligned (the staging copies are bulk copies) f32 [planes,
+    *rest] tensor with the first tensor's planes, at least one."""
+    planes = tensors[0].shape[0] if tensors[0].dim() else 0
+    check_layout(name, tensors, (planes, *rest))
+    if planes < 1:
+        raise ValueError(f"{name}: expected at least one plane")
+    if any(t.data_ptr() % 16 for t in tensors):
+        raise ValueError(f"{name}: expected 16-byte aligned tensors (the "
+                         f"staging copies are bulk copies)")
+    return planes
+
+
+def check_layout(name: str, tensors, shape) -> None:
+    """Raise unless every tensor is a contiguous f32 tensor of `shape`,
+    small enough for the kernels' 32-bit indexing."""
+    for t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: expected float32, got {t.dtype}")
         if tuple(t.shape) != tuple(shape):

@@ -23,8 +23,9 @@ import torch
 from sph_tpu_torch.ops import LAUNCHES
 from sph_tpu_torch.ops.build import (
     check_launch,
-    check_operands,
+    check_device,
     library,
+    slab_planes,
     stream_of,
 )
 from sph_tpu_torch.ops.fluid import SMEM_LIMIT, SMEM_TARGET
@@ -89,18 +90,20 @@ def band_plan(spec) -> BandPlan:
     return plan
 
 
-def work_ints(spec, plan: BandPlan) -> int:
-    """Entries of the kernel's zeroed int32 work buffer: a count, a cursor,
-    the band list and each band's occupancy masks (csrc/contact_sweep.cu
-    `Work`)."""
-    bands = spec.nz * plan.bands
+def work_ints(spec, plan: BandPlan, nz: int) -> int:
+    """Entries of the kernel's zeroed int32 work buffer for `nz` planes: a
+    count, a cursor, the band list and each band's occupancy masks
+    (csrc/contact_sweep.cu `Work`)."""
+    bands = nz * plan.bands
     return 2 + bands + bands * plan.rows * spec.L // 32
 
 
 def contact_sweep(fields, occ, params, spec):
     """Own-side force and torque per slot: 6 [Z, Y, L] planes. `fields`
     are the 10 packed planes (px, py, pz, vx, vy, vz, ox, oy, oz, rad),
-    `occ` the occupancy plane."""
+    `occ` the occupancy plane. Z is the operands' own plane count: a
+    sharded step passes halo-padded slabs of P + 2 planes (and, over a 2D
+    mesh, a spec of its local rows); `spec` gives Y, L and K."""
     from sph_tpu_torch.physics import contact_dense as cd
 
     if fields[0].device.type == "cpu":
@@ -108,22 +111,21 @@ def contact_sweep(fields, occ, params, spec):
             fields, lambda *a: cd.contact_pair_terms(params, *a), NCOMP,
             spec)
     dev = fields[0].device
-    check_operands("contact_sweep", (*fields, occ), spec.shape(), dev)
+    check_device("contact_sweep", (*fields, occ), dev)
     if len(fields) != 10:
         raise ValueError(f"contact_sweep: expected 10 fields, got "
                          f"{len(fields)}")
-    if any(t.data_ptr() % 16 for t in (*fields, occ)):
-        raise ValueError("contact_sweep: expected 16-byte aligned tensors "
-                         "(the staging copies are bulk copies)")
+    nz = slab_planes("contact_sweep", (*fields, occ), (spec.ny, spec.L))
     plan = band_plan(spec)
-    work = torch.zeros(work_ints(spec, plan), dtype=torch.int32, device=dev)
+    work = torch.zeros(work_ints(spec, plan, nz), dtype=torch.int32,
+                       device=dev)
     outs = [torch.empty_like(occ) for _ in range(NCOMP)]
     ins_p = (ctypes.c_void_p * 10)(*(f.data_ptr() for f in fields))
     outs_p = (ctypes.c_void_p * NCOMP)(*(o.data_ptr() for o in outs))
     with torch.cuda.device(dev):
         rc = library().lib.sph_contact_sweep(
-            ins_p, occ.data_ptr(), outs_p, work.data_ptr(), spec.nz,
-            spec.ny, spec.L, spec.k, plan.rows, plan.smem_bytes,
+            ins_p, occ.data_ptr(), outs_p, work.data_ptr(), nz, spec.ny,
+            spec.L, spec.k, plan.rows, plan.smem_bytes,
             params.contact_epsilon, params.slip_epsilon,
             params.repulsion_strength, params.torque_factor,
             params.rolling_contact_radius_multiplier, stream_of(dev))

@@ -21,8 +21,9 @@ import torch
 from sph_tpu_torch.ops import LAUNCHES
 from sph_tpu_torch.ops.build import (
     check_launch,
-    check_operands,
+    check_device,
     library,
+    slab_planes,
     stream_of,
 )
 from sph_tpu_torch.sph import dense
@@ -115,16 +116,16 @@ def _f32(x: float) -> float:
 def _geometry(name: str, tensors, spec: dense.DenseSpec) -> tuple:
     """Checks the operands; returns the kernels' zeroed int32 work list
     (a count, a cursor, one entry per band), which the caller holds until
-    the launch, and their geometry arguments."""
-    check_operands(name, tensors, (spec.n0, spec.k, spec.C),
-                   tensors[0].device)
-    if any(t.data_ptr() % 16 for t in tensors):
-        raise ValueError(f"{name}: expected 16-byte aligned tensors (the "
-                         f"staging copies are bulk copies)")
+    the launch, and their geometry arguments. The plane count is the
+    operands' own, as the Pallas kernel takes it from its array: a
+    sharded step passes halo-padded slabs of P + 2 planes (and, over a 2D
+    mesh, the spec of its local rows); `spec` gives the rest."""
+    check_device(name, tensors, tensors[0].device)
+    n0 = slab_planes(name, tensors, (spec.k, spec.C))
     plan = band_plan(spec)
-    work = torch.zeros(2 + spec.n0 * plan.bands, dtype=torch.int32,
+    work = torch.zeros(2 + n0 * plan.bands, dtype=torch.int32,
                        device=tensors[0].device)
-    return work, (work.data_ptr(), spec.n0, spec.k, spec.C, spec.X,
+    return work, (work.data_ptr(), n0, spec.k, spec.C, spec.X,
                   int(spec.stencil0), int(spec.stencil1), plan.rows,
                   plan.smem_bytes)
 

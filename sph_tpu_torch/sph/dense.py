@@ -564,11 +564,16 @@ def rebin_stages(spec: DenseSpec) -> list[int]:
 
 
 def rebin(d: DenseFluidState, px, py, pz, vx, vy, vz, params: SPHParams,
-          spec: DenseSpec) -> DenseFluidState:
+          spec: DenseSpec, dim0_offset: int = 0,
+          dim1_offset: int = 0) -> DenseFluidState:
     """Move particles to their new home cells, one axis at a time — the
     plain version of kernel K3 (ops.rebin.staged_rebin). Per-rebin drift is
     ≤ 1 cell (the vmax clamp), so each axis stage is a ≤3K→K masked
-    compaction. Overflow is counted, never silent."""
+    compaction. Overflow is counted, never silent.
+
+    The cell coordinates compared with the targets are global: a sharded
+    step rebins a halo-padded slab whose plane 0 is global plane
+    `dim0_offset` and whose row 0 is global row `dim1_offset`."""
     Z, K, C = px.shape
     X = spec.X
     org = spec.origin
@@ -590,8 +595,9 @@ def rebin(d: DenseFluidState, px, py, pz, vx, vy, vz, params: SPHParams,
     iota_c = torch.arange(C, dtype=torch.int32, device=dev).reshape(1, 1, C)
     own = {
         2: iota_c % X,
-        1: torch.div(iota_c, X, rounding_mode="floor"),
-        0: torch.arange(Z, dtype=torch.int32, device=dev).reshape(Z, 1, 1),
+        1: dim1_offset + torch.div(iota_c, X, rounding_mode="floor"),
+        0: dim0_offset + torch.arange(Z, dtype=torch.int32,
+                                      device=dev).reshape(Z, 1, 1),
     }
 
     def roll_c(step_cells):

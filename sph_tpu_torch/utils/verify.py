@@ -175,6 +175,12 @@ def check_contact(state, params, spec) -> dict:
     result is +0); also counts the slots with a nonzero force
     (`contact_slots`)."""
     fields, occ, _, _ = cd._pack_args(state, spec)
+    return check_contact_fields(fields, occ, params, spec)
+
+
+def check_contact_fields(fields, occ, params, spec) -> dict:
+    """check_contact on packed planes (a whole pack, or the halo-padded
+    block of one rank, parallel.dist.contact_block)."""
     plain = cd._sweep_plain(
         fields, lambda *a: cd.contact_pair_terms(params, *a), 6, spec)
     kern = contact_sweep(fields, occ, params, spec)
@@ -450,3 +456,4 @@ def blob(n: int = 400, k: int = 4, seed: int = 3, radius: float = 9.0,
                                   dtype=torch.int32, device=device))
     spec = cd.make_contact_spec(p, k=k, cell_factor=p.dense_cell_factor)
     return state, p, spec
+

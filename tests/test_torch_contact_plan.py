@@ -62,8 +62,8 @@ def test_band_plan_fits_and_covers(case):
     assert plan.rows * spec.L % 32 == 0
     assert plan.rows * spec.L <= 32 * 1024      # the gate's mask buffer
     bands = spec.nz * plan.bands
-    assert oc.work_ints(spec, plan) == 2 + bands * (1 + plan.rows * spec.L
-                                                   // 32)
+    assert oc.work_ints(spec, plan, spec.nz) == 2 + bands * (
+        1 + plan.rows * spec.L // 32)
 
 
 def test_band_plan_refuses_what_it_cannot_take():

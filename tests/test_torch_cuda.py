@@ -14,7 +14,9 @@ plain version is NaN — and +0 on empty ones; K3 is bitwise (−0 == +0,
 on overflows at an intermediate stage, at each K it is built for. K4 (colony
 contact sweep) is held to the same tolerance on every slot and, by the
 same design, to bitwise equality with +0 on empty slots; K5 (the contact
-pack's placement) is bitwise. The render (plain PyTorch) is held to itself
+pack's placement) is bitwise. K1, K2 and K4 are held so on the halo-padded
+blocks of a sharded step too (a ring's [P + 2]-plane slabs, a 2D mesh's
+local rows). The render (plain PyTorch) is held to itself
 twice on the card bitwise and to the CPU's render of the same state within
 atol 1e-4 (the z-buffer, a minimum, exactly); the app's `fluid` command
 must launch the sweeps once a step and the rebin twice a rebin."""
@@ -35,6 +37,7 @@ from sph_tpu_torch.ops.contact import contact_sweep
 from sph_tpu_torch.ops.expand import expand_rows
 from sph_tpu_torch.ops.fluid import accel_sweep, band_plan, density_sweep
 from sph_tpu_torch.ops.rebin import staged_rebin
+from sph_tpu_torch.parallel import dist as pd
 from sph_tpu_torch.physics import contact_dense as cd
 from sph_tpu_torch.sph import dense
 from sph_tpu_torch.sph.scenes import dam_break_2d, dam_break_3d
@@ -200,6 +203,35 @@ def test_sweeps_keep_nan_positions(cuda):
     px[z, k, c] = float("nan")
     assert sweeps_exact(d.replace_fields(px=px), d2.replace_fields(px=px),
                         p, spec) > 1
+
+
+# The blocks that ranks of a sharded step sweep (parallel.dist): halo-padded
+# slabs of P + 2 planes, and over a 2D mesh the local rows plus 2·8 rows of
+# halo and sentinel filler (a spec of its own).
+MESHES = (((4,), (0,)), ((4,), (1,)), ((2, 2), (0, 0)), ((2, 2), (0, 1)))
+
+
+@pytest.mark.parametrize("shape,coords", MESHES)
+def test_sweeps_exact_on_halo_padded_blocks(cuda, shape, coords):
+    d, p, spec = stepped(cuda, "3d")
+    slab, sspec = pd.fluid_slab(d, p, spec, shape, coords)
+    planes, rows = pd.blocks(spec, shape)
+    assert slab.px.shape[0] == planes + 2 and sspec.C == slab.px.shape[2]
+    assert int(slab.occ.sum()) > 0
+    assert sweeps_exact(slab, accel_inputs(slab, p, sspec), p, sspec) == 0
+
+
+@pytest.mark.parametrize("shape,coords", MESHES)
+def test_contact_kernel_exact_on_halo_padded_blocks(cuda, shape, coords):
+    """On a crowded ball of cells (many contacts), K = 2 as the colony."""
+    state, params, spec = blob(n=2000, k=2, radius=14.0, spawn=16.0,
+                               device=cuda)
+    fields, occ, _, _ = cd._pack_args(state, spec, expand=True)
+    block, sspec = pd.contact_block([*fields, occ], spec, shape, coords)
+    f_s, occ_s = block[:10], block[10]
+    assert occ_s.shape == sspec.shape()
+    assert occ_s.shape[0] == -(-spec.nz // shape[0]) + 2
+    assert contact_exact(f_s, occ_s, params, sspec) > 0
 
 
 def test_main_path_launches_kernels(cuda):
