@@ -86,7 +86,19 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
                placement, one PyTorch index_copy), beside its bound; K4
                also on the compressed copy, K5 also at the probe's
                scene.
-14. render   — FluidSimulation.render_frame (800×450) of the config[3]
+14. kernel floor — K4 run one stage at a time (ops/contact_floor.py: the
+               stubs of tools/probe_kernel_floor.py as stage modes of
+               csrc/contact_sweep.cu) at the 1M colony after its main run
+               and at that probe's 102,400-cell colony, counters reset
+               just before: each mode once on each (2 launches a mode);
+               each stub bitwise to its plain version at the band's rows
+               and "full" to contact_sweep, also on the 1M colony
+               compressed ×0.7; each mode's ms, plain ms, bound and device
+               time by kernel, and the split of K4's device time into the
+               empty launch, staging and pads, screen and pair terms.
+15. verify   — the hardware verification lane (utils/verify.py: JAX's
+               five twin checks that apply to the port) on the card.
+16. render   — FluidSimulation.render_frame (800×450) of the config[3]
                state: twice on the card bitwise, within atol 1e-4 of the
                port's render of the same state copied to the CPU, finite,
                in [0, 1], brightest pixel > 0.3; a CUDA-event split
@@ -95,7 +107,7 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
                impostors and z-buffer at bench.py's 10,240-cell dense
                colony, each twice bitwise and against the CPU. No kernel
                is launched.
-15. viewer   — ViewerLoop(800×450, 4 substeps) on the 10k dense colony
+17. viewer   — ViewerLoop(800×450, 4 substeps) on the 10k dense colony
                for 30 scripted frames (press on a cell's pixel, move three
                times, hold, release), counters reset just before: the
                pick equals a brute-force ray test's, the dragged cell
@@ -104,7 +116,7 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
                frames/s and a per-frame split (stepping, impostor,
                readback, overlay commands, rasterisation, PNG encoding);
                one frame written as a PNG and read back bitwise.
-16. app      — `python -m sph_tpu_torch.app` in process: `fluid` at
+18. app      — `python -m sph_tpu_torch.app` in process: `fluid` at
                config[3]'s scene and particle count (30 steps, a frame
                every 15), counters reset just before: exit 0, two frames,
                `dropped` 0, and the sweeps and the rebin launched as many
@@ -161,7 +173,18 @@ KERNELS = {
                 "sph_tpu/ops/pallas/contact.py:64"),
     "expand": ("sph_tpu_torch/csrc/expand_rows.cu",
                "sph_tpu/ops/pallas/expand.py:80"),
+    # K4's floor modes: the stubs tools/probe_kernel_floor.py swaps into
+    # the Pallas contact sweep.
+    "floor_zero": ("sph_tpu_torch/csrc/contact_sweep.cu",
+                   "tools/probe_kernel_floor.py:78"),
+    "floor_pads": ("sph_tpu_torch/csrc/contact_sweep.cu",
+                   "tools/probe_kernel_floor.py:84"),
+    "floor_screen": ("sph_tpu_torch/csrc/contact_sweep.cu",
+                     "tools/probe_kernel_floor.py:105"),
 }
+# tools/probe_kernel_floor.py's scene: a settled 102,400-cell colony with
+# the 1M colony's parameters, packed once.
+FLOOR_N = 102_400
 # bench.py's 10k dense colony rung (bench.py:318-324): the viewer's scene.
 VIEW_COLONY_N = 10_240
 VIEW_W, VIEW_H, VIEW_SUBSTEPS, VIEW_FRAMES = 800, 450, 4, 30
@@ -172,6 +195,8 @@ DENSITY_PAIR_FLOPS = 14
 ACCEL_PAIR_FLOPS = 42
 CONTACT_SCREEN_FLOPS = 14
 CONTACT_PAIR_FLOPS = 110
+# The floor's pads stub: 30 adds and a multiply per slot of a gated band.
+FLOOR_PADS_FLOPS = 31
 # Calls a timing takes of a kernel and of its plain version (`turns`).
 TURN_REPS_KERN, TURN_REPS_PLAIN = 20, 3
 
@@ -508,7 +533,12 @@ def main() -> int:
         "placement launch, against the plain rebin; contact and expand at "
         "the 1M colony after its main run")
 
-    # 14-16. The render and host layers.
+    # 14-15. K4's floor modes (their own path, counters reset just
+    # before it), and the verification lane.
+    rows += floor_phase(colony, dev, card)
+    verify_phase(card)
+
+    # 16-18. The render and host layers.
     view_colony = render_phase(sim, dev, card)
     viewer_phase(view_colony, card)
     app_phase(sim, card)
@@ -1143,7 +1173,7 @@ def repeat_and_hold(name: str, card_fn, cpu_value, atol: float) -> None:
 
 
 def render_phase(sim, dev, card) -> dict:
-    """Phase 13: render_frame of config[3], the z-buffer, and the sphere
+    """Phase 16: render_frame of config[3], the z-buffer, and the sphere
     impostors of the 10k dense colony, each held against the CPU and
     repeated bitwise, with a CUDA-event split of the splat frame."""
     from sph_tpu_torch.engine.colony import bonded_colony
@@ -1251,7 +1281,7 @@ def brute_pick(pos: np.ndarray, origin, d, r: float) -> int:
 
 
 def viewer_phase(colony, card) -> None:
-    """Phase 14: a scripted ViewerLoop session on the 10k dense colony,
+    """Phase 17: a scripted ViewerLoop session on the 10k dense colony,
     its frame rate and a per-frame split, and one frame as a PNG."""
     import tempfile
 
@@ -1357,7 +1387,7 @@ def viewer_phase(colony, card) -> None:
 
 
 def app_phase(sim, card) -> None:
-    """Phase 15: the app's fluid, cells and view commands in process, and
+    """Phase 18: the app's fluid, cells and view commands in process, and
     step_breakdown at config[3]."""
     import contextlib
     import io
@@ -1474,17 +1504,21 @@ def contact_pair(fields, occ, p, spec):
     from sph_tpu_torch.physics import contact_dense as cd
 
     w = contact_work(fields, occ, p, spec)
-    plane = occ.numel() * 4
     return w, (
         lambda: contact_sweep(fields, occ, p, spec),
         lambda: cd._sweep_plain(
             fields, lambda *a: cd.contact_pair_terms(p, *a), 6, spec),
-        None,
-        # occupancy in, 6 components out; position and radius where a
-        # partner is, velocity and spin where a pair touches.
-        bound(7 * plane + 4 * 4 * w["near"] + 6 * 4 * w["touching"],
-              w["screens"] * CONTACT_SCREEN_FLOPS
-              + w["hits"] * CONTACT_PAIR_FLOPS))
+        None, bound(*contact_cost(w, occ.numel() * 4)))
+
+
+def contact_cost(w: dict, plane: int) -> tuple[int, int]:
+    """(bytes, operations) K4 must spend on a pack whose work is `w`
+    (`contact_work`): occupancy in, 6 components out; position and radius
+    where a partner is, velocity and spin where a pair touches; the screens
+    of occupied pairs and the terms of touching ones."""
+    return (7 * plane + 4 * 4 * w["near"] + 6 * 4 * w["touching"],
+            w["screens"] * CONTACT_SCREEN_FLOPS
+            + w["hits"] * CONTACT_PAIR_FLOPS)
 
 
 def expand_pair(state, spec):
@@ -1536,6 +1570,254 @@ def colony_time_pairs(colony, card) -> dict:
         f"{(p1 + p2) / 2:.4f} ms, library {cuda_ms(library_call, 20):.4f} "
         f"ms, bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} | {card}")
     return {"contact": contact, "expand": expand_pair(st, spec)}
+
+
+# -- 14. kernel floor: K4 run one stage at a time ---------------------------
+
+
+def floor_pairs(fields, occ, p, spec) -> dict:
+    """(kernel, plain, library call, bytes, operations) of each of K4's
+    floor modes (ops/contact_floor.py) on packed fields, at the band plan's
+    rows. Counted as K4's bound counts (`contact_cost`): the zero stub's
+    function is six +0 planes, so it writes them and reads nothing; the
+    others read the occupancy plane and write 6 planes; the pads read the 10
+    fields of the occupied slots within a plane of a gated band, and do 31
+    operations a slot of a gated band; the screen reads position and
+    radius where an occupied partner is and does the screens of occupied
+    pairs; "full" is K4."""
+    from sph_tpu_torch.ops import contact_floor as cf
+    from sph_tpu_torch.ops.contact import NCOMP, band_plan
+    from sph_tpu_torch.physics import contact_dense as cd
+
+    tile = band_plan(spec).rows
+    plane = occ.numel() * 4
+    gated = cf.tile_gate(occ, tile).expand_as(occ)
+    near_gated = gated | torch.roll(gated, 1, 0) | torch.roll(gated, -1, 0)
+    read = int(((occ > 0.5) & near_gated).sum())
+    w = contact_work(fields, occ, p, spec)
+
+    def stub(mode):
+        return (lambda: cf.contact_floor(fields, occ, p, spec, mode),
+                lambda: cf.PLAIN[mode](fields, occ, p, spec, tile))
+
+    return {
+        # One PyTorch call gives the zero stub's function: six +0 planes.
+        "zero": (*stub("zero"), lambda: torch.zeros(
+            (NCOMP, *occ.shape), device=occ.device), 6 * plane, 0),
+        "pads": (*stub("pads"), None, 7 * plane + 10 * 4 * read,
+                 int(gated.sum()) * FLOOR_PADS_FLOPS),
+        "screen": (*stub("screen"), None, 7 * plane + 4 * 4 * w["near"],
+                   w["screens"] * CONTACT_SCREEN_FLOPS),
+        "full": (stub("full")[0], lambda: cd._sweep_plain(
+            fields, lambda *a: cd.contact_pair_terms(p, *a), NCOMP, spec),
+            None, *contact_cost(w, plane)),
+    }
+
+
+def floor_exact(where: str, outs: dict, fields, occ, p, spec) -> dict:
+    """Each stub's outputs bitwise to its plain version at the band's rows
+    (+0 and −0 apart, NaN as NaN), "full" to contact_sweep. Returns {mode:
+    the max |kernel − plain| over the slots whose bits differ (inf where
+    one of the two is NaN), 0 when bitwise}; raises if any slot differs."""
+    from sph_tpu_torch.ops import contact_floor as cf
+    from sph_tpu_torch.ops.contact import band_plan, contact_sweep
+
+    tile = band_plan(spec).rows
+    errs = {}
+    for mode, kern in outs.items():
+        plain = (contact_sweep(fields, occ, p, spec) if mode == "full"
+                 else cf.PLAIN[mode](fields, occ, p, spec, tile))
+        n, err = 0, 0.0
+        for a, b in zip(kern, plain):
+            differ = a.view(torch.int32) != b.view(torch.int32)
+            n += int(differ.sum())
+            if bool(differ.any()):
+                err = max(err, float((a[differ] - b[differ]).abs()
+                                     .nan_to_num(nan=float("inf")).max()))
+        if n:
+            raise AssertionError(f"{where} floor {mode}: {n} slots differ in "
+                                 f"their bits, max abs err {err}")
+        errs[mode] = err
+    return errs
+
+
+def floor_drive(packs: dict) -> dict:
+    """The floor path: every mode once on each pack. Returns {pack:
+    {mode: outputs}}."""
+    from sph_tpu_torch.ops import contact_floor as cf
+
+    return {name: {mode: cf.contact_floor(fields, occ, p, spec, mode)
+                   for mode in cf.MODES}
+            for name, (fields, occ, p, spec) in packs.items()}
+
+
+def host_ms(fn, reps: int = 20) -> float:
+    """Host ms a call of fn() takes to enqueue its work, timed without a
+    synchronise between calls (after one warm-up call and a
+    synchronise)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    elapsed = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return elapsed / reps * 1e3
+
+
+def device_ms(fn, calls: int = 10) -> dict:
+    """Device ms a launch of each kernel fn() launches once a call, under
+    torch.profiler, and the launches the profiler recorded of the `calls`
+    made ({kernel name: [ms, recorded]}; empty if it saw no device time);
+    the mean is over the launches recorded."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        us = float(getattr(e, "self_device_time_total", 0.0) or 0.0)
+        if us > 0:
+            name = e.key.replace("(anonymous namespace)::", "")
+            out[name[:56]] = [us / e.count / 1e3, e.count]
+    return out
+
+
+def floor_times(name: str, fields, occ, p, spec, card) -> dict:
+    """Each mode's kernel, plain and (zero) library ms (CUDA events) and
+    bound on one pack, and its device time by kernel (torch.profiler);
+    then the split, from the device times: at the probe's scene a call's
+    host work is as long as its kernels, so the events time the host.
+    Returns {mode: (ms, plain ms, library ms, bound, device ms)}."""
+    out = {}
+    for mode, (kern, plain, library_call, nbytes, flops) in floor_pairs(
+            fields, occ, p, spec).items():
+        ms, plain_ms, (p1, k1, k2, p2) = turns(kern, plain)
+        lib_ms = None if library_call is None else cuda_ms(library_call, 20)
+        bnd = bound(nbytes, flops)
+        by_kernel = device_ms(kern)
+        dev_ms = sum(v[0] for v in by_kernel.values()) if by_kernel else None
+        out[mode] = (ms, plain_ms, lib_ms, bnd, dev_ms)
+        say("kernel floor", f"{name} {mode}: kernel {ms:.4f} ms ({k1:.4f}, "
+            f"{k2:.4f}; host enqueue {host_ms(kern):.4f} a call), plain "
+            f"{plain_ms:.4f} ms ({p1:.4f}, {p2:.4f}), library "
+            f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, {nbytes} "
+            f"bytes, {flops} operations, bound {bnd['bound_ms']:.4f} ms by "
+            f"{bnd['bound_by']}; device "
+            f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} "
+            f"{json.dumps(by_kernel)} | {card}")
+    dev = {mode: v[4] for mode, v in out.items()}
+    if None in dev.values():
+        say("kernel floor", f"{name} split: not measured (the profiler saw "
+            f"no device time)")
+        return out
+    say("kernel floor", f"{name} split (device ms a call): empty launch "
+        f"(zero) {dev['zero']:.4f}; staging and pads (pads - zero) "
+        f"{dev['pads'] - dev['zero']:.4f}; staging, list and pass 1 "
+        f"(screen - zero) {dev['screen'] - dev['zero']:.4f}; screen - pads "
+        f"{dev['screen'] - dev['pads']:.4f}; pair terms (full - screen) "
+        f"{dev['full'] - dev['screen']:.4f} (the pads mode also reads the "
+        f"six fields the sweep does not stage, and writes a plane) | {card}")
+    return out
+
+
+def floor_phase(colony, dev, card) -> list:
+    """Phase 14: K4's floor modes at the 1M colony after its main run and
+    at tools/probe_kernel_floor.py's 102,400-cell colony. Counters reset
+    just before the floor path (each colony packed through K5, then every
+    mode once on each pack) and read just after; then each pack is held
+    bitwise to the plain placement, each stub to its plain version at the
+    band's rows and "full" to contact_sweep — also on the 1M colony
+    compressed ×0.7, where bands hit the screen — and timed, the
+    compressed copy too. Returns the
+    kernels-line rows of the three stubs, timed at the 1M colony, with the
+    largest error their checks measured."""
+    from sph_tpu_torch.engine.colony import bonded_colony
+    from sph_tpu_torch.ops import FLOOR_LAUNCHES, LAUNCHES, reset_launches
+    from sph_tpu_torch.ops.contact import band_plan
+    from sph_tpu_torch.physics import contact_dense as cd
+    from sph_tpu_torch.utils.verify import compressed
+
+    t0 = time.perf_counter()
+    st, p, spec = colony["sim"].state, colony["sim"].params, colony["spec"]
+    small, sp, _ = bonded_colony(FLOOR_N, device=dev, **COLONY_KW)
+    sspec = cd.make_contact_spec(sp, k=sp.dense_k,
+                                 cell_factor=sp.dense_cell_factor)
+    colonies = {"1M colony": (st, p, spec),
+                f"{FLOOR_N} colony": (small, sp, sspec)}
+    torch.cuda.synchronize()
+    reset_launches()
+    packs = {name: (*cd._pack_args(s_, sp_, expand=True)[:2], p_, sp_)
+             for name, (s_, p_, sp_) in colonies.items()}
+    outs = floor_drive(packs)
+    torch.cuda.synchronize()
+    launches = {**{f"floor_{m}": n for m, n in FLOOR_LAUNCHES.items()},
+                "contact": LAUNCHES["contact"],
+                "expand": LAUNCHES["expand"]}
+    if launches != {"floor_zero": 2, "floor_pads": 2, "floor_screen": 2,
+                    "contact": 2, "expand": 2}:
+        raise AssertionError(f"floor path launches {launches}")
+    errs = {}
+    for name, (fields, occ, p_, sp_) in packs.items():
+        say("kernel floor", f"{name} {list(sp_.shape())}: "
+            f"{contact_band_line(occ, sp_)}")
+        plain_fields, plain_occ = cd._pack_args(colonies[name][0], sp_)[:2]
+        n = sum(int((a.view(torch.int32) != b.view(torch.int32)).sum())
+                for a, b in zip((*fields, occ), (*plain_fields, plain_occ)))
+        if n:
+            raise AssertionError(f"{name}: K5's pack differs from the plain "
+                                 f"placement in {n} slots' bits")
+        errs[name] = floor_exact(name, outs[name], fields, occ, p_, sp_)
+    fields_c, occ_c = cd._pack_args(compressed(st, 0.7), spec,
+                                    expand=True)[:2]
+    outs_c = floor_drive({"c": (fields_c, occ_c, p, spec)})["c"]
+    errs["compressed"] = floor_exact("1M colony compressed x0.7", outs_c,
+                                     fields_c, occ_c, p, spec)
+    hits = [int((o["screen"][0] != 0).sum())
+            for o in (outs["1M colony"], outs_c)]
+    if hits[1] == 0:
+        raise AssertionError("compressed colony: no band hit the screen")
+    say("kernel floor", f"every stub bitwise to its plain version at the "
+        f"band's {band_plan(spec).rows} rows and full to contact_sweep, at "
+        f"both colonies and the compressed copy; both packs bitwise to the "
+        f"plain placement; launches {launches}; "
+        f"slots of bands that hit the screen: settled {hits[0]}, "
+        f"compressed {hits[1]} ({time.perf_counter() - t0:.1f} s)")
+    times = {name: floor_times(name, *pack, card)
+             for name, pack in packs.items()}
+    # Where bands hit, pass 2 runs: the split of a colony in contact.
+    floor_times("1M colony compressed x0.7", fields_c, occ_c, p, spec, card)
+    rows = []
+    for mode in ("zero", "pads", "screen"):
+        ms, plain_ms, lib_ms, bnd, _ = times["1M colony"][mode]
+        name = f"floor_{mode}"
+        src, replaces = KERNELS[name]
+        rows.append({
+            "name": name, "route": "cuda", "source": src,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": max(e[mode] for e in errs.values()), "ms": ms,
+            "plain_ms": plain_ms, **bnd,
+            "library_ms": lib_ms,
+        })
+    return rows
+
+
+def verify_phase(card) -> None:
+    """Phase 15: the hardware verification lane (utils/verify.py, JAX's
+    five twin checks that apply) on the card; any failure fails the run."""
+    from sph_tpu_torch.utils.verify import run_all
+
+    t0 = time.perf_counter()
+    results = run_all(verbose=True)
+    fails = [(n, e) for n, e in results if e is not None]
+    say("verify", f"{len(results) - len(fails)}/{len(results)} twin checks "
+        f"ok ({time.perf_counter() - t0:.1f} s) | {card}")
+    if fails:
+        raise AssertionError(f"verify: {fails}")
 
 
 # -- 12. shard: the sharded paths (sph_tpu_torch/parallel) -------------------

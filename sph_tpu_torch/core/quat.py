@@ -13,6 +13,10 @@ from __future__ import annotations
 
 import torch
 
+# The JAX package's constant, on the CPU; `identity` builds its batches on
+# the device without a copy from the host.
+IDENTITY = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=torch.float32)
+
 
 def identity(shape=(), device="cuda") -> torch.Tensor:
     """Identity quaternion(s) [0, 0, 0, 1] with the given batch shape."""

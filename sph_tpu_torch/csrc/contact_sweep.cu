@@ -71,6 +71,31 @@
 // roots and an IEEE 1/x, so the kernel equals the plain version bitwise on
 // the card.
 //
+// Floor modes (`sph_contact_floor`; the plain versions and the wrapper are
+// ops/contact_floor.py). They replace the stub kernels of
+// tools/probe_kernel_floor.py (`zero_kernel`, `pads_kernel`,
+// `screen_kernel`), which that probe swaps into the Pallas kernel to split
+// its time. Here each is the band sweep compiled to stop at a stage (the
+// `Mode` template parameter; the production sweep is Mode::kFull and
+// compiles as before), on the same gate, plan and grid:
+//  - kZero: the gate, then +0 into every listed band's six planes. No
+//    staging.
+//  - kPads: and the halo staging and the lane pads. Output 0 of every slot
+//    of the band is f32(1e-37) times the sum of the ten fields over planes
+//    z − 1, z, z + 1 at the slot's own (y, l), fields outer, planes inner,
+//    from +0: px, py, pz and rad from the staged rows, the other six from
+//    device memory (the halo stages four fields; ten would not fit).
+//  - kScreen: and the list of occupied own slots and pass 1, as a running
+//    margin max(−1, overlap − ε over the variants) that keeps NaN, then the
+//    band's max margin (NaN kept) by a block reduction; the margins wait
+//    in shared memory, over the list. Only where it is > 0 does the band
+//    store anything: output 0 holding the margins, and −1 on the band's
+//    empty slots (the margin a pack's radius fill gives them; they are not
+//    screened, as the production sweep screens only occupied slots). A
+//    band that misses costs pass 1 and the reduction, and its output 0
+//    stays +0.
+// Each mode's output reads what its stage produced, so none is dead code.
+//
 // What bounds it on the H100: memory traffic. The least the function must
 // move is the occupancy plane and the 6 output planes of Z·Y·L f32 (7 ×
 // 54.9 MB at the 1M-cell colony), plus position and radius of occupied
@@ -97,6 +122,10 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kGateThreads = 256;  // gate block
 constexpr int kLoads = 4;  // occupancy loads a thread has in flight
 constexpr int kMaxWords = 1024;  // occupancy masks of a band (32K slots)
+
+// How far the band sweep runs (the floor modes above); the values are
+// `sph_contact_floor`'s mode codes.
+enum class Mode : int { kZero = 0, kPads = 1, kScreen = 2, kFull = 3 };
 
 struct InFields {
   const float* f[kFields];
@@ -401,6 +430,72 @@ __device__ __forceinline__ void walk(const Halo& hs, int own, const Geom& g,
   for (int k = 0; k < kComps; ++k) out.c[k][i] = acc[k];
 }
 
+// max(a, b) that keeps NaN, as jnp.maximum and torch.maximum do.
+__device__ __forceinline__ float nan_max(float a, float b) {
+  if (a != a) return a;
+  return (b != b || b > a) ? b : a;
+}
+
+// Pass 1 as the screen stub forms it: max(−1, overlap − ε over the
+// variants in order), NaN kept.
+template <int K>
+__device__ __forceinline__ float margin(const Halo& hs, int own,
+                                        const Model& m) {
+  const Own c = hs.own_at(own);
+  float mg = -1.0f;
+  Variants<K>::each([&](int, int dz, int dy, int o) {
+    mg = nan_max(mg, sub(hs.screen_at(c, own, dz, dy, o).overlap, m.eps));
+  });
+  return mg;
+}
+
+// The NaN-keeping max of v over the block, for every thread; `red` holds
+// kWarps floats.
+__device__ __forceinline__ float block_max(float v, float* red) {
+#pragma unroll
+  for (int d = 16; d > 0; d >>= 1)
+    v = nan_max(v, __shfl_xor_sync(0xffffffffu, v, d));
+  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
+  __syncthreads();
+  float r = red[0];
+  for (int w = 1; w < kWarps; ++w) r = nan_max(r, red[w]);
+  return r;
+}
+
+// f(rank, own) for every occupied own slot of a band, `rank` its place in
+// layout order, from the gate's `words` occupancy masks (a warp prefix sum
+// of their popcounts; one thread a word); `warp_count` holds kWarps ints.
+// Returns the count. Every thread of the block calls it.
+template <class F>
+__device__ __forceinline__ int each_occupied(const unsigned* masks,
+                                             int words, int* warp_count,
+                                             F f) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int count = 0;
+  for (int w0 = 0; w0 < words; w0 += kThreads) {
+    const int w = w0 + threadIdx.x;
+    unsigned mk = w < words ? masks[w] : 0u;
+    const int mine = __popc(mk);
+    int incl = mine;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, d);
+      if (lane >= d) incl += v;
+    }
+    if (lane == 31) warp_count[warp] = incl;
+    __syncthreads();
+    int before = count + incl - mine, total = 0;
+    for (int v = 0; v < kWarps; ++v) {
+      before += v < warp ? warp_count[v] : 0;
+      total += warp_count[v];
+    }
+    for (; mk != 0u; mk &= mk - 1u) f(before++, w * 32 + __ffs(mk) - 1);
+    __syncthreads();
+    count += total;
+  }
+  return count;
+}
+
 // The work buffer (int32, zeroed by the caller): [0] the listed bands,
 // [1] the bands taken, then the band list and, per band, its occupancy as
 // `words` 32-bit masks (bit i of word w: own slot 32·w + i; written for
@@ -476,8 +571,9 @@ __host__ __device__ inline size_t smem_bytes_of(int band_rows, int L,
 }
 
 // Launch 2, persistent: each block takes listed bands until the list runs
-// out.
-template <int K>
+// out. `M` stops the sweep at a stage (the floor modes); Mode::kFull is the
+// production sweep.
+template <int K, Mode M>
 __global__ void __launch_bounds__(kThreads, 2)
     contact_band_kernel(InFields in, OutComps out, Geom g, int band_rows,
                         int bands, Model m, Work work) {
@@ -492,7 +588,6 @@ __global__ void __launch_bounds__(kThreads, 2)
   uint64_t* bar = reinterpret_cast<uint64_t*>(warp_count + kWarps);
   int* next = reinterpret_cast<int*>(bar + 1);
 
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int listed = work.w[0];
   const Halo hs{halo, field, plane, run};
   if (threadIdx.x == 0) {
@@ -517,21 +612,23 @@ __global__ void __launch_bounds__(kThreads, 2)
     // a. Stage px, py, pz, rad of planes z ± 1, rows r0 − 1 .. r0 + rows:
     // one copy per (field, plane, row), one per thread.
     const int copies = kStaged * 3 * (rows + 2);
-    if (threadIdx.x == 0)
-      mbar_expect_tx(bar, static_cast<uint32_t>(copies) *
-                              static_cast<uint32_t>(g.L) * 4u);
-    for (int t = threadIdx.x; t < copies; t += kThreads) {
-      const int r = t % (rows + 2), p = t / (rows + 2) % 3,
-                f = t / (rows + 2) / 3;
-      const float* src = f == 0   ? in.f[0]
-                         : f == 1 ? in.f[1]
-                         : f == 2 ? in.f[2]
-                                  : in.f[9];
-      bulk_load(halo + f * field + p * plane + r * run + kPad,
-                src + (static_cast<size_t>(wrap(z - 1 + p, g.Z)) * g.Y +
-                       wrap(r0 - 1 + r, g.Y)) *
-                          g.L,
-                g.L * 4u, bar);
+    if constexpr (M != Mode::kZero) {
+      if (threadIdx.x == 0)
+        mbar_expect_tx(bar, static_cast<uint32_t>(copies) *
+                                static_cast<uint32_t>(g.L) * 4u);
+      for (int t = threadIdx.x; t < copies; t += kThreads) {
+        const int r = t % (rows + 2), p = t / (rows + 2) % 3,
+                  f = t / (rows + 2) / 3;
+        const float* src = f == 0   ? in.f[0]
+                           : f == 1 ? in.f[1]
+                           : f == 2 ? in.f[2]
+                                    : in.f[9];
+        bulk_load(halo + f * field + p * plane + r * run + kPad,
+                  src + (static_cast<size_t>(wrap(z - 1 + p, g.Z)) * g.Y +
+                         wrap(r0 - 1 + r, g.Y)) *
+                            g.L,
+                  g.L * 4u, bar);
+      }
     }
 
     // b. +0 into the band's outputs, and the list of its occupied own
@@ -545,51 +642,81 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
     const unsigned* masks = work.occupancy(band);
     int count = 0;
-    for (int w0 = 0; w0 < n_own / 32; w0 += kThreads) {
-      const int w = w0 + threadIdx.x;
-      unsigned mk = w < n_own / 32 ? masks[w] : 0u;
-      const int mine = __popc(mk);
-      int incl = mine;
-#pragma unroll
-      for (int d = 1; d < 32; d <<= 1) {
-        const int v = __shfl_up_sync(0xffffffffu, incl, d);
-        if (lane >= d) incl += v;
-      }
-      if (lane == 31) warp_count[warp] = incl;
-      __syncthreads();
-      int before = count + incl - mine, total = 0;
-      for (int v = 0; v < kWarps; ++v) {
-        before += v < warp ? warp_count[v] : 0;
-        total += warp_count[v];
-      }
-      for (; mk != 0u; mk &= mk - 1u) list[before++] = w * 32 + __ffs(mk) - 1;
-      __syncthreads();
-      count += total;
-    }
+    if constexpr (M == Mode::kScreen || M == Mode::kFull)
+      count = each_occupied(masks, n_own / 32, warp_count,
+                            [&](int rank, int own) { list[rank] = own; });
 
     // The lane pads of the staged rows, once they land: the row's last
     // kPad lanes to the left, its first kPad to the right (the plain
     // roll's wrap). The buffer is refilled by bulk copies later, hence the
     // proxy fence.
-    mbar_wait(bar, phase);
-    phase ^= 1u;
-    for (int t = threadIdx.x; t < copies * 2 * kPad; t += kThreads) {
-      const int i = t % (2 * kPad), row = t / (2 * kPad);
-      float* r = halo + row / (rows + 2) * plane + row % (rows + 2) * run;
-      if (i < kPad)
-        r[i] = r[g.L + i];
-      else
-        r[g.L + i] = r[i];
+    if constexpr (M != Mode::kZero) {
+      mbar_wait(bar, phase);
+      phase ^= 1u;
+      for (int t = threadIdx.x; t < copies * 2 * kPad; t += kThreads) {
+        const int i = t % (2 * kPad), row = t / (2 * kPad);
+        float* r = halo + row / (rows + 2) * plane + row % (rows + 2) * run;
+        if (i < kPad)
+          r[i] = r[g.L + i];
+        else
+          r[g.L + i] = r[i];
+      }
+      fence_proxy_async();
+      __syncthreads();
     }
-    fence_proxy_async();
-    __syncthreads();
 
-    // c. Walk the occupied own slots.
-    for (int t = threadIdx.x; t < count; t += kThreads) {
-      const int own = list[t];
-      const int ry = own / g.L, l = own - ry * g.L;
-      walk<K>(hs, plane + (ry + 1) * run + kPad + l, g, z, r0 + ry,
-                      l, base + own, in, out, m);
+    if constexpr (M == Mode::kFull) {
+      // c. Walk the occupied own slots.
+      for (int t = threadIdx.x; t < count; t += kThreads) {
+        const int own = list[t];
+        const int ry = own / g.L, l = own - ry * g.L;
+        walk<K>(hs, plane + (ry + 1) * run + kPad + l, g, z, r0 + ry, l,
+                base + own, in, out, m);
+      }
+    } else if constexpr (M == Mode::kPads) {
+      // Every slot of the band: f32(1e-37) · Σ fields (outer), dz (inner).
+      for (int t = threadIdx.x; t < n_own; t += kThreads) {
+        const int ry = t / g.L, l = t - ry * g.L;
+        const int own = plane + (ry + 1) * run + kPad + l;
+        float acc = 0.0f;
+#pragma unroll
+        for (int f = 0; f < kFields; ++f)
+#pragma unroll
+          for (int dz = -1; dz <= 1; ++dz)
+            acc = add(acc,
+                      f < 3 ? halo[f * field + dz * plane + own]
+                      : f == 9
+                          ? halo[3 * field + dz * plane + own]
+                          : in.f[f][partner(g, z, r0 + ry, l, dz, 0, 0)]);
+        out.c[0][base + t] = mul(acc, 1e-37f);
+      }
+    } else if constexpr (M == Mode::kScreen) {
+      // Pass 1 of every occupied own slot, its margin over its list entry
+      // (the thread that reads an entry writes it) and into a running
+      // max; then the band's max margin. Where it is > 0 (a band the
+      // production sweep would walk), the margins go to their slots in
+      // list order and −1 into the empty slots; else output 0 keeps its
+      // +0 and nothing is stored.
+      float band_max = -1.0f;
+      for (int t = threadIdx.x; t < count; t += kThreads) {
+        const int own = list[t];
+        const int ry = own / g.L, l = own - ry * g.L;
+        const float mg = margin<K>(hs, plane + (ry + 1) * run + kPad + l, m);
+        list[t] = __float_as_int(mg);
+        band_max = nan_max(band_max, mg);
+      }
+      // warp_count is free once the list is built; the branch is the
+      // block's, and its barrier keeps the reduction's reads of `red`
+      // before each_occupied's writes.
+      float* red = reinterpret_cast<float*>(warp_count);
+      if (block_max(band_max, red) > 0.0f) {
+        __syncthreads();
+        each_occupied(masks, n_own / 32, warp_count, [&](int rank, int own) {
+          out.c[0][base + own] = __int_as_float(list[rank]);
+        });
+        for (int t = threadIdx.x; t < n_own; t += kThreads)
+          if (!(masks[t >> 5] >> (t & 31) & 1u)) out.c[0][base + t] = -1.0f;
+      }
     }
     if (threadIdx.x == 0) *next = following;
   }
@@ -597,7 +724,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 // Launches the gate and the sweep on `stream`; returns a cudaError_t value
 // (0 on success).
-template <int K>
+template <int K, Mode M>
 int launch_k(const InFields& in, const float* occ, const OutComps& out,
              const Geom& g, int band_rows, int smem_bytes, const Model& m,
              int* work, cudaStream_t stream) {
@@ -606,7 +733,7 @@ int launch_k(const InFields& in, const float* occ, const OutComps& out,
     return cudaErrorInvalidValue;
   const int bands = (g.Y + band_rows - 1) / band_rows;
   const Work w{work, g.Z * bands, band_rows * g.L / 32};
-  auto* kernel = contact_band_kernel<K>;
+  auto* kernel = contact_band_kernel<K, M>;
   cudaError_t rc = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
   if (rc != cudaSuccess) return rc;
@@ -629,6 +756,42 @@ int launch_k(const InFields& in, const float* occ, const OutComps& out,
   return static_cast<int>(cudaGetLastError());
 }
 
+// The K the kernels are built for; anything else is refused.
+template <Mode M>
+int launch_mode(const InFields& in, const float* occ, const OutComps& out,
+                const Geom& g, int K, int band_rows, int smem_bytes,
+                const Model& m, int* work, cudaStream_t stream) {
+  if (g.Z < 1 || g.Y < 1 || g.L < 32 || g.L % 32 || band_rows < 1 ||
+      band_rows * g.L > 32 * kMaxWords)
+    return cudaErrorInvalidValue;
+  switch (K) {
+    case 1:
+      return launch_k<1, M>(in, occ, out, g, band_rows, smem_bytes, m, work,
+                            stream);
+    case 2:
+      return launch_k<2, M>(in, occ, out, g, band_rows, smem_bytes, m, work,
+                            stream);
+    case 4:
+      return launch_k<4, M>(in, occ, out, g, band_rows, smem_bytes, m, work,
+                            stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+InFields in_fields(const void* const* fields) {
+  InFields in;
+  for (int i = 0; i < kFields; ++i)
+    in.f[i] = static_cast<const float*>(fields[i]);
+  return in;
+}
+
+OutComps out_comps(void* const* outs) {
+  OutComps out;
+  for (int i = 0; i < kComps; ++i) out.c[i] = static_cast<float*>(outs[i]);
+  return out;
+}
+
 }  // namespace
 
 // Plain C entry point (loaded with ctypes). Launches on `stream` and
@@ -644,25 +807,34 @@ extern "C" int sph_contact_sweep(const void* const* fields, const float* occ,
                                  float eps, float slip_eps,
                                  float repulsion, float torque_factor,
                                  float mult, void* stream) {
-  InFields in;
-  for (int i = 0; i < kFields; ++i) {
-    in.f[i] = static_cast<const float*>(fields[i]);
-  }
-  OutComps out;
-  for (int i = 0; i < kComps; ++i) out.c[i] = static_cast<float*>(outs[i]);
-  const Model m{eps, slip_eps, repulsion, torque_factor, mult};
+  return launch_mode<Mode::kFull>(
+      in_fields(fields), occ, out_comps(outs), Geom{Z, Y, L}, K, band_rows,
+      smem_bytes, Model{eps, slip_eps, repulsion, torque_factor, mult}, work,
+      static_cast<cudaStream_t>(stream));
+}
+
+// The floor modes (mode 0 zero, 1 pads, 2 screen; see the head of this
+// file), with the arguments of `sph_contact_sweep`; the screen reads only
+// `eps` of the model.
+extern "C" int sph_contact_floor(const void* const* fields, const float* occ,
+                                 void* const* outs, int* work, int Z, int Y,
+                                 int L, int K, int band_rows, int smem_bytes,
+                                 int mode, float eps, void* stream) {
+  const InFields in = in_fields(fields);
+  const OutComps out = out_comps(outs);
   const Geom g{Z, Y, L};
+  const Model m{eps, 0.0f, 0.0f, 0.0f, 0.0f};
   const auto st = static_cast<cudaStream_t>(stream);
-  if (Z < 1 || Y < 1 || L < 32 || L % 32 || band_rows < 1 ||
-      band_rows * L > 32 * kMaxWords)
-    return cudaErrorInvalidValue;
-  switch (K) {
-    case 1:
-      return launch_k<1>(in, occ, out, g, band_rows, smem_bytes, m, work, st);
-    case 2:
-      return launch_k<2>(in, occ, out, g, band_rows, smem_bytes, m, work, st);
-    case 4:
-      return launch_k<4>(in, occ, out, g, band_rows, smem_bytes, m, work, st);
+  switch (mode) {
+    case static_cast<int>(Mode::kZero):
+      return launch_mode<Mode::kZero>(in, occ, out, g, K, band_rows,
+                                      smem_bytes, m, work, st);
+    case static_cast<int>(Mode::kPads):
+      return launch_mode<Mode::kPads>(in, occ, out, g, K, band_rows,
+                                      smem_bytes, m, work, st);
+    case static_cast<int>(Mode::kScreen):
+      return launch_mode<Mode::kScreen>(in, occ, out, g, K, band_rows,
+                                        smem_bytes, m, work, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -12,6 +12,8 @@ accumulate) is not ported.
 
 from __future__ import annotations
 
+import functools
+
 from sph_tpu_torch.biology.bonds import filter_bonds, update_bond_zones
 from sph_tpu_torch.biology.division import (
     process_pending_splits,
@@ -83,6 +85,24 @@ def step(state: SimState, params: SimParams, genome: GenomeDevice,
                                                          genome))
     state = state.replace_fields(bonds=filter_bonds(state))
     return state.replace_fields(step_count=state.step_count + 1)
+
+
+def make_step_fn(params: SimParams, donate: bool = True, contact_fn=None):
+    """A step closure over fixed params, `(state, genome) -> state`.
+
+    Memoised on params, as the JAX package's jitted closure is, so callers
+    with equal params share one function. There is no jit here, so `donate`
+    (JAX's buffer donation) has no effect and is taken for the signature's
+    sake. A `contact_fn` closure (one per mesh) is not cached: keying on it
+    would keep every Simulation's closure and mesh alive."""
+    if contact_fn is not None:
+        return lambda st, gd: step(st, params, gd, contact_fn=contact_fn)
+    return _step_closure(params)
+
+
+@functools.lru_cache(maxsize=16)
+def _step_closure(params: SimParams):
+    return lambda st, gd: step(st, params, gd)
 
 
 def run_steps(state: SimState, params: SimParams, genome: GenomeDevice,

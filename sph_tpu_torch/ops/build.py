@@ -51,6 +51,10 @@ _ARGTYPES = {
     # eps, slip_eps, repulsion, torque_factor, mult, stream
     "sph_contact_sweep": [ctypes.POINTER(_P), _P, ctypes.POINTER(_P), _P]
     + [_I] * 6 + [_F] * 5 + [_P],
+    # fields[10], occ, outs[6], work, Z, Y, L, K, band_rows, smem_bytes,
+    # mode, eps, stream
+    "sph_contact_floor": [ctypes.POINTER(_P), _P, ctypes.POINTER(_P), _P]
+    + [_I] * 7 + [_F, _P],
     # rows, key, start, out, n, ncol, slots, fills (host), stream
     "sph_expand_rows": [_P] * 4 + [_I] * 3 + [ctypes.POINTER(_F), _P],
 }

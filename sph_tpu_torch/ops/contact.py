@@ -90,6 +90,12 @@ def band_plan(spec) -> BandPlan:
     return plan
 
 
+def plan_of(spec, rows: int | None = None) -> BandPlan:
+    """`band_plan(spec)`, or the plan of bands of `rows` rows when given
+    (the design probes force band heights)."""
+    return band_plan(spec) if rows is None else _plan(spec, rows)
+
+
 def work_ints(spec, plan: BandPlan, nz: int) -> int:
     """Entries of the kernel's zeroed int32 work buffer for `nz` planes: a
     count, a cursor, the band list and each band's occupancy masks
@@ -98,37 +104,51 @@ def work_ints(spec, plan: BandPlan, nz: int) -> int:
     return 2 + bands + bands * plan.rows * spec.L // 32
 
 
-def contact_sweep(fields, occ, params, spec):
+def contact_sweep(fields, occ, params, spec, rows: int | None = None):
     """Own-side force and torque per slot: 6 [Z, Y, L] planes. `fields`
     are the 10 packed planes (px, py, pz, vx, vy, vz, ox, oy, oz, rad),
     `occ` the occupancy plane. Z is the operands' own plane count: a
     sharded step passes halo-padded slabs of P + 2 planes (and, over a 2D
-    mesh, a spec of its local rows); `spec` gives Y, L and K."""
+    mesh, a spec of its local rows); `spec` gives Y, L and K. `rows`
+    forces the band height (`plan_of`)."""
     from sph_tpu_torch.physics import contact_dense as cd
 
     if fields[0].device.type == "cpu":
         return cd._sweep_plain(
             fields, lambda *a: cd.contact_pair_terms(params, *a), NCOMP,
             spec)
+    outs = launch_bands(
+        "contact_sweep", library().lib.sph_contact_sweep, fields, occ, spec,
+        plan_of(spec, rows), params.contact_epsilon,
+        params.slip_epsilon, params.repulsion_strength, params.torque_factor,
+        params.rolling_contact_radius_multiplier)
+    LAUNCHES["contact"] += 1
+    return outs
+
+
+def launch_bands(name, entry, fields, occ, spec, plan: BandPlan, *model):
+    """Check the operands and call a band-sweep entry point of
+    csrc/contact_sweep.cu (`sph_contact_sweep`, `sph_contact_floor`) with
+    the pointers, the geometry, `plan`, then `model` and the stream;
+    returns its 6 output planes (torch.empty: the kernels write every
+    slot)."""
     dev = fields[0].device
-    check_device("contact_sweep", (*fields, occ), dev)
+    check_device(name, (*fields, occ), dev)
     if len(fields) != 10:
-        raise ValueError(f"contact_sweep: expected 10 fields, got "
-                         f"{len(fields)}")
-    nz = slab_planes("contact_sweep", (*fields, occ), (spec.ny, spec.L))
-    plan = band_plan(spec)
+        raise ValueError(f"{name}: expected 10 fields, got {len(fields)}")
+    nz = slab_planes(name, (*fields, occ), (spec.ny, spec.L))
+    if plan.smem_bytes > SMEM_LIMIT:
+        raise ValueError(f"{name}: a band of {plan.rows} rows needs "
+                         f"{plan.smem_bytes} bytes of shared memory, more "
+                         f"than the {SMEM_LIMIT} a block has")
     work = torch.zeros(work_ints(spec, plan, nz), dtype=torch.int32,
                        device=dev)
     outs = [torch.empty_like(occ) for _ in range(NCOMP)]
     ins_p = (ctypes.c_void_p * 10)(*(f.data_ptr() for f in fields))
     outs_p = (ctypes.c_void_p * NCOMP)(*(o.data_ptr() for o in outs))
     with torch.cuda.device(dev):
-        rc = library().lib.sph_contact_sweep(
-            ins_p, occ.data_ptr(), outs_p, work.data_ptr(), nz, spec.ny,
-            spec.L, spec.k, plan.rows, plan.smem_bytes,
-            params.contact_epsilon, params.slip_epsilon,
-            params.repulsion_strength, params.torque_factor,
-            params.rolling_contact_radius_multiplier, stream_of(dev))
-    check_launch("contact_sweep", rc)
-    LAUNCHES["contact"] += 1
+        rc = entry(ins_p, occ.data_ptr(), outs_p, work.data_ptr(), nz,
+                   spec.ny, spec.L, spec.k, plan.rows, plan.smem_bytes,
+                   *model, stream_of(dev))
+    check_launch(name, rc)
     return outs

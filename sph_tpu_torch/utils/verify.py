@@ -18,9 +18,23 @@ contact pack's placement (K5) is bitwise on all 11 planes, −0 included.
 K3's two passes, written out in plain PyTorch for the CPU tests;
 `empty_layout`, `place_particle`, `moved_layout` and `overflow_layout`
 build the rebin's test layouts.
+
+The hardware verification lane — the counterpart of the JAX package's
+`CHECKS`, `run_all` and `verify_summary`, with `tools/verify_chip.py`'s
+CLI as `python -m sph_tpu_torch.utils.verify` — runs JAX's five twin
+checks that apply to the port on a device (the card unless asked), each
+scene built here from numpy (`blob`) or the port's scenes: the fluid
+kernels at k = 8, the contact pack's placement on three blobs, and the
+dense contact forces end to end. JAX's two BondPlan checks (planned and
+hybrid adhesion) have no counterpart: the port has no BondPlan (ROADMAP A,
+"Not ported"), so there is nothing to hold against the plain adhesion.
 """
 
 from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
 
 import numpy as np
 import torch
@@ -457,3 +471,131 @@ def blob(n: int = 400, k: int = 4, seed: int = 3, radius: float = 9.0,
     spec = cd.make_contact_spec(p, k=k, cell_factor=p.dense_cell_factor)
     return state, p, spec
 
+
+
+# -- the hardware verification lane ----------------------------------------
+
+
+def check_fluid_scene(n_target: int = 3000, k: int = 8,
+                      cell_factor: float = 1.2, device="cuda") -> dict:
+    """JAX's `check_fluid_twins` scene: dam_break_3d at `n_target`
+    particles packed at `k` and `cell_factor`; K1, K2 and K3 against their
+    plain versions (`check_fluid_twins`)."""
+    from sph_tpu_torch.sph.scenes import dam_break_3d
+
+    state, params = dam_break_3d(n_target=n_target)
+    params = params.replace(dense_k=k, cell_factor=cell_factor)
+    spec = dense.make_dense_spec(params, k=k, cell_factor=cell_factor)
+    d = dense.pack(state, params, spec, device=device)
+    return check_fluid_twins(d, params, spec)
+
+
+def check_expand_pack(n: int, k: int, seed: int = 3, spread: float = 9.0,
+                      device="cuda") -> dict:
+    """K5 against the plain placement, bitwise on all 11 planes, on JAX's
+    bench-verify blob: n cells of radius 2 within `spread` (smaller is
+    denser: more cell overflow), spawn radius 10."""
+    state, _, spec = blob(n=n, k=k, seed=seed, radius=spread, spawn=10.0,
+                          radii=(2.0, 2.0), device=device)
+    return check_expand(state, spec)
+
+
+def check_contact_end2end(n: int = 400, k: int = 4, seed: int = 3,
+                          device="cuda") -> dict:
+    """`contact_forces_dense` through the kernels (K5 and K4) against the
+    plain path, force and torque at the twin tolerance, on the blob of
+    `check_expand_pack`; the scene must have contact."""
+    state, params, _ = blob(n=n, k=k, seed=seed, radius=9.0, spawn=10.0,
+                            radii=(2.0, 2.0), device=device)
+    fx, tx, _ = cd.contact_forces_dense(
+        state, dataclasses.replace(params, use_pallas=False))
+    fp, tp, _ = cd.contact_forces_dense(
+        state, dataclasses.replace(params, use_pallas=True))
+    if float(fx.abs().max()) == 0.0:
+        raise AssertionError("degenerate scene: zero contact force")
+    return {"force": _close_everywhere(f"contact force n={n} k={k}", fx, fp),
+            "torque": _close_everywhere(f"contact torque n={n} k={k}", tx,
+                                        tp)}
+
+
+# (name, check on a device): JAX's lane less its BondPlan checks, under
+# JAX's names. The expand-pack scenes ride three densities: the round-3
+# repro (a sparse blob with one overflow), a crushed blob (heavy overflow)
+# and colony-like k = 2 occupancy.
+CHECKS = (
+    ("fluid twins (density/accel/rebin, k=8)",
+     lambda device: check_fluid_scene(k=8, device=device)),
+    ("expand pack blob n=400 k=4 (round-3 repro)",
+     lambda device: check_expand_pack(400, 4, device=device)),
+    ("expand pack crushed n=1200 k=4",
+     lambda device: check_expand_pack(1200, 4, seed=5, spread=4.0,
+                                      device=device)),
+    ("expand pack colony-k n=2048 k=2",
+     lambda device: check_expand_pack(2048, 2, seed=7, spread=14.0,
+                                      device=device)),
+    ("contact end-to-end n=400 k=4",
+     lambda device: check_contact_end2end(device=device)),
+)
+
+
+def run_all(verbose: bool = False, device="cuda"):
+    """Run every check on `device`. Returns a list of (name, None | error
+    string)."""
+    results = []
+    for name, fn in CHECKS:
+        try:
+            fn(device)
+            err = None
+        except AssertionError as e:
+            # numpy's assertion messages start with a newline: keep the
+            # first two non-empty lines.
+            lines = [ln.strip() for ln in str(e).split("\n") if ln.strip()]
+            err = " | ".join(lines[:2])[:200] or repr(e)[:200]
+        if verbose:
+            print(f"  {'ok  ' if err is None else 'FAIL'} {name}"
+                  + (f": {err}" if err else ""), flush=True)
+        results.append((name, err))
+    return results
+
+
+def verify_summary(device="cuda") -> str:
+    """'ok (<device type>, <n> twin checks)' or 'FAIL: <first failure>'."""
+    results = run_all(device=device)
+    fails = [(n, e) for n, e in results if e is not None]
+    if fails:
+        return f"FAIL: {fails[0][0]}: {fails[0][1]}"
+    return (f"ok ({torch.device(device).type}, {len(results)} twin "
+            f"checks)")
+
+
+def main(argv=None) -> int:
+    """The lane's CLI: every check on the card (or `--device cpu`), one
+    line each; exits 1 on any failure."""
+    ap = argparse.ArgumentParser(
+        prog="python -m sph_tpu_torch.utils.verify",
+        description="Hold every hand-written kernel to its plain version "
+                    "on the live card.")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu, where the kernels' "
+                         "wrappers run their plain versions")
+    args = ap.parse_args(argv)
+    device = torch.device(args.device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            print("no CUDA device (pass --device cpu for the plain route)",
+                  file=sys.stderr)
+            return 1
+        where = torch.cuda.get_device_name(device)
+    else:
+        where = "cpu"
+    print(f"device: {where}  torch {torch.__version__}", flush=True)
+    results = run_all(verbose=True, device=device)
+    fails = [(n, e) for n, e in results if e is not None]
+    print(f"{len(results) - len(fails)}/{len(results)} twin checks ok")
+    for n, e in fails:
+        print(f"FAIL {n}: {e}")
+    return 1 if fails else 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

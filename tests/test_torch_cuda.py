@@ -13,9 +13,10 @@ plain version is NaN — and +0 on empty ones; K3 is bitwise (−0 == +0,
 `dropped` equal), also on random layouts with moves of up to two cells and
 on overflows at an intermediate stage, at each K it is built for. K4 (colony
 contact sweep) is held to the same tolerance on every slot and, by the
-same design, to bitwise equality with +0 on empty slots; K5 (the contact
-pack's placement) is bitwise. K1, K2 and K4 are held so on the halo-padded
-blocks of a sharded step too (a ring's [P + 2]-plane slabs, a 2D mesh's
+same design, to bitwise equality with +0 on empty slots, and its floor
+modes (ops/contact_floor.py) bitwise to their plain versions; K5 (the
+contact pack's placement) is bitwise. K1, K2 and K4 are held so on the
+halo-padded blocks of a sharded step too (a ring's [P + 2]-plane slabs, a 2D mesh's
 local rows). The render (plain PyTorch) is held to itself
 twice on the card bitwise and to the CPU's render of the same state within
 atol 1e-4 (the z-buffer, a minimum, exactly); the app's `fluid` command
@@ -31,8 +32,9 @@ from sph_tpu_torch.core.types import state_to_numpy
 from sph_tpu_torch.engine.colony import bonded_colony
 from sph_tpu_torch.engine.fluid import FluidSimulation
 from sph_tpu_torch.engine.simulation import Simulation
-from sph_tpu_torch.ops import LAUNCHES, reset_launches
+from sph_tpu_torch.ops import FLOOR_LAUNCHES, LAUNCHES, reset_launches
 from sph_tpu_torch.ops import contact as oc
+from sph_tpu_torch.ops import contact_floor as cf
 from sph_tpu_torch.ops.contact import contact_sweep
 from sph_tpu_torch.ops.expand import expand_rows
 from sph_tpu_torch.ops.fluid import accel_sweep, band_plan, density_sweep
@@ -398,14 +400,9 @@ def test_contact_kernel_bitwise_at_each_k(cuda, k):
     assert contact_exact(fields, occ, params, spec) > 100
 
 
-def test_contact_kernel_beside_an_empty_band_and_at_the_edges(cuda):
-    """An occupied band next to one emptied by hand (the gate zeroes it,
-    the sweep stages it as a halo); then the whole pack rolled to put the
-    colony's centre at index 0, so that it straddles every edge — bands at
-    the first and last row and plane, lanes that wrap — against the plain
-    sweep, which wraps as the kernel does."""
-    state, params, _, spec = colony(cuda, n=4000)
-    fields, occ, _, _ = cd._pack_args(compressed(state, 0.7), spec)
+def emptied_band(fields, occ, spec):
+    """The pack with one band of the busiest plane, between two occupied
+    bands, emptied by hand (its fields set to their fills)."""
     plan = oc.band_plan(spec)
     live = (occ > 0.5).any(dim=2)                              # [Z, Y]
     z = int(live.sum(dim=1).argmax())
@@ -421,6 +418,18 @@ def test_contact_kernel_beside_an_empty_band_and_at_the_edges(cuda):
         f[z, cut] = fill
     occ[z, cut] = cd.OCC_FILL
     assert bool((occ[z, (b - 1) * plan.rows:cut.start] > 0.5).any())
+    return fields, occ
+
+
+def test_contact_kernel_beside_an_empty_band_and_at_the_edges(cuda):
+    """An occupied band next to one emptied by hand (the gate zeroes it,
+    the sweep stages it as a halo); then the whole pack rolled to put the
+    colony's centre at index 0, so that it straddles every edge — bands at
+    the first and last row and plane, lanes that wrap — against the plain
+    sweep, which wraps as the kernel does."""
+    state, params, _, spec = colony(cuda, n=4000)
+    fields, occ = emptied_band(
+        *cd._pack_args(compressed(state, 0.7), spec)[:2], spec)
     assert contact_exact(fields, occ, params, spec) > 0
     centre = torch.nonzero(occ > 0.5).float().mean(dim=0)
     shift = tuple(-int(c) for c in centre)
@@ -431,6 +440,50 @@ def test_contact_kernel_beside_an_empty_band_and_at_the_edges(cuda):
                 and on[:, -1].any() and on[..., 0].any()
                 and on[..., -1].any())
     assert contact_exact(fields, occ, params, spec) > 0
+
+
+def floor_exact(fields, occ, params, spec, rows=None):
+    """K4's floor modes against their plain versions at the band's rows,
+    bitwise on all six planes, and "full" against contact_sweep, each
+    launched once. Returns the slots where the screen mode's band hit."""
+    reset_launches()
+    kern = {mode: cf.contact_floor(fields, occ, params, spec, mode,
+                                   rows=rows) for mode in cf.MODES}
+    assert FLOOR_LAUNCHES == {"zero": 1, "pads": 1, "screen": 1}
+    assert LAUNCHES["contact"] == 1
+    tile = oc.band_plan(spec).rows if rows is None else rows
+    for mode, outs in kern.items():
+        plain = (contact_sweep(fields, occ, params, spec) if mode == "full"
+                 else cf.PLAIN[mode](fields, occ, params, spec, tile))
+        for a, b in zip(outs, plain):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), \
+                mode
+    return int((kern["screen"][0] != 0).sum())
+
+
+@pytest.mark.parametrize("rows", [None, 5])
+@pytest.mark.parametrize("k", oc.SLOT_COUNTS)
+def test_floor_modes_bitwise_at_each_k(cuda, k, rows):
+    """The floor modes at each K the kernel is built for, on a crowded ball
+    of cells (bands that hit), at the band plan's rows and at 5 rows (the
+    last band of a plane shorter)."""
+    state, params, spec = blob(n=2000, k=k, radius=14.0, spawn=16.0,
+                               device=cuda)
+    fields, occ, _, _ = cd._pack_args(state, spec)
+    assert spec.ny % 5
+    assert floor_exact(fields, occ, params, spec, rows) > 0
+
+
+def test_floor_modes_beside_an_empty_band(cuda):
+    """The floor modes on the settled colony (no band hits the screen) and
+    on the compressed one with a band emptied by hand beside occupied
+    ones."""
+    state, params, _, spec = colony(cuda, n=4000)
+    fields, occ, _, _ = cd._pack_args(state, spec)
+    assert floor_exact(fields, occ, params, spec) == 0
+    fields, occ = emptied_band(
+        *cd._pack_args(compressed(state, 0.7), spec)[:2], spec)
+    assert floor_exact(fields, occ, params, spec) > 0
 
 
 @pytest.mark.parametrize("kw", [

@@ -78,23 +78,18 @@ def main() -> int:
         return all(torch.equal(a.view(torch.int32), b.view(torch.int32))
                    for a, b in zip(kern, plain))
 
-    chosen = oc.band_plan
-    try:
-        for rows in (int(r) for r in args.rows.split(",")):
-            q = oc._plan(spec, rows)
-            if q.smem_bytes > oc.SMEM_LIMIT:
-                continue
-            oc.band_plan = lambda _spec, q=q: q
-            for name, (fields, occ, plain) in copies.items():
-                def run(f=fields, o=occ):
-                    return oc.contact_sweep(f, o, p, spec)
-                ok = exact(run(), plain)
-                t = [cuda_ms(run, 20) for _ in range(2)]
-                print(f"rows {rows} {name}: smem {q.smem_bytes} B, "
-                      f"{t[0]:.4f}/{t[1]:.4f} ms, bitwise {ok} | {card}",
-                      flush=True)
-    finally:
-        oc.band_plan = chosen
+    for rows in (int(r) for r in args.rows.split(",")):
+        q = oc._plan(spec, rows)
+        if q.smem_bytes > oc.SMEM_LIMIT:
+            continue
+        for name, (fields, occ, plain) in copies.items():
+            def run(f=fields, o=occ, rows=rows):
+                return oc.contact_sweep(f, o, p, spec, rows=rows)
+            ok = exact(run(), plain)
+            t = [cuda_ms(run, 20) for _ in range(2)]
+            print(f"rows {rows} {name}: smem {q.smem_bytes} B, "
+                  f"{t[0]:.4f}/{t[1]:.4f} ms, bitwise {ok} | {card}",
+                  flush=True)
 
     from torch.profiler import ProfilerActivity, profile
 
