@@ -35,16 +35,36 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
                bands; the pack's placement (K5) bitwise at 1M, at the
                expand probe's scene (n=400, k=4, spawn 10) and at a crowded
                scene whose cells overflow, with dead rows.
-7. colony main — 40 steps of the 1M colony through Simulation.step in
-               chunks of 20, counters reset just before: 40 contact and 40
-               expand launches, count conserved, overflow 0, bonds not
-               grown, positions finite.
+7. colony main — 40 steps of the 1M colony through
+               Simulation(scan_chunk=20).step, two chunks through
+               run_steps with the adhesion BondPlan carried (1,818,624 bond
+               rows, past use_bond_plan's threshold), counters reset just
+               before: 40 contact and 40 expand launches, the plan built
+               once and the quiet planned branch taken on all 40 steps,
+               count conserved, overflow 0, bonds not grown, positions
+               finite; then the same 40 steps with adhesion_plan "off",
+               held to the planned run after each chunk: bond table and
+               count bitwise, positions within rtol 1e-4 / atol
+               1e-5·max|x|, kinetic energy within rtol 1e-3, and each
+               field's largest difference against the verification lane's
+               tolerance printed; steps/s both ways.
 8. colony divisions — the reference scenario (tools/make_golden_trace.py
                parameters) on the dense kernel path for 1,000 steps: the
                population at every 50-step mark equals the golden trace's.
 9. colony phases — where the time of a 1M step goes (CUDA events per
                phase), the host synchronisations of one step, and the
-               device's busy share under torch.profiler.
+               device's busy share under torch.profiler; then the planned
+               adhesion: the plan build, the planned accumulate, a quiet
+               and a hybrid one (500 changed bonds, held to the plain sum),
+               a planned and a plain step by host clock, the host reads of
+               a quiet planned step, and the peak memory of each step and
+               each accumulate.
+9b. bond plan — the plan and the planned sums of a 4,096-cell colony
+               built on the card, bitwise those built on the CPU; then
+               tools/probe_bondplan.py's crossover sweep (10,000 to
+               320,000 cells): ms a step plain and planned (host clock),
+               and ms of each accumulate alone (CUDA events), with each
+               bond capacity.
 10. grid     — the sort+gather grid path, which launches no kernel (the
                launch counters stay 0 across it): config[0]
                (dam_break_2d, 4,096 particles) through make_sph_step, 2 ×
@@ -97,7 +117,7 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
                time by kernel, and the split of K4's device time into the
                empty launch, staging and pads, screen and pair terms.
 15. verify   — the hardware verification lane (utils/verify.py: JAX's
-               five twin checks that apply to the port) on the card.
+               seven twin checks) on the card.
 16. render   — FluidSimulation.render_frame (800×450) of the config[3]
                state: twice on the card bitwise, within atol 1e-4 of the
                port's render of the same state copied to the CPU, finite,
@@ -484,6 +504,7 @@ def main() -> int:
     colony_launches = colony_main(colony, card)
     colony_divisions(dev, card)
     colony_phases(colony, card)
+    bondplan_phase(dev, card)
 
     # 10-11. The grid path and the host services.
     grid_colony = grid_phase(dev, card)
@@ -699,27 +720,43 @@ def colony_kernels(dev, card) -> dict:
 
 
 def colony_main(colony, card) -> dict:
-    """Phase 6: 40 steps of the 1M colony through Simulation.step in
-    chunks of 20, launch counters reset just before."""
+    """Phase 6: 40 steps of the 1M colony through Simulation(scan_chunk=20)
+    — two chunks through run_steps, the adhesion plan carried (its bond
+    table is past use_bond_plan's threshold) — launch and plan counters
+    reset just before; then the same 40 steps with adhesion_plan "off",
+    held to the planned run after each chunk (held_to_plain)."""
     from sph_tpu_torch.engine.simulation import Simulation
     from sph_tpu_torch.ops import LAUNCHES, reset_launches
+    from sph_tpu_torch.physics import adhesion as adh
 
-    sim = Simulation(colony["genome"], colony["params"],
-                     device=colony["state"].device)
-    sim.state = colony["state"]
-    torch.cuda.synchronize()
-    reset_launches()
-    t0 = time.perf_counter()
-    for _ in range(COLONY_STEPS // COLONY_CHUNK):
-        sim.step(COLONY_CHUNK)
-    torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    launches = dict(LAUNCHES)
+    def run(params):
+        sim = Simulation(colony["genome"], params, scan_chunk=COLONY_CHUNK,
+                         device=colony["state"].device)
+        sim.state = colony["state"]
+        chunks = []
+        torch.cuda.synchronize()
+        reset_launches()
+        adh.reset_plan_counts()
+        t0 = time.perf_counter()
+        for _ in range(COLONY_STEPS // COLONY_CHUNK):
+            sim.step(COLONY_CHUNK)
+            chunks.append(sim.state)
+        torch.cuda.synchronize()
+        return (sim, COLONY_STEPS / (time.perf_counter() - t0),
+                dict(LAUNCHES), dict(adh.PLAN_COUNTS), chunks)
+
+    sim, sps, launches, plans, planned = run(colony["params"])
     m = sim.metrics()
     want = {"density": 0, "accel": 0, "rebin": 0,
             "contact": COLONY_STEPS, "expand": COLONY_STEPS}
     if launches != want:
         raise AssertionError(f"colony launches {launches} != {want}")
+    # The plan is built once and every step takes the quiet branch: a
+    # settled colony changes no bond.
+    want_plans = {"quiet": COLONY_STEPS, "hybrid": 0, "full": 0,
+                  "builds": 1}
+    if plans != want_plans:
+        raise AssertionError(f"colony plan path {plans} != {want_plans}")
     if m["active_particles"] != COLONY_N:
         raise AssertionError(f"colony count {m['active_particles']}")
     if m["overflow"] != 0:
@@ -729,14 +766,71 @@ def colony_main(colony, card) -> dict:
                              f"{colony['bonds']}")
     if not bool(torch.isfinite(sim.state.pos).all()):
         raise AssertionError("non-finite colony positions")
-    sps = COLONY_STEPS / elapsed
     say("colony main", f"{COLONY_N} cells, {COLONY_STEPS} steps in chunks "
-        f"of {COLONY_CHUNK}: {sps:.2f} steps/s, {sps * COLONY_N:.4g} "
-        f"cell-steps/s, bonds {colony['bonds']} -> {m['bond_count']}, "
-        f"overflow {m['overflow']}, max speed {m['max_speed']:.4f}, "
-        f"launches {launches} | {card}")
+        f"of {COLONY_CHUNK}, planned adhesion: {sps:.2f} steps/s, "
+        f"{sps * COLONY_N:.4g} cell-steps/s, bonds {colony['bonds']} -> "
+        f"{m['bond_count']}, overflow {m['overflow']}, max speed "
+        f"{m['max_speed']:.4f}, launches {launches}, plan {plans} | {card}")
+
+    _, sps_off, launches_off, plans_off, plain = run(
+        colony["params"].replace(adhesion_plan="off"))
+    if plans_off != {"quiet": 0, "hybrid": 0, "full": 0, "builds": 0}:
+        raise AssertionError(f"plan used with adhesion_plan off: {plans_off}")
+    say("colony main", f"the same {COLONY_STEPS} steps with adhesion_plan "
+        f"off: {sps_off:.2f} steps/s (planned {sps:.2f}), launches "
+        f"{launches_off} | {card}")
+    for k, (a, b) in enumerate(zip(plain, planned)):
+        held_to_plain(a, b, (k + 1) * COLONY_CHUNK)
     colony["sim"] = sim
     return {"contact": launches["contact"], "expand": launches["expand"]}
+
+
+# utils/verify.check_planned_adhesion's tolerances (rtol, atol).
+PLANNED_TOL = {"vel": (1e-4, 1e-5), "rot": (1e-4, 1e-4)}
+
+
+def kinetic_energy(st) -> float:
+    n = int(st.active_count)
+    v = st.vel[:n].double()
+    return float(0.5 * (st.mass[:n].double() * (v * v).sum(-1)).sum())
+
+
+def held_to_plain(a, b, steps: int) -> None:
+    """The planned run's state `b` against the plain run's `a` after
+    `steps` steps. Asserted: count and bond table bitwise, positions
+    within tests/test_torch_simulation.py's rtol 1e-4 / atol
+    1e-5·max|x|, kinetic energy within its rtol 1e-3. Printed: each float
+    field's largest difference and its ratio to the verification lane's
+    tolerance. The lane holds velocities and spins at n = 4,096; at the
+    1M colony (|x| up to ~300, where one position ulp is 3e-5) a
+    reassociated sum's rounding grows past that absolute tolerance within
+    a few steps, in velocities through the springs and in the spins
+    through the orientation constraint's rounding-noise axis."""
+    for f in ("active", "slot_a", "slot_b", "zone_a", "zone_b"):
+        if not torch.equal(getattr(a.bonds, f), getattr(b.bonds, f)):
+            raise AssertionError(f"planned vs plain: bonds.{f} differ")
+    if int(a.active_count) != int(b.active_count):
+        raise AssertionError("planned vs plain: counts differ")
+    n = int(a.active_count)
+    out = {}
+    for f in ("pos", "vel", "rot", "ang_vel"):
+        x, y = getattr(a, f)[:n], getattr(b, f)[:n]
+        rtol, atol = PLANNED_TOL.get(f, (1e-4, 1e-5 * float(x.abs().max())))
+        d = (x - y).abs()
+        ratio = torch.where(d > 0, d / (atol + rtol * x.abs()), 0.0)
+        out[f] = {"max_abs_diff": float(d.max()),
+                  "worst_ratio": float(ratio.max()),
+                  "rtol": rtol, "atol": atol}
+    ke = (kinetic_energy(a), kinetic_energy(b))
+    say("colony main", f"planned vs plain after {steps} steps: bond table "
+        f"and count bitwise; kinetic energy {ke[1]:.6g} vs {ke[0]:.6g}; "
+        f"{json.dumps(out)}")
+    if out["pos"]["worst_ratio"] > 1:
+        raise AssertionError(f"planned vs plain positions after {steps} "
+                             f"steps: {out['pos']}")
+    if abs(ke[1] - ke[0]) > 1e-3 * abs(ke[0]):
+        raise AssertionError(f"planned vs plain kinetic energy after "
+                             f"{steps} steps: {ke}")
 
 
 def colony_divisions(dev, card) -> None:
@@ -779,8 +873,6 @@ def colony_divisions(dev, card) -> None:
 def colony_phases(colony, card) -> None:
     """Phase 8: CUDA-event times of each phase of a 1M step, the host
     synchronisations of one step, and the profiler's busy share."""
-    import warnings
-
     from sph_tpu_torch.biology import bonds, division
     from sph_tpu_torch.engine.step import step
     from sph_tpu_torch.ops.contact import contact_sweep
@@ -836,15 +928,7 @@ def colony_phases(colony, card) -> None:
     step_ms = (time.perf_counter() - t0) / 5 * 1e3
     say("colony phases", f"sum of phases {total:.4f} ms; one step (host "
         f"clock, 5 steps) {step_ms:.4f} ms | {card}")
-    torch.cuda.set_sync_debug_mode("warn")
-    try:
-        with warnings.catch_warnings(record=True) as caught:
-            warnings.simplefilter("always")
-            st = step(st, p, g)
-    finally:
-        torch.cuda.set_sync_debug_mode("default")
-    syncs = [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
-             if "synchroniz" in str(w.message)]
+    syncs = host_syncs(lambda: step(st, p, g))
     say("colony phases", f"host synchronisations in one quiet step: "
         f"{len(syncs)} at {syncs}")
 
@@ -853,6 +937,197 @@ def colony_phases(colony, card) -> None:
             s = step(s, p, g)
 
     say("colony phases", f"profiled 5 steps: {device_busy(five_steps, card)}")
+    planned_phases(st, p, g, adh_deltas, adh_segs, card)
+
+
+def host_syncs(fn) -> list:
+    """The host synchronisations fn() makes, as file:line."""
+    import warnings
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return [f"{os.path.basename(w.filename)}:{w.lineno}" for w in caught
+            if "synchroniz" in str(w.message)]
+
+
+def peak_mb(fn) -> float:
+    """Peak device memory allocated while fn() runs, in MB."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 1e6
+
+
+def drifted(bonds, n_rows: int, n: int, seed: int = 0):
+    """The bond table with `n` active bonds' A endpoint moved to another
+    slot: a stale plan's changed bonds, as a division leaves them."""
+    gen = torch.Generator(device=bonds.slot_a.device).manual_seed(seed)
+    live = torch.nonzero(bonds.active)[:, 0]
+    pick = live[torch.randperm(live.numel(), generator=gen,
+                               device=live.device)[:n]]
+    slot_a = bonds.slot_a.clone()
+    slot_a[pick] = torch.randint(0, n_rows, (n,), generator=gen,
+                                 device=live.device, dtype=slot_a.dtype)
+    return bonds.replace_fields(slot_a=slot_a)
+
+
+def planned_phases(st, p, g, deltas, segs, card) -> None:
+    """The planned adhesion accumulate at the 1M colony: the plan build,
+    the quiet planned accumulate, a hybrid one with 500 changed bonds (held
+    to the plain sum of the drifted table), a planned step by host clock
+    against a plain one, the host reads of a quiet planned step, and peak
+    memory of each step."""
+    from sph_tpu_torch.engine.step import run_steps, step
+    from sph_tpu_torch.physics import adhesion as adh
+
+    N = st.capacity
+    plan = adh.build_bond_plan(st.bonds, N)
+    moved = drifted(st.bonds, N, 500)
+    n_changed = int(adh.plan_changed_count(moved, plan))
+    seg_a, seg_b = adh._segments(moved, N)
+    adh.reset_plan_counts()
+    got = adh.accumulate_bond_deltas_hybrid(*deltas, moved, N, plan)
+    if adh.PLAN_COUNTS["hybrid"] != 1:
+        raise AssertionError(f"hybrid branch not taken: {adh.PLAN_COUNTS}")
+    want = adh.accumulate_bond_deltas(*deltas, seg_a, seg_b, N)
+    for x, y, name in zip(got, want, ("dv", "dq")):
+        np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(),
+                                   rtol=2e-5, atol=1e-6,
+                                   err_msg=f"hybrid accumulate {name}")
+    phases = {
+        "plan build (stable sort of the 2B endpoint rows, run ends)":
+            lambda: adh.build_bond_plan(st.bonds, N),
+        "planned accumulate (row gather, segmented scan, run totals)":
+            lambda: adh.accumulate_bond_deltas_planned(*deltas, plan),
+        "quiet hybrid accumulate (the changed count read, then planned)":
+            lambda: adh.accumulate_bond_deltas_hybrid(*deltas, st.bonds, N,
+                                                      plan),
+        f"hybrid accumulate, {n_changed} changed bonds (side table of "
+        f"{adh._SIDE_CAP})":
+            lambda: adh.accumulate_bond_deltas_hybrid(*deltas, moved, N,
+                                                      plan),
+        "plain accumulate (sorted segment sum), for comparison":
+            lambda: adh.accumulate_bond_deltas(*deltas, *segs, N),
+    }
+    for name, fn in phases.items():
+        say("colony phases", f"{name}: {cuda_ms(fn, 5):.4f} ms")
+
+    def planned_step():
+        return run_steps(st, p, g, 1, bond_plan=plan)
+
+    def plain_step():
+        return step(st, p, g)
+
+    for name, fn in (("planned", planned_step), ("plain", plain_step)):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+        say("colony phases", f"one {name} step (host clock, 5 "
+            f"steps from the same state) "
+            f"{(time.perf_counter() - t0) / 5 * 1e3:.4f} ms")
+    syncs = host_syncs(planned_step)
+    say("colony phases", f"host synchronisations in one quiet planned step "
+        f"(run_steps with the plan): {len(syncs)} at {syncs}")
+    base = torch.cuda.memory_allocated() / 1e6
+    plan_mb = sum(t.numel() * t.element_size()
+                  for t in vars(plan).values()) / 1e6
+    peaks = [peak_mb(fn) for fn in (
+        planned_step, plain_step,
+        lambda: adh.accumulate_bond_deltas_planned(*deltas, plan),
+        lambda: adh.accumulate_bond_deltas(*deltas, *segs, N))]
+    say("colony phases", f"peak device memory: one step planned "
+        f"{peaks[0]:.1f} MB, plain {peaks[1]:.1f} MB; the accumulate alone "
+        f"planned {peaks[2]:.1f} MB, plain {peaks[3]:.1f} MB ({base:.1f} MB "
+        f"allocated before each; the plan {plan_mb:.1f} MB) | {card}")
+
+
+# tools/probe_bondplan.py's colony sizes up to 320,000 cells, each
+# settled colony stepped SWEEP_STEPS steps a call through run_steps.
+SWEEP_SIZES = (10_000, 20_000, 40_000, 80_000, 102_400, 160_000, 320_000)
+SWEEP_STEPS, SWEEP_ROUNDS = 10, 5
+PLAN_CHECK_N = 4096
+
+
+def bondplan_phase(dev, card) -> list:
+    """The planned adhesion's crossover on the card: ms a step of the
+    plain and the planned path (run_steps, the plan built once a call, as
+    tools/probe_bondplan.py times it) at each size with its bond capacity;
+    and on a 4,096-cell colony the plan and the planned sums built on the
+    card bitwise to those built on the CPU."""
+    import dataclasses as dc
+
+    from sph_tpu_torch.engine.colony import bonded_colony
+    from sph_tpu_torch.engine.step import run_steps, use_bond_plan
+    from sph_tpu_torch.physics import adhesion as adh
+
+    st, p, g = bonded_colony(PLAN_CHECK_N, device="cpu", **COLONY_KW)
+    cpu_plan = adh.build_bond_plan(st.bonds, st.capacity)
+    cuda_plan = adh.build_bond_plan(
+        st.bonds.replace_fields(**{f.name: getattr(st.bonds, f.name).to(dev)
+                                   for f in dc.fields(st.bonds)}),
+        st.capacity)
+    for f in dc.fields(cpu_plan):
+        if not torch.equal(getattr(cuda_plan, f.name).cpu(),
+                           getattr(cpu_plan, f.name)):
+            raise AssertionError(f"bond plan {f.name}: card != CPU")
+    args, _ = adh.bond_inputs(st, p, g.to_device("cpu"))
+    deltas = adh.bond_pair_deltas(*args)
+    want = adh.accumulate_bond_deltas_planned(*deltas, cpu_plan)
+    got = adh.accumulate_bond_deltas_planned(
+        *[d.to(dev) for d in deltas], cuda_plan)
+    for x, y, name in zip(got, want, ("dv", "dq")):
+        if not torch.equal(x.cpu().view(torch.int32),
+                           y.view(torch.int32)):
+            raise AssertionError(f"planned {name}: card != CPU")
+    say("bond plan", f"{PLAN_CHECK_N}-cell colony: the plan "
+        f"({cpu_plan.perm.numel()} sorted rows) and the planned sums built "
+        f"on the card are bitwise those built on the CPU")
+
+    rows = []
+    for n in SWEEP_SIZES:
+        st, p, g = bonded_colony(n, device=dev, **COLONY_KW)
+        gd = g.to_device(dev)
+        row = {"n": n, "bonds": int(st.bonds.active.sum()),
+               "bond_capacity": st.bonds.capacity,
+               "auto_plans": use_bond_plan(p, st)}
+        for mode in ("off", "on"):
+            pm = p.replace(adhesion_plan=mode)
+            run_steps(st, pm, gd, SWEEP_STEPS)          # warm-up
+            best = float("inf")
+            for _ in range(SWEEP_ROUNDS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run_steps(st, pm, gd, SWEEP_STEPS)
+                torch.cuda.synchronize()
+                best = min(best, (time.perf_counter() - t0) / SWEEP_STEPS
+                           * 1e3)
+            row["ms_plain" if mode == "off" else "ms_plan"] = best
+        row["plan_wins"] = row["ms_plan"] < row["ms_plain"]
+        args, segs = adh.bond_inputs(st, p, gd)
+        deltas = adh.bond_pair_deltas(*args)
+        plan = adh.build_bond_plan(st.bonds, st.capacity)
+        row["accumulate_ms_plain"] = cuda_ms(
+            lambda: adh.accumulate_bond_deltas(*deltas, *segs, st.capacity),
+            10)
+        row["accumulate_ms_plan"] = cuda_ms(
+            lambda: adh.accumulate_bond_deltas_planned(*deltas, plan), 10)
+        say("bond plan", json.dumps(row))
+        rows.append(row)
+    say("bond plan", f"crossover: ms a step (best of {SWEEP_ROUNDS} runs of "
+        f"{SWEEP_STEPS} steps, host clock ending in a synchronise, the plan "
+        f"built once a run), ms of an accumulate (CUDA events, 10 calls) "
+        f"| {card}")
+    return rows
 
 
 # -- the grid path and the host services -----------------------------------
@@ -1808,7 +2083,7 @@ def floor_phase(colony, dev, card) -> list:
 
 def verify_phase(card) -> None:
     """Phase 15: the hardware verification lane (utils/verify.py, JAX's
-    five twin checks that apply) on the card; any failure fails the run."""
+    seven twin checks) on the card; any failure fails the run."""
     from sph_tpu_torch.utils.verify import run_all
 
     t0 = time.perf_counter()

@@ -15,8 +15,8 @@ through the library API (Simulation.pick / set_drag — the reference's mouse
 drag, ParticleSystemController.cs:975-1034).
 
 `view --substeps n` is the n of the one `Simulation.step(n)` each frame
-makes: a host loop of n steps, where the JAX package scans them in one
-dispatch (its `scan_chunk`).
+makes, and the sim's `scan_chunk`, as in the JAX package: one run_steps
+chunk a frame.
 """
 
 from __future__ import annotations
@@ -121,7 +121,7 @@ def cmd_view(args) -> int:
             dt=args.dt, max_splits_per_step=16,
         )
     sim = Simulation(genome, params, auto_grow=args.auto_grow,
-                     device=args.device)
+                     scan_chunk=args.substeps, device=args.device)
     watcher = None
     if args.watch:
         from sph_tpu_torch.engine.config import watch_scene

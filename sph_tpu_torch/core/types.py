@@ -218,9 +218,10 @@ class SimParams:
     resident: bool = False
     contact_epsilon: float = 0.001
     slip_epsilon: float = 1e-4
-    # The JAX package's planned accumulate switch; the port always takes
-    # its sorted segmented reduce (physics/adhesion.py), so it reads this
-    # field nowhere.
+    # Adhesion accumulate: "auto" = the planned accumulate for bond tables
+    # of 163,840 rows or more (engine/step.use_bond_plan), "on" / "off"
+    # force it. The planned sum differs from the plain one only by its
+    # scan tree's reassociation.
     adhesion_plan: str = "auto"
 
     def replace(self, **kw) -> "SimParams":

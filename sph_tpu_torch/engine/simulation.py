@@ -3,7 +3,8 @@ sph_tpu.engine.simulation.Simulation (single device): init (Start,
 cs:211-242), stepping, capacity growth (ResizeParticleBuffers,
 cs:1162-1222), genome hot-reload (OnGenomeChanged, cs:357-367), interactive
 drag (cs:975-1034), ids, bond visuals, metrics and checkpoints, on one
-device or with the contact sweep sharded over a mesh of ranks.
+device or with the contact sweep sharded over a mesh of ranks. Steps run
+in chunks of `scan_chunk`, which carry the adhesion BondPlan across calls.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ import torch
 from sph_tpu_torch.core import quat
 from sph_tpu_torch.core.init import init_particles
 from sph_tpu_torch.core.types import Genome, SimParams, SimState, formatted_id
-from sph_tpu_torch.engine.step import step
+from sph_tpu_torch.engine.step import run_steps, step, use_bond_plan
+from sph_tpu_torch.physics.adhesion import build_bond_plan
 
 # SimState fields that a resize carries over whole: the tables whose
 # capacities do not change, the counters and the PRNG key. Every other
@@ -36,10 +38,17 @@ class Simulation:
 
     def __init__(self, genome: Genome, params: SimParams, seed: int = 0,
                  rng_mode: str = "jax", auto_grow: bool = False,
-                 device="cuda", mesh=None):
+                 donate: bool = True, scan_chunk: int = 64, device="cuda",
+                 mesh=None):
         """A fresh population from init_particles; to start from another
         state (a bonded colony, a state carried across from the JAX
         package), assign `sim.state` a SimState on `sim.device`.
+
+        scan_chunk: `step` runs full chunks of this many steps through
+        engine.step.run_steps, which carries the adhesion BondPlan where
+        use_bond_plan says so (the JAX package scans such a chunk in one
+        dispatch). donate: JAX's buffer donation, taken for the signature's
+        sake; it has no effect here.
 
         mesh: a parallel.dist.Mesh (1D ring or 2D): every rank of it runs
         the simulation alike on the mesh's device, with the contact sweep
@@ -47,11 +56,13 @@ class Simulation:
         bonds and integration stay replicated, and every rank holds
         bitwise the single-device state after every step."""
         self._setup(genome.validate_for_simulation(), params, seed, rng_mode,
-                    auto_grow, device, mesh=mesh)
+                    auto_grow, device, mesh=mesh, donate=donate,
+                    scan_chunk=scan_chunk)
 
     def _setup(self, genome: Genome, params: SimParams, seed: int,
                rng_mode: str, auto_grow: bool, device,
-               state: SimState | None = None, mesh=None) -> None:
+               state: SimState | None = None, mesh=None,
+               donate: bool = True, scan_chunk: int = 64) -> None:
         """Every attribute of a sim, for __init__ and load: a fresh
         population unless `state` is given."""
         self.genome = genome
@@ -59,6 +70,10 @@ class Simulation:
         self.seed = seed
         self.rng_mode = rng_mode
         self.auto_grow = auto_grow
+        self.donate = donate
+        self.scan_chunk = max(1, scan_chunk)
+        self._bond_plan = None
+        self._bond_plan_cap = None
         self.mesh = mesh
         self.contact_fn = self._make_contact_fn(mesh)
         self.device = torch.device(device if mesh is None else mesh.device)
@@ -95,24 +110,60 @@ class Simulation:
 
     # -- stepping ------------------------------------------------------------
 
+    def _plan_for_state(self):
+        """The adhesion BondPlan carried across chunks, or None where
+        use_bond_plan says no. A stale plan is valid (the hybrid finds the
+        drifted bonds every step, and run_steps rebuilds it), so it is
+        rebuilt here only when its key — (capacity, bond capacity) —
+        changes, as after a resize."""
+        if not use_bond_plan(self.params, self.state):
+            return None
+        cap = (self.state.capacity, self.state.bonds.capacity)
+        if self._bond_plan is None or self._bond_plan_cap != cap:
+            self._bond_plan = build_bond_plan(self.state.bonds,
+                                              self.state.capacity)
+            self._bond_plan_cap = cap
+        return self._bond_plan
+
     def step(self, n: int = 1, dt=None) -> None:
         """Advance n physics steps. dt: a scalar for all n steps or a
-        length-n sequence (variable-dt compat, cs:246); None = params.dt.
+        length-n sequence (variable-dt compat, cs:246), stepped one at a
+        time with no plan; None = params.dt.
 
-        Under auto_grow the grow check runs before every step (one host
-        read each). The JAX package checks between its scan chunks, but it
-        scans only where the headroom covers the whole chunk, so the
-        condition cannot come true inside one: it grows at the same
+        Otherwise full chunks of `scan_chunk` steps go through run_steps
+        with the carried plan, and what is left takes single steps with no
+        plan. Under auto_grow the grow check runs before each chunk or
+        single step, and a chunk is taken only where the headroom covers
+        its splits (otherwise single steps), so the population cannot
+        outgrow the capacity inside one: it grows at the JAX package's
         steps."""
-        dts = None
         if dt is not None:
             dts = np.broadcast_to(np.asarray(dt, np.float32), (n,))
-        for i in range(n):
+            for d in dts:
+                if self.auto_grow:
+                    self._maybe_grow()
+                self.state = step(self.state, self.params, self.genome_dev,
+                                  dt=float(d), contact_fn=self.contact_fn)
+            return
+        remaining = n
+        while remaining > 0:
+            safe = remaining
             if self.auto_grow:
                 self._maybe_grow()
-            self.state = step(self.state, self.params, self.genome_dev,
-                              dt=None if dts is None else float(dts[i]),
-                              contact_fn=self.contact_fn)
+                headroom = self.state.capacity - int(self.state.active_count)
+                safe = max(1, headroom
+                           // max(1, self.params.max_splits_per_step))
+            c = (self.scan_chunk if remaining >= self.scan_chunk
+                 and safe >= self.scan_chunk else 1)
+            if c == 1:
+                self.state = step(self.state, self.params, self.genome_dev,
+                                  contact_fn=self.contact_fn)
+            else:
+                self.state, self._bond_plan = run_steps(
+                    self.state, self.params, self.genome_dev, c,
+                    contact_fn=self.contact_fn,
+                    bond_plan=self._plan_for_state(), return_plan=True)
+            remaining -= c
 
     def run(self, n_steps: int) -> float:
         """Run n steps; returns physics steps per second (host clock
@@ -141,7 +192,8 @@ class Simulation:
         (ResizeParticleBuffers, cs:1162-1222): a fresh population at the
         new capacity with the old rows copied over; the bond table, the
         pending splits, the drag input, the counters and the PRNG key carry
-        over unchanged."""
+        over unchanged. The carried bond plan is rebuilt at the next chunk
+        (its key holds the capacity)."""
         if new_capacity <= self.state.capacity:
             return
         old = self.state
@@ -159,7 +211,9 @@ class Simulation:
 
     def on_genome_changed(self, genome: Genome) -> None:
         """Hot-reload hook: re-initialise the particles under the new genome
-        at the current capacity (cs:357-367)."""
+        at the current capacity (cs:357-367). The carried bond plan stays,
+        as in the JAX package: the capacities are unchanged, and a stale
+        plan is valid."""
         self.genome = genome.validate_for_simulation()
         self.genome_dev = self.genome.to_device(self.device)
         self.state = self._fresh(self.state.capacity)

@@ -5,9 +5,9 @@ order of DESIGN.md §3, and `run_steps` as a host loop.
 
 Eager PyTorch has no `lax.cond`: each gate of the JAX step (pending
 splits, ready cells, young bonds, dirty bonds) is a host read of its
-predicate, and the adhesion sum reads its longest segment — five reads a
-quiet step (PERF.md). The JAX package's bond plan (its scatter-free TPU
-accumulate) is not ported.
+predicate. The plain adhesion sum also reads its longest segment: five
+reads a quiet step. The planned one reads its changed-bond count instead,
+and `run_steps` its rebuild count: six (PERF.md).
 """
 
 from __future__ import annotations
@@ -20,7 +20,13 @@ from sph_tpu_torch.biology.division import (
     queue_splits,
 )
 from sph_tpu_torch.core.types import GenomeDevice, SimParams, SimState
-from sph_tpu_torch.physics.adhesion import apply_adhesion
+from sph_tpu_torch.physics import adhesion
+from sph_tpu_torch.physics.adhesion import (
+    BondPlan,
+    apply_adhesion,
+    build_bond_plan,
+    plan_changed_count,
+)
 from sph_tpu_torch.physics.contact import (
     apply_contact,
     contact_forces_bruteforce,
@@ -48,7 +54,8 @@ def contact_forces(state: SimState, params: SimParams):
 
 
 def step(state: SimState, params: SimParams, genome: GenomeDevice,
-         dt=None, contact_fn=None) -> SimState:
+         dt=None, contact_fn=None,
+         bond_plan: BondPlan | None = None) -> SimState:
     """One full frame (DESIGN.md §3). `dt` overrides params.dt for every
     dt-dependent pass (the variable-dt compat mode, cs:246).
 
@@ -56,7 +63,14 @@ def step(state: SimState, params: SimParams, genome: GenomeDevice,
     the neighbour-sum dispatch: the hook through which a Simulation on a
     mesh runs the contact sweep decomposed over its ranks
     (parallel.dist.make_sharded_contact_forces[_2d]) while division, bonds
-    and integration stay replicated; the result is bitwise the same."""
+    and integration stay replicated; the result is bitwise the same.
+
+    `bond_plan` (optional, physics.adhesion.BondPlan): the adhesion sum
+    then takes the planned accumulate. The plan may be STALE: bonds that
+    drifted from its snapshot (division's endpoint rewrites, new bonds)
+    are found every step and summed through the hybrid's side table
+    (adhesion.accumulate_bond_deltas_hybrid), so it is valid on every
+    step, division steps included."""
     # 1-2. Division: apply last step's queued splits, then advance timers
     #      and queue new ones (cs:253 runs before all dispatches).
     state = process_pending_splits(state, params, genome)
@@ -71,7 +85,7 @@ def step(state: SimState, params: SimParams, genome: GenomeDevice,
     state = state.replace_fields(overflow=state.overflow + cell_overflow)
 
     # 5. Adhesion constraints — reads post-contact velocities.
-    state = apply_adhesion(state, params, genome, dt=dt)
+    state = apply_adhesion(state, params, genome, dt=dt, plan=bond_plan)
 
     # 6. Interactive drag impulse.
     state = apply_drag_force(state, params, dt=dt)
@@ -105,12 +119,40 @@ def _step_closure(params: SimParams):
     return lambda st, gd: step(st, params, gd)
 
 
+def use_bond_plan(params: SimParams, state: SimState) -> bool:
+    """Whether run_steps carries a BondPlan: params.adhesion_plan "on" or
+    "off", or under "auto" a bond table of 163,840 rows or more — the JAX
+    package's threshold, kept so that the same params take the same path
+    in both packages (the card's own crossover is in PERF.md)."""
+    if params.adhesion_plan == "off":
+        return False
+    if params.adhesion_plan == "on":
+        return True
+    return state.bonds.capacity >= 163840
+
+
 def run_steps(state: SimState, params: SimParams, genome: GenomeDevice,
-              n_steps: int, dts=None, contact_fn=None) -> SimState:
+              n_steps: int, dts=None, contact_fn=None,
+              bond_plan: BondPlan | None = None, return_plan: bool = False):
     """n physics steps as a host loop; `dts` optionally gives each step's
-    dt (variable-dt compat, cs:246); `contact_fn` as in `step`."""
+    dt (variable-dt compat, cs:246); `contact_fn` as in `step`.
+
+    Where use_bond_plan says so, every step takes the planned adhesion
+    accumulate through one BondPlan — `bond_plan`, or one built from the
+    first state — rebuilt after a step that leaves more than half the
+    hybrid's side table of bonds drifted from its snapshot.
+    `return_plan`: return (state, plan) so that a caller stepping in
+    chunks (Simulation) carries the plan on; the plan is None where no plan
+    is used."""
+    plan = None
+    if use_bond_plan(params, state):
+        plan = (bond_plan if bond_plan is not None
+                else build_bond_plan(state.bonds, state.capacity))
     for i in range(n_steps):
         state = step(state, params, genome,
                      dt=None if dts is None else float(dts[i]),
-                     contact_fn=contact_fn)
-    return state
+                     contact_fn=contact_fn, bond_plan=plan)
+        if plan is not None and (int(plan_changed_count(state.bonds, plan))
+                                 > adhesion._SIDE_CAP // 2):
+            plan = build_bond_plan(state.bonds, state.capacity)
+    return (state, plan) if return_plan else state

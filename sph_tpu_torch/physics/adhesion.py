@@ -1,14 +1,22 @@
 """Adhesion constraints: spring, anchor swing and relative orientation —
 the counterpart of sph_tpu.physics.adhesion (ApplyAdhesionConstraints /
-ApplyAdhesionDeltas, SimulateParticles.compute:424-607), plain path only.
+ApplyAdhesionDeltas, SimulateParticles.compute:424-607).
 
 Per-bond deltas come from one snapshot and are summed per particle in a
-FIXED order: a stable sort of the 2B endpoint rows by particle, then a
-sequential left-to-right sum within each particle's run — the order the
-JAX package's segment_sum adds them in on the CPU. No atomics, so the sum
-is the same on every run (DESIGN.md §1, §8). The JAX package's BondPlan
-(its scatter-free TPU accumulate) is not ported; it differs from this sum
-only by reassociation.
+FIXED order, with no atomics, so the sum is the same on every run
+(DESIGN.md §1, §8). Two accumulates, as in the JAX package:
+
+- the plain one (`accumulate_bond_deltas`): a stable sort of the 2B
+  endpoint rows by particle, then a sequential left-to-right sum within
+  each particle's run — the order the JAX package's segment_sum adds them
+  in on the CPU;
+- the planned one (`BondPlan`, `accumulate_bond_deltas_planned` and
+  `_hybrid`): the sort is frozen per bond topology, and each step is one
+  row gather, a segmented Hillis-Steele scan of pads, adds and selects in
+  JAX's tree, and one gather of each particle's run total. It differs from
+  the plain sum only by reassociation, and equals JAX's planned sum bit
+  for bit. Bonds that changed since the plan's snapshot ride a small side
+  table (the hybrid), so a stale plan is valid on every step.
 
 Replicated quirks (DESIGN.md §4): spring parameters come from genome mode
 `uid_A % n_modes` (CellAdhesionManager.cs:537); anchor stiffness =
@@ -19,10 +27,16 @@ is gated on the anchor constraint's enable flag (compute:457-583).
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from sph_tpu_torch.core import quat
 from sph_tpu_torch.core.quat import cross, dot, norm
-from sph_tpu_torch.core.types import GenomeDevice, SimParams, SimState
+from sph_tpu_torch.core.types import (
+    GenomeDevice,
+    SimParams,
+    SimState,
+    state_dataclass,
+)
 from sph_tpu_torch.physics.contact import alive_mask
 
 
@@ -147,6 +161,213 @@ def accumulate_bond_deltas(dv_a, dq_a, dv_b, dq_b, seg_a, seg_b, n_rows):
     return acc[:, :3], acc[:, 3:]
 
 
+# -- the planned accumulate -------------------------------------------------
+#
+# The endpoint rows are permuted into particle order ONCE per bond-table
+# change; each step is then one row gather, a segmented scan and one gather
+# of the run totals. A plan with stale validity stays correct:
+# bond_pair_deltas zeroes every component of an invalid bond, so a bond
+# pruned after the plan was built adds exact zeros to its stale run. Slot
+# rewrites and new bonds (only process_pending_splits makes them) ride the
+# hybrid's side table.
+
+_SEG_W = 512
+
+# Capacity of the hybrid's side table: bonds whose endpoints changed since
+# the plan's snapshot are summed there with one small segmented sum. A
+# division step touches at most max_splits × (a parent's bond count) bonds;
+# past this the step takes the plain accumulate of the whole table.
+_SIDE_CAP = 2048
+
+# How often each branch of the hybrid accumulate ran, and how often a plan
+# was built, on any device: the count a run reads to show which path it
+# took (reset_plan_counts sets them to 0).
+PLAN_COUNTS = {"quiet": 0, "hybrid": 0, "full": 0, "builds": 0}
+
+
+def reset_plan_counts() -> None:
+    for name in PLAN_COUNTS:
+        PLAN_COUNTS[name] = 0
+
+
+@state_dataclass
+class BondPlan:
+    """Frozen accumulation order for one bond-table topology.
+
+    perm [Mp] (int64): the endpoint-row order sorted by particle id (Mp =
+    2B padded to a multiple of _SEG_W; padding and invalid rows sort into
+    the drop run). flags [Mp] bool: run starts in sorted order. last [n]
+    (int64) / has [n] bool: per particle, the sorted row holding its run
+    total (clipped to [0, Mp); has masks particles with no bonds). The
+    JAX package keeps perm and last as int32: the values are the same.
+
+    snap_a / snap_b / snap_active [B]: the bond table the plan was built
+    from. A bond whose endpoints and activation still match it accumulates
+    through the frozen order; one that changed is zeroed there and summed
+    through the hybrid's side table."""
+
+    perm: torch.Tensor
+    flags: torch.Tensor
+    last: torch.Tensor
+    has: torch.Tensor
+    snap_a: torch.Tensor
+    snap_b: torch.Tensor
+    snap_active: torch.Tensor
+
+
+def _valid(bonds) -> torch.Tensor:
+    return bonds.active & (bonds.slot_a >= 0) & (bonds.slot_b >= 0)
+
+
+def _segments(bonds, n_rows: int):
+    """(seg_a, seg_b): each bond's endpoint slots clipped to the rows, and
+    n_rows (the drop bucket) for an invalid bond."""
+    valid = _valid(bonds)
+    drop = torch.full_like(bonds.slot_a, n_rows)
+    return (torch.where(valid, torch.clamp(bonds.slot_a, 0, n_rows - 1),
+                        drop),
+            torch.where(valid, torch.clamp(bonds.slot_b, 0, n_rows - 1),
+                        drop))
+
+
+def build_bond_plan(bonds, n_rows: int) -> BondPlan:
+    """A stable sort of the 2B endpoint rows by particle id: a particle's
+    A-side rows stay before its B-side rows, each in bond order — the
+    relative order segment_sum adds them in."""
+    PLAN_COUNTS["builds"] += 1
+    B = bonds.capacity
+    M = 2 * B
+    Mp = -(-M // _SEG_W) * _SEG_W
+    dev = bonds.active.device
+    seg_a, seg_b = _segments(bonds, n_rows)
+    seg = torch.cat([seg_a, seg_b, torch.full((Mp - M,), n_rows,
+                                               dtype=seg_a.dtype,
+                                               device=dev)])
+    seg_s, perm = torch.sort(seg, stable=True)
+    step = seg_s[1:] != seg_s[:-1]
+    one = torch.ones(1, dtype=torch.bool, device=dev)
+    flags = torch.cat([one, step])
+    is_last = torch.cat([step, one])
+    # Only the drop run's rows share a target: n_rows, sliced off.
+    tgt = torch.where(is_last & (seg_s < n_rows), seg_s, n_rows).long()
+    last = torch.full((n_rows + 1,), -1, dtype=torch.int64, device=dev)
+    last[tgt] = torch.arange(Mp, device=dev)
+    last = last[:n_rows]
+    return BondPlan(perm=perm, flags=flags,
+                    last=torch.clamp(last, 0, Mp - 1), has=last >= 0,
+                    snap_a=bonds.slot_a, snap_b=bonds.slot_b,
+                    snap_active=bonds.active)
+
+
+def plan_changed(bonds, plan: BondPlan) -> torch.Tensor:
+    """Per bond: does this ACTIVE bond differ from the plan's snapshot?
+    (A deactivated bond needs nothing: its deltas are exact zeros.)"""
+    return bonds.active & ((bonds.slot_a != plan.snap_a)
+                           | (bonds.slot_b != plan.snap_b)
+                           | ~plan.snap_active)
+
+
+def plan_changed_count(bonds, plan: BondPlan) -> torch.Tensor:
+    """How many active bonds drifted from the plan's snapshot (an int32
+    scalar tensor): the rebuild trigger of engine.step.run_steps."""
+    return plan_changed(bonds, plan).sum(dtype=torch.int32)
+
+
+def _blocked_segscan(rs: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
+    """Inclusive SEGMENTED prefix sum over [Mp, F] rows with run-start
+    flags: a two-level Hillis-Steele of pads, slices, adds and selects in
+    the JAX package's order, so its sum tree is JAX's. The identity is
+    (flag False, value 0)."""
+    M, C = rs.shape
+    W = _SEG_W
+    Mb = M // W
+    v = rs.reshape(Mb, W, C)
+    f = flags.reshape(Mb, W)
+    d = 1
+    while d < W:
+        vs = F.pad(v, (0, 0, d, 0))[:, :W]
+        fs = F.pad(f, (d, 0), value=False)[:, :W]
+        v = torch.where(f[..., None], v, v + vs)
+        f = f | fs
+        d *= 2
+    bt_v, bt_f = v[:, -1], f[:, -1]
+    d = 1
+    while d < Mb:
+        vs = F.pad(bt_v, (0, 0, d, 0))[:Mb]
+        fs = F.pad(bt_f, (d, 0), value=False)[:Mb]
+        bt_v = torch.where(bt_f[:, None], bt_v, bt_v + vs)
+        bt_f = bt_f | fs
+        d *= 2
+    pre_v = F.pad(bt_v, (0, 0, 1, 0))[:Mb]
+    # Rows before their block's first run start continue the open run.
+    v = torch.where(f[..., None], v, v + pre_v[:, None, :])
+    return v.reshape(M, C)
+
+
+def accumulate_bond_deltas_planned(dv_a, dq_a, dv_b, dq_b, plan: BondPlan,
+                                   zero_bond=None):
+    """The planned counterpart of accumulate_bond_deltas: the same [2B, 7]
+    row stream through the plan's frozen order and the segmented scan.
+
+    zero_bond [B] (optional): bonds whose rows are zeroed in the frozen
+    stream (they changed since the snapshot and are summed through the
+    side table instead)."""
+    if zero_bond is not None:
+        z = zero_bond[:, None]
+        dv_a = torch.where(z, 0.0, dv_a)
+        dq_a = torch.where(z, 0.0, dq_a)
+        dv_b = torch.where(z, 0.0, dv_b)
+        dq_b = torch.where(z, 0.0, dq_b)
+    rows = torch.cat([torch.cat([dv_a, dq_a], dim=1),
+                      torch.cat([dv_b, dq_b], dim=1)])
+    Mp = plan.perm.shape[0]
+    rows = F.pad(rows, (0, 0, 0, Mp - rows.shape[0]))
+    cs = _blocked_segscan(rows[plan.perm], plan.flags)
+    acc = torch.where(plan.has[:, None], cs[plan.last], 0.0)
+    return acc[:, :3], acc[:, 3:]
+
+
+def accumulate_bond_deltas_hybrid(dv_a, dq_a, dv_b, dq_b, bonds,
+                                  n_rows: int, plan: BondPlan):
+    """The planned accumulate under a plan that may be STALE, in the JAX
+    package's three branches, chosen by one host read of the changed
+    count:
+
+    - quiet (no bond changed): the planned accumulate alone;
+    - hybrid (1 to _SIDE_CAP changed): the changed bonds are zeroed in the
+      frozen stream and compacted — a cumsum of the changed flags and a
+      searchsorted, no scatter — into a _SIDE_CAP-row table summed with
+      the plain accumulate;
+    - full (more changed): the plain accumulate of the whole table
+      (engine.step.run_steps rebuilds the plan well before that)."""
+    changed = plan_changed(bonds, plan)
+    n_changed = int(changed.sum())
+    if n_changed == 0:
+        PLAN_COUNTS["quiet"] += 1
+        return accumulate_bond_deltas_planned(dv_a, dq_a, dv_b, dq_b, plan)
+    seg_a, seg_b = _segments(bonds, n_rows)
+    if n_changed > _SIDE_CAP:
+        PLAN_COUNTS["full"] += 1
+        return accumulate_bond_deltas(dv_a, dq_a, dv_b, dq_b, seg_a, seg_b,
+                                      n_rows)
+    PLAN_COUNTS["hybrid"] += 1
+    dvp, dqp = accumulate_bond_deltas_planned(dv_a, dq_a, dv_b, dq_b, plan,
+                                              zero_bond=changed)
+    dev = changed.device
+    r = torch.cumsum(changed.to(torch.int32), 0, dtype=torch.int32)
+    sel = torch.searchsorted(
+        r, 1 + torch.arange(_SIDE_CAP, dtype=torch.int32, device=dev))
+    sel = torch.clamp(sel, 0, changed.shape[0] - 1)
+    live = torch.arange(_SIDE_CAP, device=dev) < n_changed
+    drop = torch.full_like(seg_a[sel], n_rows)
+    # seg_a/seg_b already drop invalid bonds.
+    dv_s, dq_s = accumulate_bond_deltas(
+        dv_a[sel], dq_a[sel], dv_b[sel], dq_b[sel],
+        torch.where(live, seg_a[sel], drop),
+        torch.where(live, seg_b[sel], drop), n_rows)
+    return dvp + dv_s, dqp + dq_s
+
+
 def bond_inputs(state: SimState, params: SimParams, genome: GenomeDevice,
                 dt=None):
     """(bond_pair_deltas' arguments, (seg_a, seg_b)): the per-bond spring
@@ -157,32 +378,34 @@ def bond_inputs(state: SimState, params: SimParams, genome: GenomeDevice,
     dt = params.dt if dt is None else dt
     idx_a = torch.clamp(b.slot_a, 0, N - 1).long()
     idx_b = torch.clamp(b.slot_b, 0, N - 1).long()
-    valid = b.active & (b.slot_a >= 0) & (b.slot_b >= 0)
     tbl = torch.cat([state.pos, state.vel, state.rot,
                      state.mass[:, None]], dim=1)            # [N, 11]
     ga, gb = tbl[idx_a], tbl[idx_b]
-    args = (b, valid, *bond_spring_params(b, genome),
+    args = (b, _valid(b), *bond_spring_params(b, genome),
             ga[:, 0:3], ga[:, 3:6], ga[:, 6:10], ga[:, 10],
             gb[:, 0:3], gb[:, 3:6], gb[:, 6:10], gb[:, 10], params, dt)
-    drop = torch.full_like(idx_a, N)
-    return args, (torch.where(valid, idx_a, drop),
-                  torch.where(valid, idx_b, drop))
+    return args, _segments(b, N)
 
 
 def bond_deltas(state: SimState, params: SimParams, genome: GenomeDevice,
-                dt=None):
+                dt=None, plan: BondPlan | None = None):
     """Per-bond velocity and rotation deltas summed per particle:
-    ([N, 3], [N, 4])."""
+    ([N, 3], [N, 4]). With a `plan` (valid for this bond table's
+    capacities, possibly stale) the sum takes the hybrid planned
+    accumulate."""
     args, (seg_a, seg_b) = bond_inputs(state, params, genome, dt)
-    return accumulate_bond_deltas(*bond_pair_deltas(*args), seg_a, seg_b,
-                                  state.capacity)
+    deltas = bond_pair_deltas(*args)
+    if plan is not None:
+        return accumulate_bond_deltas_hybrid(*deltas, state.bonds,
+                                             state.capacity, plan)
+    return accumulate_bond_deltas(*deltas, seg_a, seg_b, state.capacity)
 
 
 def apply_adhesion(state: SimState, params: SimParams, genome: GenomeDevice,
-                   dt=None) -> SimState:
+                   dt=None, plan: BondPlan | None = None) -> SimState:
     """Compute the per-bond deltas and apply them (compute:586-607):
     v += Δv, q = normalize(q + Δq) on live rows."""
-    dv, dq = bond_deltas(state, params, genome, dt=dt)
+    dv, dq = bond_deltas(state, params, genome, dt=dt, plan=plan)
     alive = alive_mask(state)[:, None]
     vel = torch.where(alive, state.vel + dv, state.vel)
     rot = torch.where(alive, quat.normalize(state.rot + dq), state.rot)

@@ -1,8 +1,8 @@
 """Carrying state across from the JAX package: its SPHParams (as the dict
 `dataclasses.asdict` gives, or a checkpoint header's JSON of it), the
 fields of its DenseFluidState and of its flat SPHState (config[0]'s grid
-path) as numpy arrays; for the colony its SimParams, its genome JSON and
-its SimState (the `state_to_numpy` dict)."""
+path) as numpy arrays; for the colony its SimParams, its genome JSON, its
+SimState (the `state_to_numpy` dict) and an adhesion BondPlan."""
 
 from __future__ import annotations
 
@@ -14,6 +14,7 @@ import torch
 from sph_tpu_torch.core.types import Genome, SimParams, SimState
 from sph_tpu_torch.core.types import state_from_numpy as sim_state_from_numpy
 from sph_tpu_torch.engine.config import genome_from_json
+from sph_tpu_torch.physics.adhesion import BondPlan
 from sph_tpu_torch.sph.dense import DenseFluidState
 from sph_tpu_torch.sph.model import SPHParams, SPHState
 
@@ -82,3 +83,16 @@ def colony_from_jax(flat: dict, params: dict, genome_json: str,
     key's two uint32 words), its params dict and its genome JSON."""
     return (sim_state_from_numpy(flat, device), sim_params_from_jax(params),
             genome_from_json(genome_json))
+
+
+def bond_plan_from_numpy(arrays: dict, device="cuda") -> BondPlan:
+    """A BondPlan on `device` from numpy arrays of every field of a JAX
+    BondPlan (`{f: np.asarray(getattr(plan, f))}`): perm and last as int64
+    indices (JAX keeps them as int32), the rest with their dtypes."""
+    out = {}
+    for f in dataclasses.fields(BondPlan):
+        t = torch.from_numpy(np.array(arrays[f.name], copy=True))
+        if f.name in ("perm", "last"):
+            t = t.long()
+        out[f.name] = t.to(device)
+    return BondPlan(**out)

@@ -21,13 +21,12 @@ build the rebin's test layouts.
 
 The hardware verification lane — the counterpart of the JAX package's
 `CHECKS`, `run_all` and `verify_summary`, with `tools/verify_chip.py`'s
-CLI as `python -m sph_tpu_torch.utils.verify` — runs JAX's five twin
-checks that apply to the port on a device (the card unless asked), each
-scene built here from numpy (`blob`) or the port's scenes: the fluid
-kernels at k = 8, the contact pack's placement on three blobs, and the
-dense contact forces end to end. JAX's two BondPlan checks (planned and
-hybrid adhesion) have no counterpart: the port has no BondPlan (ROADMAP A,
-"Not ported"), so there is nothing to hold against the plain adhesion.
+CLI as `python -m sph_tpu_torch.utils.verify` — runs JAX's seven twin
+checks on a device (the card unless asked), each scene built here from
+numpy (`blob`) or the port's scenes: the fluid kernels at k = 8, the
+contact pack's placement on three blobs, the dense contact forces end to
+end, and the planned adhesion accumulate against the plain one over 8
+colony steps, settled and through a division window.
 """
 
 from __future__ import annotations
@@ -518,10 +517,78 @@ def check_contact_end2end(n: int = 400, k: int = 4, seed: int = 3,
                                         tp)}
 
 
-# (name, check on a device): JAX's lane less its BondPlan checks, under
-# JAX's names. The expand-pack scenes ride three densities: the round-3
-# repro (a sparse blob with one overflow), a crushed blob (heavy overflow)
-# and colony-like k = 2 occupancy.
+def _held(name: str, plain, planned, rtol: float, atol: float) -> None:
+    np.testing.assert_allclose(planned.cpu().numpy(), plain.cpu().numpy(),
+                               rtol=rtol, atol=atol, err_msg=name)
+
+
+def check_planned_adhesion(n: int = 4096, device="cuda") -> None:
+    """The planned adhesion accumulate (a frozen sort and the segmented
+    scan) against the plain one over 8 steps of the n-cell bonded colony
+    (dense, k = 2, through the kernels): velocities within JAX's rtol
+    1e-4, atol 1e-5; quaternions within rtol 1e-4, atol 1e-4, the
+    tolerance of JAX's own planned-vs-plain test of the same steps
+    (tests/test_adhesion.py) and of the port's quaternions
+    (tests/test_torch_simulation.py). JAX's check holds the quaternions
+    at atol 1e-5, which its own run on the CPU misses: the
+    relative-orientation constraint's correction axis is rounding noise
+    on a settled bond, so the sums' reassociation grows about 2.5× a step
+    there (ROADMAP §C)."""
+    from sph_tpu_torch.engine.colony import bonded_colony
+    from sph_tpu_torch.engine.step import run_steps
+
+    st, params, genome = bonded_colony(n, device=device, dense_k=2,
+                                       neighbor_mode="dense",
+                                       use_pallas=True)
+    gd = genome.to_device(device)
+    a = run_steps(st, dataclasses.replace(params, adhesion_plan="off"), gd,
+                  8)
+    b = run_steps(st, dataclasses.replace(params, adhesion_plan="on"), gd,
+                  8)
+    nb = int(a.active_count)
+    _held("planned adhesion vel", a.vel[:nb], b.vel[:nb], 1e-4, 1e-5)
+    _held("planned adhesion rot", a.rot[:nb], b.rot[:nb], 1e-4, 1e-4)
+
+
+def check_hybrid_adhesion_division(n: int = 2048, device="cuda") -> None:
+    """The hybrid stale-plan accumulate through a division window (the
+    n-cell colony resized to n + 64, 16 split timers armed to fire in the
+    8 steps, so the plan's snapshot goes stale and the changed bonds ride
+    the side table) against the plain accumulate: 16 splits in both, bond
+    topology bitwise, velocities within rtol 1e-4, atol 1e-4."""
+    from sph_tpu_torch.engine.colony import bonded_colony
+    from sph_tpu_torch.engine.simulation import Simulation
+    from sph_tpu_torch.engine.step import run_steps
+
+    st, params, genome = bonded_colony(n, device=device, dense_k=2,
+                                       neighbor_mode="dense",
+                                       use_pallas=True,
+                                       max_splits_per_step=32)
+    sim = Simulation(genome, params, auto_grow=False, donate=False,
+                     device=device)
+    sim.state = st
+    sim.resize(n + 64)
+    pp, gd = sim.params, sim.genome_dev
+    timer = sim.state.split_timer.clone()
+    timer[:16] = float(gd.split_interval[0]) - 3 * pp.dt
+    st = sim.state.replace_fields(split_timer=timer)
+    a = run_steps(st, dataclasses.replace(pp, adhesion_plan="off"), gd, 8)
+    b = run_steps(st, dataclasses.replace(pp, adhesion_plan="on"), gd, 8)
+    na, nb = int(a.active_count), int(b.active_count)
+    if not na == n + 16 == nb:
+        raise AssertionError(f"hybrid adhesion splits: {na}, {nb} cells, "
+                             f"expected {n + 16}")
+    _held("hybrid adhesion vel (division)", a.vel[:na], b.vel[:na], 1e-4,
+          1e-4)
+    np.testing.assert_array_equal(
+        b.bonds.active.cpu().numpy(), a.bonds.active.cpu().numpy(),
+        err_msg="hybrid adhesion bond topology")
+
+
+# (name, check on a device): JAX's lane under JAX's names. The expand-pack
+# scenes ride three densities: the round-3 repro (a sparse blob with one
+# overflow), a crushed blob (heavy overflow) and colony-like k = 2
+# occupancy.
 CHECKS = (
     ("fluid twins (density/accel/rebin, k=8)",
      lambda device: check_fluid_scene(k=8, device=device)),
@@ -535,6 +602,10 @@ CHECKS = (
                                       device=device)),
     ("contact end-to-end n=400 k=4",
      lambda device: check_contact_end2end(device=device)),
+    ("planned adhesion n=4096",
+     lambda device: check_planned_adhesion(device=device)),
+    ("hybrid adhesion through division n=2048",
+     lambda device: check_hybrid_adhesion_division(device=device)),
 )
 
 

@@ -51,6 +51,7 @@ from sph_tpu_torch.engine.fluid import FluidSimulation
 from sph_tpu_torch.engine.simulation import Simulation
 from sph_tpu_torch.parallel import dist as pd
 from sph_tpu_torch.parallel.launch import spawn
+from sph_tpu_torch.physics import adhesion
 from sph_tpu_torch.physics.contact_dense import contact_forces_dense
 from sph_tpu_torch.sph import dense as tdense
 from sph_tpu_torch.sph import model as tmodel
@@ -217,10 +218,17 @@ def cases():
     return out
 
 
-def colony_job(shape, st, tp, tg):
-    return dict(shape=shape, state=ttypes.state_to_numpy(st),
-                params=dataclasses.asdict(tp),
-                genome=tconfig.genome_to_json(tg), steps=COLONY_STEPS)
+def colony_job(shape, st, tp, tg, **kw):
+    return dict(dict(shape=shape, state=ttypes.state_to_numpy(st),
+                     params=dataclasses.asdict(tp),
+                     genome=tconfig.genome_to_json(tg), steps=COLONY_STEPS),
+                **kw)
+
+
+# The division window with the adhesion plan on, through
+# Simulation(scan_chunk=4): 2 chunks through the carried plan and a 2-step
+# tail without one.
+PLAN_CHUNK, PLAN_STEPS = 4, 10
 
 
 def _spawn(world, jobs, tmp):
@@ -237,16 +245,21 @@ def halo_input():
 
 @pytest.fixture(scope="module")
 def world4(cases, halo_input, tmp_path_factory):
-    """One 4-rank world: the halos, the 4-ring fluid and the checkpoints."""
+    """One 4-rank world: the halos, the 4-ring fluid, the checkpoints and
+    the colony with the adhesion plan on a 4-ring."""
     tmp = tmp_path_factory.mktemp("world4")
     c = cases["ring4"]
     sim = FluidSimulation(*_scene(c), substeps=3, device="cpu")
     path = str(tmp / "start.npz")
     sim.save(path)
+    _, cst, ctp, ctg = cases["colony"]
     jobs = [("halos", "halos", halo_input),
             ("ring4", "fluid", c.job((4,), blocks_of("ring4"))),
             ("checkpoints", "checkpoints",
-             dict(path=path, dir=str(tmp), steps=3))]
+             dict(path=path, dir=str(tmp), steps=3)),
+            ("colony_plan_ring4", "colony",
+             colony_job((4,), cst, ctp.replace(adhesion_plan="on"), ctg,
+                        scan_chunk=PLAN_CHUNK, steps=PLAN_STEPS))]
     return _spawn(4, jobs, tmp), path
 
 
@@ -593,6 +606,30 @@ def test_sharded_colony_bitwise_to_single_device(name, world8,
     assert int(got["overflow"]) == 0
     for k in colony_single:
         np.testing.assert_array_equal(got[k], colony_single[k], err_msg=k)
+
+
+def test_sharded_colony_with_a_plan_bitwise_to_single_device(cases,
+                                                            world4):
+    """Simulation(mesh=4-ring, scan_chunk=4) with the adhesion plan on
+    through the division window: every rank bitwise one device's
+    Simulation(scan_chunk=4), and both took the planned path (the hybrid
+    branch on the division steps)."""
+    _, st, tp, tg = cases["colony"]
+    adhesion.reset_plan_counts()
+    sim = Simulation(tg, tp.replace(adhesion_plan="on"), device="cpu",
+                     scan_chunk=PLAN_CHUNK)
+    sim.state = st
+    sim.step(PLAN_STEPS)
+    want = ttypes.state_to_numpy(sim.state)
+    counts = dict(adhesion.PLAN_COUNTS)
+    assert counts["quiet"] + counts["hybrid"] == 8 and counts["hybrid"] > 0
+    r = rank0(world4[0], "colony_plan_ring4")
+    assert all(x["colony_plan_ring4"]["plan_counts"] == counts
+               for x in world4[0])
+    got = r["state"]
+    assert int(got["active_count"]) == 256 + 16    # the splits fired
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
 
 
 def test_sharded_colony_matches_jax(cases, world8):

@@ -22,17 +22,12 @@ from sph_tpu_torch.utils import verify
 
 torch.set_num_threads(1)
 
-# JAX's checks that the port has no counterpart for (no BondPlan).
-BONDPLAN_CHECKS = ("planned adhesion n=4096",
-                   "hybrid adhesion through division n=2048")
-
-
 def test_run_all_on_the_cpu_has_jax_checks_and_passes():
     results = verify.run_all(device="cpu")
-    names = [n for n, _ in jverify.CHECKS if n not in BONDPLAN_CHECKS]
-    assert [n for n, _ in results] == names and len(names) == 5
-    assert [e for _, e in results] == [None] * 5
-    assert verify.verify_summary(device="cpu") == "ok (cpu, 5 twin checks)"
+    names = [n for n, _ in jverify.CHECKS]
+    assert [n for n, _ in results] == names and len(names) == 7
+    assert [e for _, e in results] == [None] * 7
+    assert verify.verify_summary(device="cpu") == "ok (cpu, 7 twin checks)"
 
 
 @pytest.fixture
@@ -57,11 +52,11 @@ def test_a_perturbed_check_fails_in_the_summary(perturbed_sweep):
 def test_cli_exit_codes(perturbed_sweep, monkeypatch, capsys):
     assert verify.main(["--device", "cpu"]) == 1
     out = capsys.readouterr().out
-    assert "4/5 twin checks ok" in out
+    assert "6/7 twin checks ok" in out
     assert "FAIL contact end-to-end n=400 k=4" in out
     monkeypatch.undo()
     assert verify.main(["--device", "cpu"]) == 0
-    assert "5/5 twin checks ok" in capsys.readouterr().out
+    assert "7/7 twin checks ok" in capsys.readouterr().out
     if not torch.cuda.is_available():
         assert verify.main([]) == 1
 

@@ -103,17 +103,22 @@ def contact(case: dict) -> dict:
 
 
 def colony(case: dict) -> dict:
-    """Simulation(mesh=…) from the case's state, params and genome for
-    `steps` steps: rank 0 returns the final state, every rank a digest."""
+    """Simulation(mesh=…, scan_chunk=…) from the case's state, params and
+    genome for `steps` steps: rank 0 returns the final state, every rank a
+    digest and the adhesion plan's branch counts."""
     from sph_tpu_torch.engine.simulation import Simulation
+    from sph_tpu_torch.physics import adhesion
 
     mesh = mesh_of(case["shape"], ("z", "y"))
     sim = Simulation(genome_from_json(case["genome"]),
-                     SimParams(**case["params"]), device=CPU, mesh=mesh)
+                     SimParams(**case["params"]), device=CPU, mesh=mesh,
+                     scan_chunk=case.get("scan_chunk", 64))
     sim.state = state_from_numpy(case["state"], CPU)
+    adhesion.reset_plan_counts()
     sim.step(case["steps"])
     out = state_to_numpy(sim.state)
-    return {"digest": digest(out), "state": out if mesh.rank == 0 else None}
+    return {"digest": digest(out), "state": out if mesh.rank == 0 else None,
+            "plan_counts": dict(adhesion.PLAN_COUNTS)}
 
 
 def checkpoints(case: dict) -> dict:
