@@ -143,6 +143,17 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
                times as the steps it ran ask; then `cells` with
                --render-every and `view` with a script at their default
                sizes; and utils.profiling.step_breakdown at config[3].
+19. bench    — `python -m sph_tpu_torch.bench --all --cells --breakdown`
+               (the port's counterpart of bench.py) as a subprocess with
+               its own time limit, its stderr streamed: one JSON line on
+               stdout, no rung in error, config[3] with all 1,005,312
+               particles alive and none dropped, each rung's kernel
+               launches those of its warm and timed steps (BENCH_RUNGS),
+               no cell overflow on the dense colonies, the lane ok, the
+               8-way dryrun (8 ranks sharing the card over gloo) ok, the
+               line's device the card's nvidia-smi name and power limit,
+               and config[3]'s steps/s within 0.5-2x of the main phase's;
+               the ladder printed, best and median steps/s a rung.
 
 The line before the last is {"kernels": [...]}, preceded by the card's
 `nvidia-smi` name and power limit; the last line is {"ok": true, ...}.
@@ -563,6 +574,9 @@ def main() -> int:
     view_colony = render_phase(sim, dev, card)
     viewer_phase(view_colony, card)
     app_phase(sim, card)
+
+    # 19. The port's bench, the whole ladder, in its own process.
+    bench_phase(sps, card)
 
     print(json.dumps({"kernels": rows}))
     print(card)
@@ -2093,6 +2107,110 @@ def verify_phase(card) -> None:
         f"ok ({time.perf_counter() - t0:.1f} s) | {card}")
     if fails:
         raise AssertionError(f"verify: {fails}")
+
+
+# -- 19. bench: python -m sph_tpu_torch.bench --all --cells --breakdown -------
+
+# Each rung's steps and the launches they ask for: (steps, substeps or
+# chunk, rebin_every) at bench.py's settings (`_bench_dense` 240/60/6,
+# `_bench_2d_dense` 480/120/3, config[4] 45/15/6, `_bench_cells` 240/120
+# and 40/20 at 1M); a fluid rung launches K1 and K2 once a step and K3
+# twice a rebin, a dense colony K4 and K5 once a step, over one warm and
+# steps // substeps timed calls.
+BENCH_RUNGS = {
+    "2D dam-break 4k (brute-force executable spec)": None,
+    "2D splash/pour 32k (dense grid + Pallas)": ("fluid", 480, 120, 3),
+    "3D dam-break 256k (dense grid + Pallas)": ("fluid", 240, 60, 6),
+    "3D dam-break + SDF obstacle 1M (dense grid + Pallas)":
+        ("fluid", 240, 60, 6),
+    "3D dam-break 4M single-chip + 8-way decomposition dryrun":
+        ("fluid", 45, 15, 6),
+    "cell colony 10k (contact+adhesion, grid)": None,
+    "cell colony 10k (contact+adhesion, dense)": ("cells", 240, 120, 0),
+    "cell colony 100k (contact+adhesion, dense)": ("cells", 240, 120, 0),
+    "cell colony 1M (contact+adhesion, dense)": ("cells", 40, 20, 0),
+}
+BENCH_CONFIG3 = "3D dam-break + SDF obstacle 1M (dense grid + Pallas)"
+BENCH_CONFIG4 = "3D dam-break 4M single-chip + 8-way decomposition dryrun"
+BENCH_TIMEOUT = 600
+
+
+def bench_launches(rung) -> dict:
+    want = dict.fromkeys(("density", "accel", "rebin", "contact",
+                          "expand"), 0)
+    if rung is None:
+        return want
+    kind, steps, sub, rebin_every = rung
+    total = sub * (1 + max(1, steps // sub))
+    if kind == "cells":
+        want.update(contact=total, expand=total)
+    else:
+        rebins = sum(i % rebin_every == rebin_every - 1
+                     for i in range(total))
+        want.update(density=total, accel=total, rebin=2 * rebins)
+    return want
+
+
+def bench_phase(main_sps: float, card: str) -> None:
+    """Phase 19: the port's bench, every rung, as a user runs it."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    cmd = [sys.executable, "-m", "sph_tpu_torch.bench", "--all", "--cells",
+           "--breakdown"]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, stdout=subprocess.PIPE, text=True,
+                       timeout=BENCH_TIMEOUT,
+                       cwd=os.path.dirname(os.path.abspath(__file__)))
+    wall = time.perf_counter() - t0
+    lines = r.stdout.splitlines()
+    say("bench", f"{' '.join(cmd[1:])}: exit {r.returncode} in {wall:.1f} s")
+    if r.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"bench: exit {r.returncode}, stdout "
+                             f"{r.stdout[-2000:]!r}")
+    out = json.loads(lines[0])
+    detail = out["detail"]
+    errors = {k: v["error"] for k, v in detail.items() if "error" in v}
+    if errors or set(BENCH_RUNGS) - set(detail):
+        raise AssertionError(f"bench: errors {errors}, rungs missing "
+                             f"{sorted(set(BENCH_RUNGS) - set(detail))}")
+    head = detail[BENCH_CONFIG3]
+    if not (head["alive"] == head["n_particles"] == N_CONFIG3
+            and head["dropped"] == 0):
+        raise AssertionError(f"bench config[3]: {head}")
+    for name, rung in BENCH_RUNGS.items():
+        want = bench_launches(rung)
+        if detail[name]["launches"] != want:
+            raise AssertionError(f"bench {name}: launches "
+                                 f"{detail[name]['launches']} != {want}")
+        if "dense)" in name and detail[name]["cell_overflow"] != 0:
+            raise AssertionError(f"bench {name}: {detail[name]}")
+    dryrun = detail[BENCH_CONFIG4]["dryrun_8way"]
+    device = f"{out['device']['name']}, {out['device']['power_limit']}"
+    if not str(out.get("verify", "")).startswith("ok") or dryrun != "ok":
+        raise AssertionError(f"bench: verify {out.get('verify')!r}, 8-way "
+                             f"dryrun {dryrun!r}")
+    if device != card:
+        raise AssertionError(f"bench device {device!r} != {card!r}")
+    ratio = head["steps_per_sec"] / main_sps
+    if not 0.5 <= ratio <= 2.0:
+        raise AssertionError(f"bench config[3] {head['steps_per_sec']} "
+                             f"steps/s against the main phase's "
+                             f"{main_sps:.2f}: x{ratio:.3f}")
+    say("bench", f"value {out['value']} particle-steps/s (vs_baseline "
+        f"{out['vs_baseline']}), verify {out['verify']}, 8-way dryrun "
+        f"{dryrun} ({detail[BENCH_CONFIG4]['dryrun_8way_ranks']}); "
+        f"config[3] x{ratio:.3f} of the main phase's {main_sps:.2f} "
+        f"steps/s | {card}")
+    for name, e in detail.items():
+        if name.startswith("phase_breakdown"):
+            say("bench", f"{name}: {json.dumps(e)} | {card}")
+            continue
+        median = e.get("steps_per_sec_median", "-")
+        pmedian = e.get("particle_steps_per_sec_median", "-")
+        say("bench", f"ladder {name}: {e['n_particles']} particles, "
+            f"steps/s best {e['steps_per_sec']} median {median}, "
+            f"particle-steps/s best {e['particle_steps_per_sec']} median "
+            f"{pmedian}, launches {e['launches']} | {card}")
 
 
 # -- 12. shard: the sharded paths (sph_tpu_torch/parallel) -------------------

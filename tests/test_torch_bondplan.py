@@ -12,6 +12,7 @@ exact; positions, velocities and spins at tests/test_torch_simulation.py's
 rtol 1e-4 / atol 1e-5·max|x|, quaternions atol 1e-4."""
 
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -30,10 +31,13 @@ from sph_tpu.engine.colony import bonded_colony as jax_bonded_colony
 from sph_tpu.engine.step import run_steps as jax_run_steps
 from sph_tpu.engine.step import use_bond_plan as jax_use_bond_plan
 from sph_tpu_torch.core import types as ttypes
-from sph_tpu_torch.engine import step as tstep
 from sph_tpu_torch.engine.colony import bonded_colony
 from sph_tpu_torch.engine.simulation import Simulation
 from sph_tpu_torch.utils.convert import bond_plan_from_numpy, colony_from_jax
+
+# The package re-exports the function `step` (as sph_tpu.engine does), which
+# shadows the submodule of that name: take the module from the import system.
+tstep = importlib.import_module("sph_tpu_torch.engine.step")
 
 torch.set_num_threads(1)
 

@@ -175,7 +175,8 @@ def test_port_imports_no_jax():
                  "engine.config", "ops.grid", "sph.model", "render.camera",
                  "render.splat", "render.impostor", "render.overlay",
                  "render.raster", "render.image", "app.viewer",
-                 "app.__main__", "utils.profiling"):
+                 "app.__main__", "utils.profiling", "bench",
+                 "parallel.dryrun"):
         assert f"sph_tpu_torch.{name}" in modules, name
     code = (f"import sys; import {', '.join(modules)};"
             " assert 'jax' not in sys.modules, 'jax imported';"

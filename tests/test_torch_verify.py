@@ -5,6 +5,7 @@ carries over from the JAX package: engine.step.make_step_fn,
 core.quat.IDENTITY and biology.ZONE_A/B/C."""
 
 import dataclasses
+import importlib
 
 import numpy as np
 import pytest
@@ -15,10 +16,13 @@ import sph_tpu.utils.verify as jverify
 from sph_tpu.core import quat as jquat
 from sph_tpu_torch import biology as tbio
 from sph_tpu_torch.core import quat as tquat
-from sph_tpu_torch.engine import step as tstep
 from sph_tpu_torch.engine.colony import bonded_colony
 from sph_tpu_torch.ops import contact as oc
 from sph_tpu_torch.utils import verify
+
+# The package re-exports the function `step` (as sph_tpu.engine does), which
+# shadows the submodule of that name: take the module from the import system.
+tstep = importlib.import_module("sph_tpu_torch.engine.step")
 
 torch.set_num_threads(1)
 
