@@ -105,7 +105,9 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
 13. times    — each kernel's ms against its plain version's (and, for the
                placement, one PyTorch index_copy), beside its bound; K4
                also on the compressed copy, K5 also at the probe's
-               scene.
+               scene (K6), with K5's and K6's host enqueue ms a call;
+               K4 and K5 (1M and the probe's scene) must launch one
+               device kernel a call (torch.profiler's count).
 14. kernel floor — K4 run one stage at a time (ops/contact_floor.py: the
                stubs of tools/probe_kernel_floor.py as stage modes of
                csrc/contact_sweep.cu) at the 1M colony after its main run
@@ -113,9 +115,11 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
                just before: each mode once on each (2 launches a mode);
                each stub bitwise to its plain version at the band's rows
                and "full" to contact_sweep, also on the 1M colony
-               compressed ×0.7; each mode's ms, plain ms, bound and device
-               time by kernel, and the split of K4's device time into the
-               empty launch, staging and pads, screen and pair terms.
+               compressed ×0.7; each mode's ms, plain ms, host enqueue
+               ms, bound and device time by kernel — one device kernel a
+               call, asserted — and the split of K4's device time into
+               the six +0 planes (zero: no occupancy read), the gate with
+               the staging and pads, the screen and the pair terms.
 15. verify   — the hardware verification lane (utils/verify.py: JAX's
                seven twin checks) on the card.
 16. render   — FluidSimulation.render_frame (800×450) of the config[3]
@@ -1849,16 +1853,24 @@ def colony_time_pairs(colony, card) -> dict:
     k1, k2 = cuda_ms(kern, 20), cuda_ms(kern, 20)
     say("times", f"contact compressed x0.7: kernel {(k1 + k2) / 2:.4f} ms "
         f"({k1:.4f}, {k2:.4f}), bound {bnd['bound_ms']:.4f} ms by "
-        f"{bnd['bound_by']} | {card}")
+        f"{bnd['bound_by']}; device {one_kernel('contact', kern)[0]:.4f} "
+        f"ms, one kernel a call | {card}")
     s6, spec6 = colony["probe"]
     kern, plain, library_call, bnd = expand_pair(s6, spec6)
     p1, k1, k2, p2 = (cuda_ms(plain, 20), cuda_ms(kern, 20),
                       cuda_ms(kern, 20), cuda_ms(plain, 20))
-    say("times", f"expand at the probe scene {list(spec6.shape())}: kernel "
-        f"{(k1 + k2) / 2:.4f} ms ({k1:.4f}, {k2:.4f}), plain "
-        f"{(p1 + p2) / 2:.4f} ms, library {cuda_ms(library_call, 20):.4f} "
-        f"ms, bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']} | {card}")
-    return {"contact": contact, "expand": expand_pair(st, spec)}
+    say("times", f"expand at the probe scene {list(spec6.shape())} (K6): "
+        f"kernel {(k1 + k2) / 2:.4f} ms ({k1:.4f}, {k2:.4f}; host enqueue "
+        f"{host_ms(kern):.4f} a call; device "
+        f"{one_kernel('expand (K6)', kern)[0]:.4f}, one kernel a call), "
+        f"plain {(p1 + p2) / 2:.4f} ms, library "
+        f"{cuda_ms(library_call, 20):.4f} ms, bound {bnd['bound_ms']:.4f} "
+        f"ms by {bnd['bound_by']} | {card}")
+    expand = expand_pair(st, spec)
+    say("times", f"expand at 1M: host enqueue {host_ms(expand[0]):.4f} ms a "
+        f"call; device {one_kernel('expand', expand[0])[0]:.4f} ms, one "
+        f"kernel a call | {card}")
+    return {"contact": contact, "expand": expand}
 
 
 # -- 14. kernel floor: K4 run one stage at a time ---------------------------
@@ -1976,6 +1988,34 @@ def device_ms(fn, calls: int = 10) -> dict:
     return out
 
 
+def one_kernel(where: str, fn, calls: int = 10,
+               tries: int = 8) -> tuple[float, str, int]:
+    """(device ms a launch, kernel name, profiles taken) of fn(), which
+    must launch one device kernel a call: under torch.profiler
+    (`device_ms`) `calls` calls must record one kernel, `calls` times. The
+    profiler drops records, most often in the first profile of a kernel
+    (on the H100 11 of 12 floor modes needed a second profile, one a
+    fourth), so a profile that records that one kernel fewer times is
+    taken again, up to `tries` profiles; raises on a second kernel, on
+    more records than calls, or when no profile records all `calls`."""
+    seen = []
+    for t in range(1, tries + 1):
+        by_kernel = device_ms(fn, calls)
+        if len(by_kernel) > 1 or any(n > calls
+                                     for _, n in by_kernel.values()):
+            raise AssertionError(f"{where}: {calls} calls launched "
+                                 f"{json.dumps(by_kernel)}, not one device "
+                                 f"kernel a call")
+        if by_kernel:
+            (name, (ms, n)), = by_kernel.items()
+            if n == calls:
+                return ms, name, t
+        seen.append(by_kernel)
+    raise AssertionError(f"{where}: no profile of {tries} recorded one "
+                         f"kernel {calls} times in {calls} calls: "
+                         f"{json.dumps(seen)}")
+
+
 def floor_times(name: str, fields, occ, p, spec, card) -> dict:
     """Each mode's kernel, plain and (zero) library ms (CUDA events) and
     bound on one pack, and its device time by kernel (torch.profiler);
@@ -1988,26 +2028,22 @@ def floor_times(name: str, fields, occ, p, spec, card) -> dict:
         ms, plain_ms, (p1, k1, k2, p2) = turns(kern, plain)
         lib_ms = None if library_call is None else cuda_ms(library_call, 20)
         bnd = bound(nbytes, flops)
-        by_kernel = device_ms(kern)
-        dev_ms = sum(v[0] for v in by_kernel.values()) if by_kernel else None
+        dev_ms, kernel, tries = one_kernel(f"{name} {mode}", kern)
         out[mode] = (ms, plain_ms, lib_ms, bnd, dev_ms)
         say("kernel floor", f"{name} {mode}: kernel {ms:.4f} ms ({k1:.4f}, "
             f"{k2:.4f}; host enqueue {host_ms(kern):.4f} a call), plain "
             f"{plain_ms:.4f} ms ({p1:.4f}, {p2:.4f}), library "
             f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, {nbytes} "
             f"bytes, {flops} operations, bound {bnd['bound_ms']:.4f} ms by "
-            f"{bnd['bound_by']}; device "
-            f"{'not measured' if dev_ms is None else f'{dev_ms:.4f} ms'} "
-            f"{json.dumps(by_kernel)} | {card}")
+            f"{bnd['bound_by']}; device {dev_ms:.4f} ms, one kernel a call "
+            f"({kernel}, 10 of 10 launches recorded in profile {tries}) | "
+            f"{card}")
     dev = {mode: v[4] for mode, v in out.items()}
-    if None in dev.values():
-        say("kernel floor", f"{name} split: not measured (the profiler saw "
-            f"no device time)")
-        return out
-    say("kernel floor", f"{name} split (device ms a call): empty launch "
-        f"(zero) {dev['zero']:.4f}; staging and pads (pads - zero) "
-        f"{dev['pads'] - dev['zero']:.4f}; staging, list and pass 1 "
-        f"(screen - zero) {dev['screen'] - dev['zero']:.4f}; screen - pads "
+    say("kernel floor", f"{name} split (device ms a call): six +0 planes "
+        f"(zero, no occupancy read) {dev['zero']:.4f}; the gate, staging "
+        f"and pads (pads - zero) {dev['pads'] - dev['zero']:.4f}; the gate, "
+        f"staging, list and pass 1 (screen - zero) "
+        f"{dev['screen'] - dev['zero']:.4f}; screen - pads "
         f"{dev['screen'] - dev['pads']:.4f}; pair terms (full - screen) "
         f"{dev['full'] - dev['screen']:.4f} (the pads mode also reads the "
         f"six fields the sweep does not stage, and writes a plane) | {card}")
@@ -2503,7 +2539,8 @@ def slab_kernels(d, p, spec, colony, card) -> None:
         rows.append({"kernel": "contact", "where": where,
                      "shape": list(occ_s.shape), "ms": ms,
                      "plain_ms": plain_ms, "turns_pkkp_ms": runs, **bnd,
-                     **w})
+                     "device_ms": one_kernel(where, kern)[0],
+                     "host_enqueue_ms": host_ms(kern), **w})
     for r in rows:
         say("shard", f"{r['kernel']} at {r['where']}, bitwise: "
             f"{json.dumps(r)} | {card}")

@@ -14,44 +14,63 @@
 // Design: the work unit is a BAND, `band_rows` whole rows of one plane
 // (one contiguous run of the layout; the rows per band and the
 // shared-memory bytes come from the host planner, ops/contact.py
-// `band_plan`). Two launches on the caller's stream:
-//  1. Gate (`contact_gate_kernel`, one block per band). The block reads the
-//     band's occupancy (coalesced loads, kLoads in flight) into 32-bit
-//     masks with warp ballots. An empty band gets +0 in its six output
-//     planes (16-byte stores) and costs nothing more — the Pallas kernel's
+// `band_plan`). One launch on the caller's stream, persistent
+// (`contact_band_kernel`: as many blocks as fit, two per SM), whose blocks
+// claim bands — all Z·bands of them — from a device cursor. Per band:
+//  0. Gate. The band's occupancy, one contiguous run of rows·L floats, is
+//     already in shared memory: when a block takes a band it claims the
+//     band after it and starts a TMA bulk copy (cp.async.bulk on an
+//     mbarrier of its own) of that band's occupancy into a second buffer,
+//     so the copy lands while the current band is swept. Warp ballots over
+//     the staged floats give the band's 32-bit occupancy masks, which stay
+//     in shared memory. An empty band gets +0 in its six output planes
+//     (16-byte stores) and costs nothing more — the Pallas kernel's
 //     `pl.when(occ_t…)`; the 1M colony is a ball inside a cube, so a third
-//     of its bands are empty. A band with an occupied slot keeps its masks
-//     in the work buffer and is appended to the work list.
-//  2. Sweep (`contact_band_kernel`, persistent: as many blocks as fit, two
-//     per SM, each taking listed bands from an atomic counter). Per band:
-//     a. Halo staging. TMA bulk copies (cp.async.bulk, completed on an
-//        mbarrier), one per thread, of px, py, pz and rad for planes
-//        z − 1, z, z + 1 and the band's rows ± 1, each row and plane index
-//        wrapped as the plain roll wraps it. A staged row is the row's L
-//        lanes with kPad ≥ P lanes on each side.
-//     b. While the copies land: +0 into the band's six output planes
-//        (16-byte stores; the walk then overwrites only the slots that
-//        touch, in the same block, so L2 merges the two writes), and the
-//        band's occupied own slots listed in layout order from the gate's
-//        masks (a warp prefix sum of their popcounts), so every active lane
-//        of the walk has a particle. Then the pads: each takes the same
-//        row's wrapped lanes from the landed row (the last kPad lanes to
-//        the left, the first kPad to the right), as the Pallas kernel's
-//        `concat([yp[:, -P:], yp, yp[:, :P]])` does. So no partner needs a
-//        bounds test or an index wrap.
-//     c. Walk, one thread per listed slot, two passes. Pass 1 visits the
-//        slot's 9·(2P + 1) − 1 variants (62 at K = 2) with compile-time
-//        lane, row and plane offsets into the halo, forms the overlap with
-//        the pair term's own operations and marks, in a register bitmask,
-//        every variant whose pair it cannot skip (overlap > ε, or NaN).
-//        Pass 2 walks the lane's own marks in variant order: it forms the
-//        same overlap again, loads the partner's velocity and spin from
-//        global memory and adds the full terms. The lanes of a warp thus
-//        run the full terms max-over-lanes times, not at every variant
-//        where any lane has a contact (K2's remedy, csrc/fluid_sweep.cu). A
-//        slot with no mark is not written again: it already holds +0. (A
-//        one-pass walk, the full terms inline at each kept variant, was
-//        1.7–2.3× slower at the 1M colony: PERF.md, PR 4.)
+//     of its bands are empty.
+//  a. Halo staging. TMA bulk copies (completed on the halo's mbarrier),
+//     one per thread, of px, py, pz and rad for planes z − 1, z, z + 1 and
+//     the band's rows ± 1, each row and plane index wrapped as the plain
+//     roll wraps it. A staged row is the row's L lanes with kPad ≥ P lanes
+//     on each side.
+//  b. While the copies land: +0 into the band's six output planes (16-byte
+//     stores; the walk then overwrites only the slots that touch, in the
+//     same block, so L2 merges the two writes), and the band's occupied
+//     own slots listed in layout order from the masks (a warp prefix sum of
+//     their popcounts), so every active lane of the walk has a particle.
+//     Then the pads: each takes the same row's wrapped lanes from the
+//     landed row (the last kPad lanes to the left, the first kPad to the
+//     right), as the Pallas kernel's `concat([yp[:, -P:], yp, yp[:, :P]])`
+//     does. So no partner needs a bounds test or an index wrap.
+//  c. Walk, one thread per listed slot, two passes. Pass 1 visits the
+//     slot's 9·(2P + 1) − 1 variants (62 at K = 2) with compile-time lane,
+//     row and plane offsets into the halo, forms the overlap with the pair
+//     term's own operations and marks, in a register bitmask, every variant
+//     whose pair it cannot skip (overlap > ε, or NaN). Pass 2 walks the
+//     lane's own marks in variant order: it forms the same overlap again,
+//     loads the partner's velocity and spin from global memory and adds the
+//     full terms. The lanes of a warp thus run the full terms
+//     max-over-lanes times, not at every variant where any lane has a
+//     contact (K2's remedy, csrc/fluid_sweep.cu). A slot with no mark is
+//     not written again: it already holds +0. (A one-pass walk, the full
+//     terms inline at each kept variant, was 1.7–2.3× slower at the 1M
+//     colony: PERF.md.)
+// The claims are pipelined: a block holds the band it sweeps, the next
+// band (its occupancy in flight) and a claim on the one after, made at
+// the top of the sweep and read at its end, so no claim's round trip and
+// no occupancy load waits in line.
+//
+// The cursor. The caller keeps one zeroed pair of int32 counters per
+// (device, stream) — [0] the next band to claim, [1] the blocks done — and
+// the kernel leaves them zeroed: each block, after its last claim (the one
+// past the bands, which ends its loop), fences and counts itself done, and
+// the block that counts last (atomicAdd(done) == gridDim.x − 1) resets both.
+// Every claim of every block precedes its count, so none follows the
+// reset. That is safe across calls because calls on one stream run in
+// order, each after the last block of the one before has reset the pair;
+// and the wrapper drops the pair when a launch fails, so a call that did
+// not run to its end never hands its counters on. (The design before had
+// a second launch, one gate block per band, and a zeroed work buffer of
+// the band list and masks, a memset, every call.)
 //
 // Why the skip keeps the bits: a skipped pair would have added an exact ±0
 // to every component (force and torque carry the in_contact factor), and
@@ -76,15 +95,17 @@
 // tools/probe_kernel_floor.py (`zero_kernel`, `pads_kernel`,
 // `screen_kernel`), which that probe swaps into the Pallas kernel to split
 // its time. Here each is the band sweep compiled to stop at a stage (the
-// `Mode` template parameter; the production sweep is Mode::kFull and
-// compiles as before), on the same gate, plan and grid:
-//  - kZero: the gate, then +0 into every listed band's six planes. No
-//    staging.
-//  - kPads: and the halo staging and the lane pads. Output 0 of every slot
-//    of the band is f32(1e-37) times the sum of the ten fields over planes
-//    z − 1, z, z + 1 at the slot's own (y, l), fields outer, planes inner,
-//    from +0: px, py, pz and rad from the staged rows, the other six from
-//    device memory (the halo stages four fields; ten would not fit).
+// `Mode` template parameter; the production sweep is Mode::kFull), in the
+// same persistent loop, plan and launch:
+//  - kZero: +0 into every band's six planes, as `zero_kernel` writes zeros
+//    into every block: no occupancy read, no gate, no staging, and no
+//    shared memory but the claim slot (so more blocks fit on an SM).
+//  - kPads: the gate, the halo staging and the lane pads. Output 0 of every
+//    slot of an occupied band is f32(1e-37) times the sum of the ten
+//    fields over planes z − 1, z, z + 1 at the slot's own (y, l), fields
+//    outer, planes inner, from +0: px, py, pz and rad from the staged rows,
+//    the other six from device memory (the halo stages four fields; ten
+//    would not fit).
 //  - kScreen: and the list of occupied own slots and pass 1, as a running
 //    margin max(−1, overlap − ε over the variants) that keeps NaN, then the
 //    band's max margin (NaN kept) by a block reduction; the margins wait
@@ -112,16 +133,18 @@
 #include <algorithm>
 #include <cstdint>
 
+#include "persistent.cuh"
+
 namespace {
 
 constexpr int kFields = 10;  // px py pz vx vy vz ox oy oz rad
 constexpr int kStaged = 4;   // px py pz rad: the fields the screen reads
 constexpr int kComps = 6;    // fx fy fz tx ty tz
-constexpr int kThreads = 256;      // sweep block; two blocks per SM
+constexpr int kThreads = 256;  // a block; two blocks per SM
 constexpr int kWarps = kThreads / 32;
-constexpr int kGateThreads = 256;  // gate block
-constexpr int kLoads = 4;  // occupancy loads a thread has in flight
-constexpr int kMaxWords = 1024;  // occupancy masks of a band (32K slots)
+// The three mbarriers (the halo's, one per occupancy buffer) and the slot
+// of the next band's index, padded to 16 bytes.
+constexpr int kTail = 32;
 
 // How far the band sweep runs (the floor modes above); the values are
 // `sph_contact_floor`'s mode codes.
@@ -463,7 +486,7 @@ __device__ __forceinline__ float block_max(float v, float* red) {
 }
 
 // f(rank, own) for every occupied own slot of a band, `rank` its place in
-// layout order, from the gate's `words` occupancy masks (a warp prefix sum
+// layout order, from the band's `words` occupancy masks (a warp prefix sum
 // of their popcounts; one thread a word); `warp_count` holds kWarps ints.
 // Returns the count. Every thread of the block calls it.
 template <class F>
@@ -496,126 +519,137 @@ __device__ __forceinline__ int each_occupied(const unsigned* masks,
   return count;
 }
 
-// The work buffer (int32, zeroed by the caller): [0] the listed bands,
-// [1] the bands taken, then the band list and, per band, its occupancy as
-// `words` 32-bit masks (bit i of word w: own slot 32·w + i; written for
-// listed bands only). The host sizes it the same (ops/contact.py
-// `work_ints`).
-struct Work {
-  int* w;
-  int bands_all;  // Z · bands
-  int words;      // band_rows · L / 32
-
-  __device__ __forceinline__ int* list() const { return w + 2; }
-  __device__ __forceinline__ unsigned* occupancy(int band) const {
-    return reinterpret_cast<unsigned*>(w + 2 + bands_all) +
-           static_cast<size_t>(band) * words;
-  }
-};
-
-// Launch 1: one block per band. The block reads the band's occupancy into
-// 32-bit masks (one coalesced load and a warp ballot per 32 slots, kLoads
-// in flight). An empty band gets +0 in every output slot; a band with an
-// occupied slot keeps its masks and joins the work list.
-__global__ void __launch_bounds__(kGateThreads)
-    contact_gate_kernel(const float* __restrict__ occ, OutComps out, Geom g,
-                        int band_rows, int bands, Work work) {
-  __shared__ unsigned masks[kMaxWords];
-  const int band = blockIdx.x;
-  const int z = band / bands, r0 = band % bands * band_rows;
-  const int n_own = min(band_rows, g.Y - r0) * g.L;
-  const size_t base = (static_cast<size_t>(z) * g.Y + r0) * g.L;
-  bool any = false;
-  for (int t0 = 0; t0 < n_own; t0 += kGateThreads * kLoads) {
-    bool o[kLoads];
-#pragma unroll
-    for (int r = 0; r < kLoads; ++r) {
-      const int t = t0 + r * kGateThreads + threadIdx.x;
-      o[r] = t < n_own && occ[base + t] > 0.5f;
-    }
-#pragma unroll
-    for (int r = 0; r < kLoads; ++r) {
-      const unsigned m = __ballot_sync(0xffffffffu, o[r]);
-      const int t = t0 + r * kGateThreads + threadIdx.x;
-      if ((threadIdx.x & 31) == 0 && t < n_own) masks[t >> 5] = m;
-      any |= m != 0u;
-    }
-  }
-  if (__syncthreads_or(any)) {
-    unsigned* dst = work.occupancy(band);
-    for (int w = threadIdx.x; w < n_own / 32; w += kGateThreads)
-      dst[w] = masks[w];
-    if (threadIdx.x == 0) work.list()[atomicAdd(&work.w[0], 1)] = band;
-    return;
-  }
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-  for (int c = 0; c < kComps; ++c) {
-    float4* dst = reinterpret_cast<float4*>(out.c[c] + base);
-    for (int t = threadIdx.x; t < n_own / 4; t += kGateThreads) dst[t] = zero;
-  }
-}
-
-// The sweep block's shared memory: the staged halo [4][3][band_rows +
-// 2][run], the list of occupied own slots, the warp counts, the mbarrier
-// and the next band's list index. The host computes the same bytes
+// The band block's shared memory: the staged halo [4][3][band_rows +
+// 2][run], two occupancy buffers of band_rows·L floats, the tail (kTail:
+// the three mbarriers and the next band's index), the list of occupied own
+// slots, their masks (band_rows·L/32 words) and the warp counts. The zero
+// mode has the tail alone. The host computes the same bytes
 // (ops/contact.py `band_plan`).
 __host__ __device__ inline size_t halo_floats(int band_rows, int run) {
   return static_cast<size_t>(kStaged) * 3 * (band_rows + 2) * run;
 }
 __host__ __device__ inline size_t smem_bytes_of(int band_rows, int L,
                                                 int run) {
-  return 4 * (halo_floats(band_rows, run) +
-              static_cast<size_t>(band_rows) * L + kWarps) +
-         16;
+  const size_t own = static_cast<size_t>(band_rows) * L;
+  return 4 * (halo_floats(band_rows, run) + 3 * own + own / 32 + kWarps) +
+         kTail;
 }
 
-// Launch 2, persistent: each block takes listed bands until the list runs
+// Thread 0: a TMA bulk copy of n floats from `src` into `dst`, completed on
+// `bar` (n·4 a multiple of 16, both ends 16-byte aligned).
+__device__ __forceinline__ void fetch_run(float* dst, const float* src, int n,
+                                          uint64_t* bar) {
+  mbar_expect_tx(bar, static_cast<uint32_t>(n) * 4u);
+  bulk_load(dst, src, static_cast<uint32_t>(n) * 4u, bar);
+}
+
+// The one launch, persistent: each block claims bands from `cursor` (two
+// zeroed int32 counters, left zeroed; the head of this file) until they run
 // out. `M` stops the sweep at a stage (the floor modes); Mode::kFull is the
 // production sweep.
 template <int K, Mode M>
 __global__ void __launch_bounds__(kThreads, 2)
-    contact_band_kernel(InFields in, OutComps out, Geom g, int band_rows,
-                        int bands, Model m, Work work) {
+    contact_band_kernel(InFields in, const float* __restrict__ occ,
+                        OutComps out, Geom g, int band_rows, int bands,
+                        Model m, int* cursor) {
+  constexpr bool kGate = M != Mode::kZero;  // reads the occupancy
   constexpr int kPad = lane_pad(K);
   extern __shared__ __align__(128) unsigned char smem[];
   const int run = g.L + 2 * kPad;
   const int plane = (band_rows + 2) * run;
   const int field = 3 * plane;
+  const int own_max = band_rows * g.L;
   float* halo = reinterpret_cast<float*>(smem);
-  int* list = reinterpret_cast<int*>(halo + halo_floats(band_rows, run));
-  int* warp_count = list + band_rows * g.L;
-  uint64_t* bar = reinterpret_cast<uint64_t*>(warp_count + kWarps);
-  int* next = reinterpret_cast<int*>(bar + 1);
+  float* occ_buf = halo + (kGate ? halo_floats(band_rows, run) : 0);
+  unsigned char* tail =
+      reinterpret_cast<unsigned char*>(occ_buf + (kGate ? 2 * own_max : 0));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(tail);  // halo, occ 0, occ 1
+  int* next = reinterpret_cast<int*>(bars + 3);
+  int* list = reinterpret_cast<int*>(tail + kTail);
+  unsigned* masks = reinterpret_cast<unsigned*>(list + own_max);
+  int* warp_count = reinterpret_cast<int*>(masks + own_max / 32);
 
-  const int listed = work.w[0];
+  const int total = g.Z * bands;
+  // A band's first slot, and its slots (the last band of a plane may be
+  // shorter).
+  const auto first_slot = [&](int band) {
+    return (static_cast<size_t>(band / bands) * g.Y +
+            band % bands * band_rows) *
+           g.L;
+  };
+  const auto own_slots = [&](int band) {
+    return min(band_rows, g.Y - band % bands * band_rows) * g.L;
+  };
   const Halo hs{halo, field, plane, run};
+  // Thread 0 holds the claim on the band after the next.
+  int claimed = 0;
   if (threadIdx.x == 0) {
-    mbar_init(bar);
-    *next = atomicAdd(&work.w[1], 1);
+    if constexpr (kGate) {
+      for (int b = 0; b < 3; ++b) mbar_init(bars + b);
+    }
+    const int first = atomicAdd(cursor, 1);
+    if constexpr (kGate) {
+      if (first < total)
+        fetch_run(occ_buf, occ + first_slot(first), own_slots(first),
+                  bars + 1);
+    }
+    claimed = atomicAdd(cursor, 1);
+    *next = first;
   }
-  uint32_t phase = 0;
-  for (;;) {
+  uint32_t halo_phase = 0, occ_phase = 0;  // occ_phase bit b: buffer b's
+  for (int it = 0;; ++it) {
     // The last band's reads are done before its buffers are refilled, and
-    // `next` (and, at first, the barrier's init) is visible.
+    // `next` (and, at first, the barriers' init) is visible.
     __syncthreads();
-    const int idx = *next;
-    if (idx >= listed) break;
+    const int band = *next;
+    if (band >= total) break;
+    const int cur = it & 1;
+    // The claimed band's occupancy into the other buffer (its last band's,
+    // read by now); then a claim on the band after it, read at the end.
     int following = 0;
-    if (threadIdx.x == 0) following = atomicAdd(&work.w[1], 1);
-    const int band = work.list()[idx];
+    if (threadIdx.x == 0) {
+      if constexpr (kGate) {
+        if (claimed < total)
+          fetch_run(occ_buf + (cur ^ 1) * own_max, occ + first_slot(claimed),
+                    own_slots(claimed), bars + 1 + (cur ^ 1));
+      }
+      following = atomicAdd(cursor, 1);
+    }
     const int z = band / bands, r0 = band % bands * band_rows;
     const int rows = min(band_rows, g.Y - r0);
     const int n_own = rows * g.L;
-    const size_t base = (static_cast<size_t>(z) * g.Y + r0) * g.L;
+    const size_t base = first_slot(band);
+    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
 
-    // a. Stage px, py, pz, rad of planes z ± 1, rows r0 − 1 .. r0 + rows:
-    // one copy per (field, plane, row), one per thread.
-    const int copies = kStaged * 3 * (rows + 2);
-    if constexpr (M != Mode::kZero) {
+    // 0. The gate: the band's masks (one ballot per 32 staged floats; n_own
+    // is a multiple of 32, so every warp's loop is uniform).
+    bool live = false;
+    if constexpr (kGate) {
+      mbar_wait(bars + 1 + cur, occ_phase >> cur & 1u);
+      occ_phase ^= 1u << cur;
+      const float* o = occ_buf + cur * own_max;
+      bool any = false;
+      for (int t = threadIdx.x; t < n_own; t += kThreads) {
+        const unsigned mk = __ballot_sync(0xffffffffu, o[t] > 0.5f);
+        if ((threadIdx.x & 31) == 0) masks[t >> 5] = mk;
+        any |= mk != 0u;
+      }
+      live = __syncthreads_or(any) != 0;
+    }
+    if (!live) {
+      // An empty band (every band in the zero mode): +0 and nothing more.
+#pragma unroll
+      for (int c = 0; c < kComps; ++c) {
+        float4* dst = reinterpret_cast<float4*>(out.c[c] + base);
+        for (int t = threadIdx.x; t < n_own / 4; t += kThreads) dst[t] = zero;
+      }
+    } else if constexpr (kGate) {
+      // a. Stage px, py, pz, rad of planes z ± 1, rows r0 − 1 .. r0 + rows:
+      // one copy per (field, plane, row), one per thread.
+      const int copies = kStaged * 3 * (rows + 2);
       if (threadIdx.x == 0)
-        mbar_expect_tx(bar, static_cast<uint32_t>(copies) *
-                                static_cast<uint32_t>(g.L) * 4u);
+        mbar_expect_tx(bars, static_cast<uint32_t>(copies) *
+                                 static_cast<uint32_t>(g.L) * 4u);
       for (int t = threadIdx.x; t < copies; t += kThreads) {
         const int r = t % (rows + 2), p = t / (rows + 2) % 3,
                   f = t / (rows + 2) / 3;
@@ -627,32 +661,28 @@ __global__ void __launch_bounds__(kThreads, 2)
                   src + (static_cast<size_t>(wrap(z - 1 + p, g.Z)) * g.Y +
                          wrap(r0 - 1 + r, g.Y)) *
                             g.L,
-                  g.L * 4u, bar);
+                  g.L * 4u, bars);
       }
-    }
 
-    // b. +0 into the band's outputs, and the list of its occupied own
-    // slots, in layout order, from the gate's masks (a warp prefix sum of
-    // their popcounts), while the copies land.
-    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      // b. +0 into the band's outputs, and the list of its occupied own
+      // slots, in layout order, from the masks (a warp prefix sum of their
+      // popcounts), while the copies land.
 #pragma unroll
-    for (int c = 0; c < kComps; ++c) {
-      float4* dst = reinterpret_cast<float4*>(out.c[c] + base);
-      for (int t = threadIdx.x; t < n_own / 4; t += kThreads) dst[t] = zero;
-    }
-    const unsigned* masks = work.occupancy(band);
-    int count = 0;
-    if constexpr (M == Mode::kScreen || M == Mode::kFull)
-      count = each_occupied(masks, n_own / 32, warp_count,
-                            [&](int rank, int own) { list[rank] = own; });
+      for (int c = 0; c < kComps; ++c) {
+        float4* dst = reinterpret_cast<float4*>(out.c[c] + base);
+        for (int t = threadIdx.x; t < n_own / 4; t += kThreads) dst[t] = zero;
+      }
+      int count = 0;
+      if constexpr (M == Mode::kScreen || M == Mode::kFull)
+        count = each_occupied(masks, n_own / 32, warp_count,
+                              [&](int rank, int own) { list[rank] = own; });
 
-    // The lane pads of the staged rows, once they land: the row's last
-    // kPad lanes to the left, its first kPad to the right (the plain
-    // roll's wrap). The buffer is refilled by bulk copies later, hence the
-    // proxy fence.
-    if constexpr (M != Mode::kZero) {
-      mbar_wait(bar, phase);
-      phase ^= 1u;
+      // The lane pads of the staged rows, once they land: the row's last
+      // kPad lanes to the left, its first kPad to the right (the plain
+      // roll's wrap). The buffer is refilled by bulk copies later, hence
+      // the proxy fence.
+      mbar_wait(bars, halo_phase);
+      halo_phase ^= 1u;
       for (int t = threadIdx.x; t < copies * 2 * kPad; t += kThreads) {
         const int i = t % (2 * kPad), row = t / (2 * kPad);
         float* r = halo + row / (rows + 2) * plane + row % (rows + 2) * run;
@@ -663,96 +693,100 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
       fence_proxy_async();
       __syncthreads();
-    }
 
-    if constexpr (M == Mode::kFull) {
-      // c. Walk the occupied own slots.
-      for (int t = threadIdx.x; t < count; t += kThreads) {
-        const int own = list[t];
-        const int ry = own / g.L, l = own - ry * g.L;
-        walk<K>(hs, plane + (ry + 1) * run + kPad + l, g, z, r0 + ry, l,
-                base + own, in, out, m);
-      }
-    } else if constexpr (M == Mode::kPads) {
-      // Every slot of the band: f32(1e-37) · Σ fields (outer), dz (inner).
-      for (int t = threadIdx.x; t < n_own; t += kThreads) {
-        const int ry = t / g.L, l = t - ry * g.L;
-        const int own = plane + (ry + 1) * run + kPad + l;
-        float acc = 0.0f;
+      if constexpr (M == Mode::kFull) {
+        // c. Walk the occupied own slots.
+        for (int t = threadIdx.x; t < count; t += kThreads) {
+          const int own = list[t];
+          const int ry = own / g.L, l = own - ry * g.L;
+          walk<K>(hs, plane + (ry + 1) * run + kPad + l, g, z, r0 + ry, l,
+                  base + own, in, out, m);
+        }
+      } else if constexpr (M == Mode::kPads) {
+        // Every slot of the band: f32(1e-37) · Σ fields (outer), dz
+        // (inner).
+        for (int t = threadIdx.x; t < n_own; t += kThreads) {
+          const int ry = t / g.L, l = t - ry * g.L;
+          const int own = plane + (ry + 1) * run + kPad + l;
+          float acc = 0.0f;
 #pragma unroll
-        for (int f = 0; f < kFields; ++f)
+          for (int f = 0; f < kFields; ++f)
 #pragma unroll
-          for (int dz = -1; dz <= 1; ++dz)
-            acc = add(acc,
-                      f < 3 ? halo[f * field + dz * plane + own]
-                      : f == 9
-                          ? halo[3 * field + dz * plane + own]
-                          : in.f[f][partner(g, z, r0 + ry, l, dz, 0, 0)]);
-        out.c[0][base + t] = mul(acc, 1e-37f);
-      }
-    } else if constexpr (M == Mode::kScreen) {
-      // Pass 1 of every occupied own slot, its margin over its list entry
-      // (the thread that reads an entry writes it) and into a running
-      // max; then the band's max margin. Where it is > 0 (a band the
-      // production sweep would walk), the margins go to their slots in
-      // list order and −1 into the empty slots; else output 0 keeps its
-      // +0 and nothing is stored.
-      float band_max = -1.0f;
-      for (int t = threadIdx.x; t < count; t += kThreads) {
-        const int own = list[t];
-        const int ry = own / g.L, l = own - ry * g.L;
-        const float mg = margin<K>(hs, plane + (ry + 1) * run + kPad + l, m);
-        list[t] = __float_as_int(mg);
-        band_max = nan_max(band_max, mg);
-      }
-      // warp_count is free once the list is built; the branch is the
-      // block's, and its barrier keeps the reduction's reads of `red`
-      // before each_occupied's writes.
-      float* red = reinterpret_cast<float*>(warp_count);
-      if (block_max(band_max, red) > 0.0f) {
-        __syncthreads();
-        each_occupied(masks, n_own / 32, warp_count, [&](int rank, int own) {
-          out.c[0][base + own] = __int_as_float(list[rank]);
-        });
-        for (int t = threadIdx.x; t < n_own; t += kThreads)
-          if (!(masks[t >> 5] >> (t & 31) & 1u)) out.c[0][base + t] = -1.0f;
+            for (int dz = -1; dz <= 1; ++dz)
+              acc = add(
+                  acc, f < 3    ? halo[f * field + dz * plane + own]
+                       : f == 9 ? halo[3 * field + dz * plane + own]
+                                : in.f[f][partner(g, z, r0 + ry, l, dz, 0, 0)]);
+          out.c[0][base + t] = mul(acc, 1e-37f);
+        }
+      } else if constexpr (M == Mode::kScreen) {
+        // Pass 1 of every occupied own slot, its margin over its list
+        // entry (the thread that reads an entry writes it) and into a
+        // running max; then the band's max margin. Where it is > 0 (a band
+        // the production sweep would walk), the margins go to their slots
+        // in list order and −1 into the empty slots; else output 0 keeps
+        // its +0 and nothing is stored.
+        float band_max = -1.0f;
+        for (int t = threadIdx.x; t < count; t += kThreads) {
+          const int own = list[t];
+          const int ry = own / g.L, l = own - ry * g.L;
+          const float mg =
+              margin<K>(hs, plane + (ry + 1) * run + kPad + l, m);
+          list[t] = __float_as_int(mg);
+          band_max = nan_max(band_max, mg);
+        }
+        // warp_count is free once the list is built; the branch is the
+        // block's, and its barrier keeps the reduction's reads of `red`
+        // before each_occupied's writes.
+        float* red = reinterpret_cast<float*>(warp_count);
+        if (block_max(band_max, red) > 0.0f) {
+          __syncthreads();
+          each_occupied(masks, n_own / 32, warp_count,
+                        [&](int rank, int own) {
+                          out.c[0][base + own] = __int_as_float(list[rank]);
+                        });
+          for (int t = threadIdx.x; t < n_own; t += kThreads)
+            if (!(masks[t >> 5] >> (t & 31) & 1u))
+              out.c[0][base + t] = -1.0f;
+        }
       }
     }
-    if (threadIdx.x == 0) *next = following;
+    if (threadIdx.x == 0) {
+      *next = claimed;
+      claimed = following;
+    }
+  }
+  // This block's claims are all made (the last one, past the bands, ended
+  // its loop); the block that counts itself done last leaves the cursor
+  // zeroed for the next call on the stream.
+  if (threadIdx.x == 0) {
+    __threadfence();
+    if (atomicAdd(cursor + 1, 1) == static_cast<int>(gridDim.x) - 1) {
+      atomicExch(cursor, 0);
+      atomicExch(cursor + 1, 0);
+    }
   }
 }
 
-// Launches the gate and the sweep on `stream`; returns a cudaError_t value
-// (0 on success).
+// Launches the sweep on `stream` (its persistent grid cached per (kernel,
+// shared memory, device): csrc/persistent.cuh); returns a cudaError_t
+// value (0 on success).
 template <int K, Mode M>
 int launch_k(const InFields& in, const float* occ, const OutComps& out,
              const Geom& g, int band_rows, int smem_bytes, const Model& m,
-             int* work, cudaStream_t stream) {
+             int* cursor, int device, cudaStream_t stream) {
   const int run = g.L + 2 * lane_pad(K);
   if (static_cast<size_t>(smem_bytes) != smem_bytes_of(band_rows, g.L, run))
     return cudaErrorInvalidValue;
   const int bands = (g.Y + band_rows - 1) / band_rows;
-  const Work w{work, g.Z * bands, band_rows * g.L / 32};
+  const int smem = M == Mode::kZero ? kTail : smem_bytes;
   auto* kernel = contact_band_kernel<K, M>;
-  cudaError_t rc = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
+  int grid = 0;
+  const cudaError_t rc = sph::persistent_grid(
+      reinterpret_cast<const void*>(kernel), kThreads, smem, device, &grid);
   if (rc != cudaSuccess) return rc;
-  int per_sm = 0, device = 0, sms = 0;
-  rc = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                     kThreads, smem_bytes);
-  if (rc != cudaSuccess) return rc;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  rc = cudaGetDevice(&device);
-  if (rc != cudaSuccess) return rc;
-  rc = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (rc != cudaSuccess) return rc;
-  contact_gate_kernel<<<g.Z * bands, kGateThreads, 0, stream>>>(
-      occ, out, g, band_rows, bands, w);
-  rc = cudaGetLastError();
-  if (rc != cudaSuccess) return rc;
-  const int grid = std::min(per_sm * sms, w.bands_all);
-  kernel<<<grid, kThreads, smem_bytes, stream>>>(in, out, g, band_rows, bands,
-                                                 m, w);
+  kernel<<<std::min(grid, g.Z * bands), kThreads, smem, stream>>>(
+      in, occ, out, g, band_rows, bands, m, cursor);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -760,20 +794,20 @@ int launch_k(const InFields& in, const float* occ, const OutComps& out,
 template <Mode M>
 int launch_mode(const InFields& in, const float* occ, const OutComps& out,
                 const Geom& g, int K, int band_rows, int smem_bytes,
-                const Model& m, int* work, cudaStream_t stream) {
-  if (g.Z < 1 || g.Y < 1 || g.L < 32 || g.L % 32 || band_rows < 1 ||
-      band_rows * g.L > 32 * kMaxWords)
+                const Model& m, int* cursor, int device,
+                cudaStream_t stream) {
+  if (g.Z < 1 || g.Y < 1 || g.L < 32 || g.L % 32 || band_rows < 1)
     return cudaErrorInvalidValue;
   switch (K) {
     case 1:
-      return launch_k<1, M>(in, occ, out, g, band_rows, smem_bytes, m, work,
-                            stream);
+      return launch_k<1, M>(in, occ, out, g, band_rows, smem_bytes, m, cursor,
+                            device, stream);
     case 2:
-      return launch_k<2, M>(in, occ, out, g, band_rows, smem_bytes, m, work,
-                            stream);
+      return launch_k<2, M>(in, occ, out, g, band_rows, smem_bytes, m, cursor,
+                            device, stream);
     case 4:
-      return launch_k<4, M>(in, occ, out, g, band_rows, smem_bytes, m, work,
-                            stream);
+      return launch_k<4, M>(in, occ, out, g, band_rows, smem_bytes, m, cursor,
+                            device, stream);
     default:
       return cudaErrorInvalidValue;
   }
@@ -798,28 +832,30 @@ OutComps out_comps(void* const* outs) {
 // returns a cudaError_t value (0 on success); nothing is synchronised.
 // `band_rows` and `smem_bytes` come from ops/contact.py `band_plan`; a
 // mismatch with the kernel's own layout returns cudaErrorInvalidValue.
-// `work` is a zeroed int32 buffer of 2 + Z·bands·(1 + band_rows·L/32)
-// entries. Built for K ∈ {1, 2, 4} (the repository's colony scenes);
-// anything else is refused.
+// `cursor` is the stream's pair of zeroed int32 counters (the head of this
+// file), which the launch leaves zeroed; `device` is the current device.
+// Built for K ∈ {1, 2, 4} (the repository's colony scenes); anything else
+// is refused.
 extern "C" int sph_contact_sweep(const void* const* fields, const float* occ,
-                                 void* const* outs, int* work, int Z, int Y,
+                                 void* const* outs, int* cursor, int Z, int Y,
                                  int L, int K, int band_rows, int smem_bytes,
                                  float eps, float slip_eps,
                                  float repulsion, float torque_factor,
-                                 float mult, void* stream) {
+                                 float mult, int device, void* stream) {
   return launch_mode<Mode::kFull>(
       in_fields(fields), occ, out_comps(outs), Geom{Z, Y, L}, K, band_rows,
-      smem_bytes, Model{eps, slip_eps, repulsion, torque_factor, mult}, work,
-      static_cast<cudaStream_t>(stream));
+      smem_bytes, Model{eps, slip_eps, repulsion, torque_factor, mult},
+      cursor, device, static_cast<cudaStream_t>(stream));
 }
 
 // The floor modes (mode 0 zero, 1 pads, 2 screen; see the head of this
 // file), with the arguments of `sph_contact_sweep`; the screen reads only
 // `eps` of the model.
 extern "C" int sph_contact_floor(const void* const* fields, const float* occ,
-                                 void* const* outs, int* work, int Z, int Y,
+                                 void* const* outs, int* cursor, int Z, int Y,
                                  int L, int K, int band_rows, int smem_bytes,
-                                 int mode, float eps, void* stream) {
+                                 int mode, float eps, int device,
+                                 void* stream) {
   const InFields in = in_fields(fields);
   const OutComps out = out_comps(outs);
   const Geom g{Z, Y, L};
@@ -828,13 +864,13 @@ extern "C" int sph_contact_floor(const void* const* fields, const float* occ,
   switch (mode) {
     case static_cast<int>(Mode::kZero):
       return launch_mode<Mode::kZero>(in, occ, out, g, K, band_rows,
-                                      smem_bytes, m, work, st);
+                                      smem_bytes, m, cursor, device, st);
     case static_cast<int>(Mode::kPads):
       return launch_mode<Mode::kPads>(in, occ, out, g, K, band_rows,
-                                      smem_bytes, m, work, st);
+                                      smem_bytes, m, cursor, device, st);
     case static_cast<int>(Mode::kScreen):
       return launch_mode<Mode::kScreen>(in, occ, out, g, K, band_rows,
-                                        smem_bytes, m, work, st);
+                                        smem_bytes, m, cursor, device, st);
     default:
       return cudaErrorInvalidValue;
   }

@@ -24,6 +24,7 @@ import torch
 
 SOURCES = ("fluid_sweep.cu", "rebin.cu", "contact_sweep.cu",
            "expand_rows.cu")
+HEADERS = ("persistent.cuh",)   # included by the sources; in the hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -47,16 +48,17 @@ _ARGTYPES = {
     # in[6], out[7], codes, dropped, n0, k, c, x, planes, stream
     "sph_rebin_place": [ctypes.POINTER(_P)] * 2 + [_P] * 2 + [_I] * 5
     + [_P],
-    # fields[10], occ, outs[6], work, Z, Y, L, K, band_rows, smem_bytes,
-    # eps, slip_eps, repulsion, torque_factor, mult, stream
+    # fields[10], occ, outs[6], cursor, Z, Y, L, K, band_rows,
+    # smem_bytes, eps, slip_eps, repulsion, torque_factor, mult, device,
+    # stream
     "sph_contact_sweep": [ctypes.POINTER(_P), _P, ctypes.POINTER(_P), _P]
-    + [_I] * 6 + [_F] * 5 + [_P],
-    # fields[10], occ, outs[6], work, Z, Y, L, K, band_rows, smem_bytes,
-    # mode, eps, stream
+    + [_I] * 6 + [_F] * 5 + [_I, _P],
+    # fields[10], occ, outs[6], cursor, Z, Y, L, K, band_rows, smem_bytes,
+    # mode, eps, device, stream
     "sph_contact_floor": [ctypes.POINTER(_P), _P, ctypes.POINTER(_P), _P]
-    + [_I] * 7 + [_F, _P],
-    # rows, key, start, out, n, ncol, slots, fills (host), stream
-    "sph_expand_rows": [_P] * 4 + [_I] * 3 + [ctypes.POINTER(_F), _P],
+    + [_I] * 7 + [_F, _I, _P],
+    # rows, key, out, n, ncol, slots, fills (host), device, stream
+    "sph_expand_rows": [_P] * 3 + [_I] * 3 + [ctypes.POINTER(_F), _I, _P],
 }
 
 
@@ -75,7 +77,7 @@ _LOADED: Library | None = None
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     return h.hexdigest()[:16]
@@ -151,7 +153,7 @@ def check_operands(name: str, tensors, shape, device) -> None:
 def check_device(name: str, tensors, device) -> None:
     """Raise unless every tensor lies on `device`, a CUDA device."""
     for t in tensors:
-        if t.device != device or device.type != "cuda":
+        if device.type != "cuda" or t.device != device:
             raise ValueError(f"{name}: expected CUDA tensors on {device}, "
                              f"got {t.device}")
 
@@ -173,18 +175,20 @@ def slab_planes(name: str, tensors, rest) -> int:
 
 def check_layout(name: str, tensors, shape) -> None:
     """Raise unless every tensor is a contiguous f32 tensor of `shape`,
-    small enough for the kernels' 32-bit indexing."""
+    small enough for the kernels' 32-bit indexing (checked once: every
+    tensor has `shape`)."""
+    shape = torch.Size(shape)
     for t in tensors:
         if t.dtype != torch.float32:
             raise TypeError(f"{name}: expected float32, got {t.dtype}")
-        if tuple(t.shape) != tuple(shape):
+        if t.shape != shape:
             raise ValueError(f"{name}: expected shape {tuple(shape)}, "
                              f"got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: expected a contiguous tensor")
-        if t.numel() >= 2 ** 31:
-            raise ValueError(f"{name}: {t.numel()} elements overflow the "
-                             f"kernel's 32-bit indexing")
+    if tensors and shape.numel() >= 2 ** 31:
+        raise ValueError(f"{name}: {shape.numel()} elements overflow the "
+                         f"kernel's 32-bit indexing")
 
 
 def check_launch(name: str, rc: int) -> None:

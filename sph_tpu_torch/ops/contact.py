@@ -7,15 +7,19 @@ A CPU tensor goes to the plain `_sweep_plain`
 raises — there is no fallback. On the card the kernel equals the plain
 version bitwise (same terms, same order, no FMA), with +0 on empty slots;
 the contract it is held to is the JAX twin's, rtol 1e-5 and atol
-1e-6·max|x| on every slot. Outputs are allocated here with torch.empty
-(the kernel writes every slot); the kernel launches on PyTorch's current
-stream and is not synchronised.
+1e-6·max|x| on every slot. Outputs are allocated here with one
+torch.empty (the kernel writes every slot; the six planes are views of
+it); the kernel launches on PyTorch's current stream, once a call, and is
+not synchronised. Its band cursor, two int32 counters the kernel leaves
+zeroed, is kept here per (device, stream) and made at the stream's first
+launch.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from dataclasses import dataclass
 
 import torch
@@ -33,8 +37,10 @@ from sph_tpu_torch.ops.fluid import SMEM_LIMIT, SMEM_TARGET
 NCOMP = 6  # force[3], torque[3]
 THREADS = 256                   # kThreads in csrc/contact_sweep.cu
 STAGED = 4                      # kStaged: px, py, pz, rad
+TAIL = 32                       # kTail: the mbarriers and the claim slot
 MAX_BAND_ROWS = 8
 SLOT_COUNTS = (1, 2, 4)         # the K the kernel is built for
+CURSOR_INTS = 2                 # the band cursor: next band, blocks done
 
 
 def lane_pad(k: int) -> int:
@@ -48,9 +54,10 @@ def lane_pad(k: int) -> int:
 class BandPlan:
     """One band = `rows` whole rows of one plane; a sweep block stages, per
     band, px, py, pz and rad of planes z − 1, z, z + 1 and rows r0 − 1 ..
-    r0 + rows, each row `run` = L + 2·lane_pad(K) floats, and lists the
-    band's occupied slots, in `smem_bytes` of dynamic shared memory
-    (csrc/contact_sweep.cu `smem_bytes_of`)."""
+    r0 + rows, each row `run` = L + 2·lane_pad(K) floats, the occupancy of
+    the band and of the next one (two buffers of rows·L floats), and
+    lists the band's occupied slots from its masks, in `smem_bytes` of
+    dynamic shared memory (csrc/contact_sweep.cu `smem_bytes_of`)."""
 
     rows: int          # rows a band holds (the last band may be shorter)
     bands: int         # bands per plane
@@ -61,7 +68,8 @@ class BandPlan:
 def _plan(spec, rows: int) -> BandPlan:
     run = spec.L + 2 * lane_pad(spec.k)
     halo = STAGED * 3 * (rows + 2) * run
-    smem = 4 * (halo + rows * spec.L + THREADS // 32) + 16
+    own = rows * spec.L        # the occupancy buffers, list and masks
+    smem = 4 * (halo + 3 * own + own // 32 + THREADS // 32) + TAIL
     return BandPlan(rows=rows, bands=-(-spec.ny // rows), run=run,
                     smem_bytes=smem)
 
@@ -96,12 +104,25 @@ def plan_of(spec, rows: int | None = None) -> BandPlan:
     return band_plan(spec) if rows is None else _plan(spec, rows)
 
 
-def work_ints(spec, plan: BandPlan, nz: int) -> int:
-    """Entries of the kernel's zeroed int32 work buffer for `nz` planes: a
-    count, a cursor, the band list and each band's occupancy masks
-    (csrc/contact_sweep.cu `Work`)."""
-    bands = nz * plan.bands
-    return 2 + bands + bands * plan.rows * spec.L // 32
+_CURSORS: dict = {}   # (device, stream handle) -> the stream's band cursor
+_ARGS = threading.local()   # each thread's ctypes pointer arrays
+
+
+def launch_on_cursor(name: str, dev, stream: int, launch) -> None:
+    """launch(cursor pointer) → cudaError_t, with the band cursor of
+    `stream` on `dev`: CURSOR_INTS zeroed int32, made at the stream's first
+    launch and left zeroed by every launch that runs (calls on one stream
+    run in order). A launch that fails drops the cursor (a call that did
+    not run to its end may leave counts in it), then raises."""
+    key = (dev, stream)
+    cursor = _CURSORS.get(key)
+    if cursor is None:
+        cursor = _CURSORS[key] = torch.zeros(CURSOR_INTS, dtype=torch.int32,
+                                             device=dev)
+    rc = launch(cursor.data_ptr())
+    if rc != 0:
+        _CURSORS.pop(key, None)
+        check_launch(name, rc)
 
 
 def contact_sweep(fields, occ, params, spec, rows: int | None = None):
@@ -111,9 +132,9 @@ def contact_sweep(fields, occ, params, spec, rows: int | None = None):
     sharded step passes halo-padded slabs of P + 2 planes (and, over a 2D
     mesh, a spec of its local rows); `spec` gives Y, L and K. `rows`
     forces the band height (`plan_of`)."""
-    from sph_tpu_torch.physics import contact_dense as cd
-
     if fields[0].device.type == "cpu":
+        from sph_tpu_torch.physics import contact_dense as cd
+
         return cd._sweep_plain(
             fields, lambda *a: cd.contact_pair_terms(params, *a), NCOMP,
             spec)
@@ -129,10 +150,10 @@ def contact_sweep(fields, occ, params, spec, rows: int | None = None):
 def launch_bands(name, entry, fields, occ, spec, plan: BandPlan, *model):
     """Check the operands and call a band-sweep entry point of
     csrc/contact_sweep.cu (`sph_contact_sweep`, `sph_contact_floor`) with
-    the pointers, the geometry, `plan`, then `model` and the stream;
-    returns its 6 output planes (torch.empty: the kernels write every
-    slot)."""
-    dev = fields[0].device
+    the pointers, the cursor, the geometry, `plan`, then `model`, the
+    device and the stream; returns its 6 output planes (views of one
+    torch.empty: the kernel writes every slot)."""
+    dev = occ.device
     check_device(name, (*fields, occ), dev)
     if len(fields) != 10:
         raise ValueError(f"{name}: expected 10 fields, got {len(fields)}")
@@ -141,14 +162,18 @@ def launch_bands(name, entry, fields, occ, spec, plan: BandPlan, *model):
         raise ValueError(f"{name}: a band of {plan.rows} rows needs "
                          f"{plan.smem_bytes} bytes of shared memory, more "
                          f"than the {SMEM_LIMIT} a block has")
-    work = torch.zeros(work_ints(spec, plan, nz), dtype=torch.int32,
-                       device=dev)
-    outs = [torch.empty_like(occ) for _ in range(NCOMP)]
-    ins_p = (ctypes.c_void_p * 10)(*(f.data_ptr() for f in fields))
-    outs_p = (ctypes.c_void_p * NCOMP)(*(o.data_ptr() for o in outs))
+    out = torch.empty((NCOMP, *occ.shape), dtype=torch.float32, device=dev)
+    outs = list(out.unbind(0))
+    args = getattr(_ARGS, "arrays", None)
+    if args is None:
+        args = _ARGS.arrays = ((ctypes.c_void_p * 10)(),
+                               (ctypes.c_void_p * NCOMP)())
+    ins_p, outs_p = args
+    ins_p[:] = [f.data_ptr() for f in fields]
+    outs_p[:] = [o.data_ptr() for o in outs]
+    stream = stream_of(dev)
     with torch.cuda.device(dev):
-        rc = entry(ins_p, occ.data_ptr(), outs_p, work.data_ptr(), nz,
-                   spec.ny, spec.L, spec.k, plan.rows, plan.smem_bytes,
-                   *model, stream_of(dev))
-    check_launch(name, rc)
+        launch_on_cursor(name, dev, stream, lambda cursor: entry(
+            ins_p, occ.data_ptr(), outs_p, cursor, nz, spec.ny, spec.L,
+            spec.k, plan.rows, plan.smem_bytes, *model, dev.index, stream))
     return outs

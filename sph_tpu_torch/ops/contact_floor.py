@@ -1,6 +1,6 @@
 """K4's floor modes: the colony contact sweep run one stage at a time, to
-split its time into the empty launch, the halo staging, the screen and the
-pair terms.
+split its time into the six +0 planes, the gate and the halo staging, the
+screen and the pair terms.
 
 Counterparts of the stub kernels of tools/probe_kernel_floor.py
 (`zero_kernel` :78, `pads_kernel` :84, `screen_kernel` :105), which that
@@ -9,8 +9,10 @@ reaches the Pallas contact sweep's `pl.pallas_call`. On the card each is a
 compile-time stage mode of K4's own band sweep (csrc/contact_sweep.cu
 `sph_contact_floor`):
 
-- "zero"   — the gate, then +0 into every listed band's six planes;
-- "pads"   — and the halo staging (TMA) and the lane pads;
+- "zero"   — +0 into every band's six planes, reading nothing (as
+             `zero_kernel` writes zeros into every block);
+- "pads"   — the gate (the band's occupancy, staged by TMA, into masks),
+             the halo staging (TMA) and the lane pads;
 - "screen" — and the list of the band's occupied slots and pass 1 (the 62
              screens of each at K = 2) as a running margin max; only a
              band that hits stores (pass 1 again, its margins);

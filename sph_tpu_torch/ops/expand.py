@@ -4,8 +4,8 @@
 
 A CPU tensor goes to the plain `_scatter_sorted`
 (sph_tpu_torch.physics.contact_dense) on the targets the keys give; a CUDA
-tensor launches the kernel or raises — there is no fallback. Both give the
-same bits.
+tensor launches the kernel, once a call, or raises — there is no fallback.
+Both give the same bits.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ import torch
 from sph_tpu_torch.ops import LAUNCHES
 from sph_tpu_torch.ops.build import check_launch, library, stream_of
 
-RANGE = 512    # slots per placement block (kRange in csrc/expand_rows.cu)
+RANGE = 512    # slots per range (kRange in csrc/expand_rows.cu)
 
 
 def expand_rows(rows, key, fills, spec) -> torch.Tensor:
@@ -26,13 +26,13 @@ def expand_rows(rows, key, fills, spec) -> torch.Tensor:
     the pack's nondecreasing key (`_rank_and_slots`): a row goes to slot
     `key` when it fits, i.e. when its key is below `spec.slots` and differs
     from the key of the row before (`targets_of_keys`)."""
-    from sph_tpu_torch.physics.contact_dense import (
-        _scatter_sorted,
-        targets_of_keys,
-    )
-
     slots = spec.slots
     if rows.device.type == "cpu":
+        from sph_tpu_torch.physics.contact_dense import (
+            _scatter_sorted,
+            targets_of_keys,
+        )
+
         flat, fits = targets_of_keys(key, slots)
         planes = _scatter_sorted(rows.unbind(1), fills, flat, fits, spec)
         return torch.stack([p.reshape(-1) for p in planes])
@@ -50,13 +50,11 @@ def expand_rows(rows, key, fills, spec) -> torch.Tensor:
     if ncol * slots >= 2 ** 31:
         raise ValueError("expand_rows: output too large for 32-bit slots")
     out = torch.empty((ncol, slots), dtype=torch.float32, device=dev)
-    start = torch.empty(-(-slots // RANGE) + 1, dtype=torch.int32,
-                        device=dev)
     fills_c = (ctypes.c_float * ncol)(*fills)
     with torch.cuda.device(dev):
         rc = library().lib.sph_expand_rows(
-            rows.data_ptr(), key.data_ptr(), start.data_ptr(),
-            out.data_ptr(), n, ncol, slots, fills_c, stream_of(dev))
+            rows.data_ptr(), key.data_ptr(), out.data_ptr(), n, ncol, slots,
+            fills_c, dev.index, stream_of(dev))
     check_launch("expand_rows", rc)
     LAUNCHES["expand"] += 1
     return out

@@ -14,8 +14,9 @@ payload fields (with −0 == +0) and on `dropped`. The colony contact sweep
 finite fields (csrc/contact_sweep.cu states what its skip hides from
 non-finite ones), and reports `bitwise` and `empty_zero` as K1/K2 do; the
 contact pack's placement (K5) is bitwise on all 11 planes, −0 included.
-`expand_lookup` is K5's row lookup and `rebin_codes` / `rebin_walk` are
-K3's two passes, written out in plain PyTorch for the CPU tests;
+`expand_lookup` is K5's row lookup (with `expand_search`) and
+`rebin_codes` / `rebin_walk` are K3's two passes, written out in plain
+PyTorch for the CPU tests;
 `empty_layout`, `place_particle`, `moved_layout` and `overflow_layout`
 build the rebin's test layouts.
 
@@ -228,35 +229,77 @@ def check_expand(state, spec) -> dict:
             "dead": int((key >= spec.slots).sum())}
 
 
-def expand_lookup(key, slots: int, range_slots: int = RANGE):
+EXPAND_THREADS = 256   # kThreads in csrc/expand_rows.cu: a batch, a search
+
+
+def expand_search(key, target: int) -> tuple[int, int]:
+    """K5's block search (csrc/expand_rows.cu `first_at_least`) step for
+    step: EXPAND_THREADS threads probe the splitters lo + ⌊span·(j + 1) /
+    (EXPAND_THREADS + 1)⌋ of the window [lo, hi), count those whose key is
+    below `target` and narrow the window to the piece that holds the
+    answer, until it holds at most EXPAND_THREADS rows; then one probe of
+    them all. Returns (the first row whose key is ≥ target, n if none;
+    the rounds of probes, the last one included)."""
+    n = key.numel()
+    lanes = torch.arange(EXPAND_THREADS)
+    split = EXPAND_THREADS + 1
+    lo, hi, rounds = 0, n, 1
+    while hi - lo > EXPAND_THREADS:
+        span = hi - lo
+        f = int((key[lo + span * (lanes + 1) // split] < target).sum())
+        lo0 = lo
+        if f > 0:
+            lo = lo0 + span * f // split + 1
+        if f < EXPAND_THREADS:
+            hi = lo0 + span * (f + 1) // split
+        rounds += 1
+    p = (lo + lanes)[lo + lanes < hi]
+    return lo + int((key[p] < target).sum()), rounds
+
+
+def expand_lookup(key, slots: int, chunk: int, range_slots: int = RANGE):
     """K5's row lookup (csrc/expand_rows.cu) in plain PyTorch, step for
-    step: the start table (start[r] = the first row whose key ≥
-    r·range_slots, for r up to the number of ranges; row i fills the
-    entries (range(key[i − 1]), range(key[i])]), then per range its rows
-    [start[r], start[r + 1]) that fit — key in the range and unlike the
-    row before's. Returns (slot → row [slots] int64, −1 where the fill
-    stays; the start table). Refuses a key that is not nondecreasing, as
-    `flat` is once a cell overflows: no search can find a range's rows by
-    it."""
+    step: block b takes ranges [b·chunk, (b + 1)·chunk) of `range_slots`
+    slots, finds its first range's first row by `expand_search`, and
+    carries the row cursor from range to range: per range it reads
+    EXPAND_THREADS keys from the cursor at a time, places the rows that
+    fit (key in the range and unlike the row before's), moves the cursor
+    past the rows whose key is below the range's end, and ends the range
+    at a batch that is not all such rows. Returns (slot → row [slots]
+    int64, −1 where the fill stays; the cursor at each range's start and,
+    last, at the end: ranges + 1 rows). Refuses a key that is not
+    nondecreasing, as `flat` is once a cell overflows: no search can find
+    a range's rows by it."""
     k = key.long()
     n = k.numel()
     if n > 1 and bool((k[1:] < k[:-1]).any()):
         raise ValueError("expand_lookup: the key is not nondecreasing, so "
                          "it cannot locate a range's rows (is it `flat`?)")
+    past = 2 ** 31 - 1                     # INT_MAX: no key past the rows
+    k_ext = torch.cat([k, torch.tensor([past])])
     ranges = -(-slots // range_slots)
-    cur = torch.cat([torch.clamp(k // range_slots, max=ranges),
-                     torch.tensor([ranges])])
-    prev = torch.cat([torch.tensor([-1]), cur[:-1]])
-    start = torch.repeat_interleave(torch.arange(n + 1), cur - prev)
+    start = torch.full((ranges + 1,), -1, dtype=torch.int64)
     slot_row = torch.full((slots,), -1, dtype=torch.int64)
-    for r in range(ranges):
-        s0 = r * range_slots
-        span = min(range_slots, slots - s0)
-        i = torch.arange(int(start[r]), int(start[r + 1]))
-        ki = k[i]
-        before = torch.where(i > 0, k[torch.clamp(i - 1, min=0)], -1)
-        fit = (ki >= s0) & (ki - s0 < span) & (ki != before)
-        slot_row[ki[fit]] = i[fit]
+    lanes = torch.arange(EXPAND_THREADS)
+    for r_begin in range(0, ranges, chunk):
+        cursor = expand_search(k, r_begin * range_slots)[0]
+        for r in range(r_begin, min(r_begin + chunk, ranges)):
+            start[r] = cursor
+            s0 = r * range_slots
+            span, s1 = min(range_slots, slots - s0), s0 + range_slots
+            while True:
+                i = cursor + lanes
+                ki = k_ext[torch.clamp(i, max=n)]
+                before = k_ext[torch.clamp(i - 1, min=0, max=n)]
+                fit = ((i < n) & (ki >= s0) & (ki - s0 < span)
+                       & ((i == 0) | (ki != before)))
+                slot_row[ki[fit]] = i[fit]
+                taken = int((ki < s1).sum())
+                cursor += taken
+                if taken < EXPAND_THREADS:
+                    break
+        if r_begin + chunk >= ranges:
+            start[ranges] = cursor   # the last block's cursor at the end
     return slot_row, start
 
 

@@ -1,9 +1,10 @@
 """The colony kernels' host-side geometry, on the CPU: K4's band planner
-(ops/contact.py `band_plan`) and its halo indexing, and K5's row lookup
-(csrc/expand_rows.cu, written out in plain PyTorch as
-sph_tpu_torch.utils.verify `expand_lookup`) against the pack's own
-bookkeeping `_rank_and_slots`. The kernels themselves are checked on the
-card (tests/test_torch_cuda.py, chip_smoke.py)."""
+(ops/contact.py `band_plan`), its halo indexing and its wrapper's band
+cursor, and K5's row lookup (csrc/expand_rows.cu, written out in plain
+PyTorch as sph_tpu_torch.utils.verify `expand_lookup` and
+`expand_search`) against the pack's own bookkeeping `_rank_and_slots`.
+The kernels themselves are checked on the card (tests/test_torch_cuda.py,
+chip_smoke.py)."""
 
 import dataclasses
 
@@ -14,7 +15,8 @@ from sph_tpu_torch.ops import contact as oc
 from sph_tpu_torch.ops.expand import RANGE, expand_rows
 from sph_tpu_torch.ops.fluid import SMEM_LIMIT, SMEM_TARGET
 from sph_tpu_torch.physics import contact_dense as cd
-from sph_tpu_torch.utils.verify import blob, expand_lookup
+from sph_tpu_torch.utils.verify import EXPAND_THREADS as THREADS
+from sph_tpu_torch.utils.verify import blob, expand_lookup, expand_search
 
 torch.set_num_threads(1)
 
@@ -56,14 +58,16 @@ def test_band_plan_fits_and_covers(case):
     assert bool((seen == 1).all())
     if case == "colony_1m":
         assert spec.shape() == (186, 192, 384)
-        assert (plan.rows, plan.bands, plan.smem_bytes) == (3, 64, 98_736)
-    # The work buffer holds the list and a whole number of 32-slot
-    # occupancy masks per band.
-    assert plan.rows * spec.L % 32 == 0
-    assert plan.rows * spec.L <= 32 * 1024      # the gate's mask buffer
-    bands = spec.nz * plan.bands
-    assert oc.work_ints(spec, plan, spec.nz) == 2 + bands * (
-        1 + plan.rows * spec.L // 32)
+        # The halo, list and warp counts (98,720 B), two occupancy buffers
+        # of 4,608 B, 36 mask words and the 32-byte tail.
+        assert (plan.rows, plan.bands, plan.smem_bytes) == (3, 64, 108_112)
+    # The block holds the band's occupancy and the next band's (two
+    # buffers of rows·L floats) and a whole number of 32-slot masks.
+    own = plan.rows * spec.L
+    assert own % 32 == 0
+    halo = oc.STAGED * 3 * (plan.rows + 2) * plan.run
+    assert plan.smem_bytes == 4 * (halo + 2 * own + own + own // 32
+                                   + oc.THREADS // 32) + oc.TAIL
 
 
 def test_band_plan_refuses_what_it_cannot_take():
@@ -121,22 +125,41 @@ def slot_rows(flat, fits, slots):
     return want
 
 
+def start_table(key, slots, range_slots):
+    """The first row whose key ≥ r·range_slots, for r up to the number of
+    ranges (n if none): the bounds the lookup must give each range."""
+    ranges = -(-slots // range_slots)
+    return torch.searchsorted(key.long(),
+                              torch.arange(ranges + 1) * range_slots)
+
+
 @pytest.mark.parametrize("case,kw", [
     ("overflow_and_dead", dict(n=400, k=4, alive=380)),
     ("k2_crowded", dict(n=1500, k=2, radius=8.0, alive=1490)),
     ("k1_all_live", dict(n=300, k=1, seed=5)),
 ])
 @pytest.mark.parametrize("range_slots", [RANGE, 128])
-def test_expand_lookup_places_the_packs_rows(case, kw, range_slots):
+@pytest.mark.parametrize("chunk", [1, 2, 5, "all"])
+def test_expand_lookup_places_the_packs_rows(case, kw, range_slots, chunk):
+    """The lookup with one range a block (a search each, as the kernel
+    runs a small pack), two (as it runs a pack that fills the card), five
+    (a cursor carried across four ranges) and every range in one block;
+    blocks whose ranges hold no row (the layout's sentinel margin at its
+    end) too."""
     st, p, spec = blob(device="cpu", **kw)
     rows, flat, fits, key, overflow, _ = cd._sort_with_payload(st, spec)
     if case != "k1_all_live":
         assert int(overflow) > 0
         assert int((key >= spec.slots).sum()) == st.capacity - kw["alive"]
-    got, start = expand_lookup(key, spec.slots, range_slots)
+    ranges = -(-spec.slots // range_slots)
+    chunk = ranges if chunk == "all" else chunk
+    got, start = expand_lookup(key, spec.slots, chunk, range_slots)
     assert torch.equal(got, slot_rows(flat, fits, spec.slots))
-    assert start.numel() == -(-spec.slots // range_slots) + 1
-    assert bool((start[1:] >= start[:-1]).all())
+    assert torch.equal(start, start_table(key, spec.slots, range_slots))
+    firsts = start[0:ranges:chunk]
+    ends = start[torch.clamp(torch.arange(0, ranges, chunk) + chunk,
+                             max=ranges)]
+    assert bool((firsts == ends).any()) == (chunk < ranges)
     # The key gives the pack's own targets, and the wrapper's plain route
     # places by them.
     tflat, tfits = cd.targets_of_keys(key, spec.slots)
@@ -149,25 +172,80 @@ def test_expand_lookup_places_the_packs_rows(case, kw, range_slots):
                            plane.reshape(-1).view(torch.int32)), c
 
 
-def test_expand_lookup_refuses_flat_where_a_cell_overflows():
+@pytest.mark.parametrize("chunk", [1, 2])
+def test_expand_lookup_refuses_flat_where_a_cell_overflows(chunk):
     st, _, spec = blob(n=400, k=4, alive=380, device="cpu")
     _, flat, fits, key, overflow, _ = cd._sort_with_payload(st, spec)
     assert int(overflow) > 0
     # An overflow row's flat = slots sits before rows that fit.
     assert bool((flat[1:] < flat[:-1]).any())
     with pytest.raises(ValueError, match="not nondecreasing"):
-        expand_lookup(flat, spec.slots)
-    assert torch.equal(expand_lookup(key, spec.slots)[0],
+        expand_lookup(flat, spec.slots, chunk)
+    assert torch.equal(expand_lookup(key, spec.slots, chunk)[0],
                        slot_rows(flat, fits, spec.slots))
 
 
 def test_expand_lookup_and_wrapper_with_no_rows():
     spec = blob_spec(2)
     key = torch.empty(0, dtype=torch.int32)
-    got, start = expand_lookup(key, spec.slots, 128)
-    assert bool((got == -1).all()) and bool((start == 0).all())
+    for chunk in (1, 3):
+        got, start = expand_lookup(key, spec.slots, chunk, 128)
+        assert bool((got == -1).all()) and bool((start == 0).all())
+        assert start.numel() == -(-spec.slots // 128) + 1
     flat, fits = cd.targets_of_keys(key, spec.slots)
     assert flat.numel() == 0 and fits.numel() == 0
     out = expand_rows(torch.empty((0, 11)), key, cd.PACK_FILLS, spec)
     want = torch.tensor(cd.PACK_FILLS, dtype=torch.float32)[:, None]
     assert torch.equal(out, want.expand(11, spec.slots))
+
+
+@pytest.mark.parametrize("n", [0, 1, 255, 256, 257, 1000, 70_000,
+                               1_048_576])
+def test_expand_search_finds_the_first_row_at_least(n):
+    """The block search against torch.searchsorted on a nondecreasing key
+    with runs and gaps, at targets before, inside and past the keys; it
+    takes about log₂₅₇(n / 256) narrowing rounds and the last: 3 at 2^20
+    rows."""
+    g = torch.Generator().manual_seed(n)
+    key = torch.cumsum(torch.randint(0, 3, (n,), generator=g), 0)
+    top = int(key[-1]) + 2 if n else 2
+    rounds = 0
+    for target in sorted({0, 1, top // 3, top // 2, top - 2, top - 1, top}):
+        got, r = expand_search(key, target)
+        assert got == int(torch.searchsorted(key, target))
+        rounds = max(rounds, r)
+    want = 1
+    while n > THREADS * (THREADS + 1) ** (want - 1):
+        want += 1
+    assert rounds <= want
+    if n == 1_048_576:
+        assert rounds == 3
+
+
+def test_band_cursor_is_kept_per_stream_and_dropped_on_a_failed_launch():
+    """The wrapper's band cursor: one zeroed int32 pair per (device,
+    stream), made at the first launch and handed to every later one; a
+    launch that returns an error drops it and raises."""
+    dev = torch.device("cpu")
+    seen = []
+
+    def launch(cursor):
+        seen.append(cursor)
+        return 0
+
+    try:
+        oc.launch_on_cursor("t", dev, 7, launch)
+        oc.launch_on_cursor("t", dev, 7, launch)
+        oc.launch_on_cursor("t", dev, 8, launch)
+        assert seen[0] == seen[1] != seen[2]
+        cursor = oc._CURSORS[(dev, 7)]
+        assert cursor.dtype == torch.int32
+        assert cursor.tolist() == [0] * oc.CURSOR_INTS
+        with pytest.raises(RuntimeError, match="cudaError 719"):
+            oc.launch_on_cursor("t", dev, 7, lambda cursor: 719)
+        assert (dev, 7) not in oc._CURSORS and (dev, 8) in oc._CURSORS
+        oc.launch_on_cursor("t", dev, 7, launch)
+        assert oc._CURSORS[(dev, 7)] is not cursor
+    finally:
+        for stream in (7, 8):
+            oc._CURSORS.pop((dev, stream), None)

@@ -486,12 +486,35 @@ def test_floor_modes_beside_an_empty_band(cuda):
     assert floor_exact(fields, occ, params, spec) > 0
 
 
+def test_one_band_and_the_cursor_left_zeroed(cuda):
+    """K4 and its floor modes on one band (a one-plane slab swept as one
+    band of all its rows: a grid of one block), then on the whole pack,
+    each bitwise; the stream's band cursor is zeroed after every call, so
+    the calls in turn on one stream each sweep every band."""
+    state, params, spec = blob(n=2000, k=2, radius=14.0, spawn=16.0,
+                               device=cuda)
+    fields, occ, _, _ = cd._pack_args(state, spec)
+    z = int((occ > 0.5).sum(dim=(1, 2)).argmax())
+    one = [f[z:z + 1].contiguous() for f in (*fields, occ)]
+    one_spec = dataclasses.replace(spec, nz=1)
+    assert oc.plan_of(one_spec, spec.ny).bands == 1
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    for f, o, sp, rows in ((one[:10], one[10], one_spec, spec.ny),
+                           (fields, occ, spec, None)):
+        for _ in range(2):
+            floor_exact(f, o, params, sp, rows)
+            torch.cuda.synchronize()
+            assert oc._CURSORS[(cuda, stream)].tolist() == [0, 0]
+
+
 @pytest.mark.parametrize("kw", [
     dict(n=4000, k=2, radius=9.0, alive=3900),     # overflow, dead rows
     dict(n=400, k=4, alive=380),                   # the probe's scene
     dict(n=3000, k=1, radius=4.0, alive=2990),     # ~100 rows a cell
 ])
 def test_expand_kernel_bitwise_with_overflow_and_dead_rows(cuda, kw):
+    """K5 bitwise on small packs, which the kernel runs one range a block
+    (a search each; chip_smoke.py holds the 1M colony, two a block)."""
     state, _, spec = blob(device=cuda, **kw)
     r = check_expand(state, spec)
     assert r["overflow"] > 0 and r["dead"] == kw["n"] - kw["alive"]

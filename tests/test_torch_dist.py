@@ -26,6 +26,7 @@ whenever such clamps occur. The colony is held to JAX at
 tests/test_torch_simulation.py's tolerance.
 """
 
+import contextlib
 import dataclasses
 
 import jax
@@ -423,7 +424,7 @@ def test_sharded_fluid_conserves_and_migrates(name, cases, world4, world8):
         assert (per_block(occ0) != per_block(out["occ"])).any(), axis
 
 
-def test_wrappers_take_halo_padded_slabs():
+def test_wrappers_take_halo_padded_slabs(monkeypatch):
     """The kernels' operand checks (ops/build.slab_planes) take the planes
     from the operands — a [P + 2, K, C] slab, or the 2D local spec's
     rows — and still refuse a wrong K, C or row count, a wrong type and a
@@ -463,13 +464,39 @@ def test_wrappers_take_halo_padded_slabs():
     st, params = contact_state(7)
     cspec = cd.make_contact_spec(params, k=4, cell_factor=1.05)
     clocal = dataclasses.replace(cspec, ny=pd.contact_rows(cspec, (4, 2)) + 8)
-    assert oc.band_plan(clocal).bands >= 1
-    plan = oc.band_plan(cspec)
-    assert oc.work_ints(cspec, plan, 7) == 2 + 7 * plan.bands * (
-        1 + plan.rows * cspec.L // 32)
+    lplan = oc.band_plan(clocal)
+    assert lplan.bands >= 1
     cslab = torch.zeros((7, clocal.ny, clocal.L))
     assert build.slab_planes("contact_sweep", (cslab,) * 11,
                              (clocal.ny, clocal.L)) == 7
+    # The sweep's wrapper hands its one launch the slab's own 7 planes,
+    # the local rows and their band plan, with the stream's zeroed band
+    # cursor, and returns six planes of the slab's shape (the entry point
+    # stands in for the library; the tensors stay on the CPU).
+    seen = {}
+
+    def entry(ins, occ_p, outs, cursor, *args):
+        seen.update(ins=list(ins), outs=list(outs), cursor=cursor,
+                    args=args)
+        return 0
+
+    monkeypatch.setattr(oc, "check_device", lambda *a: None)
+    monkeypatch.setattr(oc, "stream_of", lambda dev: 7)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    try:
+        outs = oc.launch_bands("contact_sweep", entry, (cslab,) * 10, cslab,
+                               clocal, lplan, 0.5)
+        assert [o.shape for o in outs] == [cslab.shape] * oc.NCOMP
+        assert seen["args"] == (7, clocal.ny, clocal.L, clocal.k,
+                                lplan.rows, lplan.smem_bytes, 0.5, None, 7)
+        assert seen["ins"] == [cslab.data_ptr()] * 10
+        assert seen["outs"] == [o.data_ptr() for o in outs]
+        cursor = oc._CURSORS[(cslab.device, 7)]
+        assert seen["cursor"] == cursor.data_ptr()
+        assert cursor.tolist() == [0] * oc.CURSOR_INTS
+    finally:
+        oc._CURSORS.pop((cslab.device, 7), None)
     with pytest.raises(ValueError, match="shape"):
         build.slab_planes("contact_sweep", (cslab,),
                           (clocal.ny + 8, clocal.L))

@@ -162,7 +162,11 @@ def test_build_recipe(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "CSRC_DIR", copy)
     assert build.source_hash() == h0
     (copy / build.SOURCES[0]).write_text("// edited\n")
-    assert build.source_hash() != h0
+    h1 = build.source_hash()
+    assert h1 != h0
+    for name in build.HEADERS:       # an included header counts too
+        (copy / name).write_text("// edited\n")
+        assert build.source_hash() != h1
 
 
 def test_build_without_toolkit_raises(tmp_path, monkeypatch):
