@@ -119,7 +119,9 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
                ms, bound and device time by kernel — one device kernel a
                call, asserted — and the split of K4's device time into
                the six +0 planes (zero: no occupancy read), the gate with
-               the staging and pads, the screen and the pair terms.
+               the reads of the band's planes, the screen and the pair
+               terms; each mode's blocks an SM and the threads busy in
+               pass 1.
 15. verify   — the hardware verification lane (utils/verify.py: JAX's
                seven twin checks) on the card.
 16. render   — FluidSimulation.render_frame (800×450) of the config[3]
@@ -1881,11 +1883,13 @@ def floor_pairs(fields, occ, p, spec) -> dict:
     floor modes (ops/contact_floor.py) on packed fields, at the band plan's
     rows. Counted as K4's bound counts (`contact_cost`): the zero stub's
     function is six +0 planes, so it writes them and reads nothing; the
-    others read the occupancy plane and write 6 planes; the pads read the 10
-    fields of the occupied slots within a plane of a gated band, and do 31
-    operations a slot of a gated band; the screen reads position and
-    radius where an occupied partner is and does the screens of occupied
-    pairs; "full" is K4."""
+    others read the occupancy plane and write 6 planes; the pads' sum at a
+    slot of a gated band reads the 10 fields at its (y, l) in planes z − 1
+    .. z + 1, whatever the slots hold (in a pack an empty slot's fills
+    enter the sum), so they read the 10 fields of every slot within a
+    plane of a gated band, and do 31 operations a slot of a gated band;
+    the screen reads position and radius where an occupied partner is and
+    does the screens of occupied pairs; "full" is K4."""
     from sph_tpu_torch.ops import contact_floor as cf
     from sph_tpu_torch.ops.contact import NCOMP, band_plan
     from sph_tpu_torch.physics import contact_dense as cd
@@ -1894,7 +1898,7 @@ def floor_pairs(fields, occ, p, spec) -> dict:
     plane = occ.numel() * 4
     gated = cf.tile_gate(occ, tile).expand_as(occ)
     near_gated = gated | torch.roll(gated, 1, 0) | torch.roll(gated, -1, 0)
-    read = int(((occ > 0.5) & near_gated).sum())
+    read = int(near_gated.sum())
     w = contact_work(fields, occ, p, spec)
 
     def stub(mode):
@@ -1913,6 +1917,36 @@ def floor_pairs(fields, occ, p, spec) -> dict:
             fields, lambda *a: cd.contact_pair_terms(p, *a), NCOMP, spec),
             None, *contact_cost(w, plane)),
     }
+
+
+def screen_sectors(occ, spec) -> int:
+    """Bytes of the screen mode counted by 32-byte sectors: the occupancy
+    plane and 6 planes out, and position and radius in every 8-lane sector
+    that an occupied slot's stencil (its own slot and its partners at every
+    variant, wrapped) touches."""
+    from sph_tpu_torch.physics import contact_dense as cd
+
+    live = occ > 0.5
+    touched = live.clone()
+    for dz, dy, o in cd.contact_variants(spec):
+        touched |= torch.roll(live, (dz, dy, o), (0, 1, 2))
+    sectors = int(touched.view(spec.nz, spec.ny, spec.L // 8, 8)
+                  .any(dim=3).sum())
+    return 7 * occ.numel() * 4 + 4 * 32 * sectors
+
+
+def pass1_threads(occ, spec, rows: int) -> dict:
+    """Threads of a sweep block's 256 busy in pass 1 (one a listed slot,
+    256 a round), over its rounds in the bands of `rows` rows that hold an
+    occupied slot; and the bands and their mean occupied slots."""
+    bands = -(-spec.ny // rows)
+    live = torch.nn.functional.pad((occ > 0.5).double(),
+                                   (0, 0, 0, bands * rows - spec.ny))
+    c = live.view(spec.nz, bands, rows * spec.L).sum(dim=2)
+    c = c[c > 0]
+    return {"threads": float(c.sum() / torch.ceil(c / 256).sum()),
+            "live_bands": int(c.numel()),
+            "mean_occupied": float(c.mean())}
 
 
 def floor_exact(where: str, outs: dict, fields, occ, p, spec) -> dict:
@@ -2022,6 +2056,16 @@ def floor_times(name: str, fields, occ, p, spec, card) -> dict:
     then the split, from the device times: at the probe's scene a call's
     host work is as long as its kernels, so the events time the host.
     Returns {mode: (ms, plain ms, library ms, bound, device ms)}."""
+    from sph_tpu_torch.ops.contact import band_plan, resident_blocks
+
+    plan = band_plan(spec)
+    blocks = {mode: resident_blocks(spec, mode, plan, occ.device)
+              for mode in ("zero", "pads", "screen", "full")}
+    sectors = screen_sectors(occ, spec)
+    say("kernel floor", f"{name}: blocks an SM (occupancy API) "
+        f"{json.dumps(blocks)}; threads busy in pass 1 of 256 (bands of "
+        f"{plan.rows} rows) {json.dumps(pass1_threads(occ, spec, plan.rows))}"
+        f" | {card}")
     out = {}
     for mode, (kern, plain, library_call, nbytes, flops) in floor_pairs(
             fields, occ, p, spec).items():
@@ -2035,18 +2079,22 @@ def floor_times(name: str, fields, occ, p, spec, card) -> dict:
             f"{plain_ms:.4f} ms ({p1:.4f}, {p2:.4f}), library "
             f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, {nbytes} "
             f"bytes, {flops} operations, bound {bnd['bound_ms']:.4f} ms by "
-            f"{bnd['bound_by']}; device {dev_ms:.4f} ms, one kernel a call "
-            f"({kernel}, 10 of 10 launches recorded in profile {tries}) | "
-            f"{card}")
+            f"{bnd['bound_by']}"
+            + (f" (by the 32-byte sectors the occupied slots' stencils "
+               f"touch: {sectors} bytes, "
+               f"{bound(sectors, flops)['bound_ms']:.4f} ms)"
+               if mode == "screen" else "")
+            + f"; device {dev_ms:.4f} ms, one kernel a call ({kernel}, 10 "
+            f"of 10 launches recorded in profile {tries}) | {card}")
     dev = {mode: v[4] for mode, v in out.items()}
     say("kernel floor", f"{name} split (device ms a call): six +0 planes "
-        f"(zero, no occupancy read) {dev['zero']:.4f}; the gate, staging "
-        f"and pads (pads - zero) {dev['pads'] - dev['zero']:.4f}; the gate, "
-        f"staging, list and pass 1 (screen - zero) "
+        f"(zero, no occupancy read) {dev['zero']:.4f}; the gate and the "
+        f"ten fields' reads (pads - zero) {dev['pads'] - dev['zero']:.4f}; "
+        f"the gate, list and pass 1 (screen - zero) "
         f"{dev['screen'] - dev['zero']:.4f}; screen - pads "
         f"{dev['screen'] - dev['pads']:.4f}; pair terms (full - screen) "
-        f"{dev['full'] - dev['screen']:.4f} (the pads mode also reads the "
-        f"six fields the sweep does not stage, and writes a plane) | {card}")
+        f"{dev['full'] - dev['screen']:.4f} (the pads mode reads six fields "
+        f"the screen does not, and writes a plane) | {card}")
     return out
 
 

@@ -23,37 +23,32 @@
 //     mbarrier of its own) of that band's occupancy into a second buffer,
 //     so the copy lands while the current band is swept. Warp ballots over
 //     the staged floats give the band's 32-bit occupancy masks, which stay
-//     in shared memory. An empty band gets +0 in its six output planes
-//     (16-byte stores) and costs nothing more — the Pallas kernel's
-//     `pl.when(occ_t…)`; the 1M colony is a ball inside a cube, so a third
-//     of its bands are empty.
-//  a. Halo staging. TMA bulk copies (completed on the halo's mbarrier),
-//     one per thread, of px, py, pz and rad for planes z − 1, z, z + 1 and
-//     the band's rows ± 1, each row and plane index wrapped as the plain
-//     roll wraps it. A staged row is the row's L lanes with kPad ≥ P lanes
-//     on each side.
-//  b. While the copies land: +0 into the band's six output planes (16-byte
-//     stores; the walk then overwrites only the slots that touch, in the
-//     same block, so L2 merges the two writes), and the band's occupied
-//     own slots listed in layout order from the masks (a warp prefix sum of
-//     their popcounts), so every active lane of the walk has a particle.
-//     Then the pads: each takes the same row's wrapped lanes from the
-//     landed row (the last kPad lanes to the left, the first kPad to the
-//     right), as the Pallas kernel's `concat([yp[:, -P:], yp, yp[:, :P]])`
-//     does. So no partner needs a bounds test or an index wrap.
-//  c. Walk, one thread per listed slot, two passes. Pass 1 visits the
-//     slot's 9·(2P + 1) − 1 variants (62 at K = 2) with compile-time lane,
-//     row and plane offsets into the halo, forms the overlap with the pair
-//     term's own operations and marks, in a register bitmask, every variant
-//     whose pair it cannot skip (overlap > ε, or NaN). Pass 2 walks the
-//     lane's own marks in variant order: it forms the same overlap again,
-//     loads the partner's velocity and spin from global memory and adds the
-//     full terms. The lanes of a warp thus run the full terms
-//     max-over-lanes times, not at every variant where any lane has a
-//     contact (K2's remedy, csrc/fluid_sweep.cu). A slot with no mark is
-//     not written again: it already holds +0. (A one-pass walk, the full
-//     terms inline at each kept variant, was 1.7–2.3× slower at the 1M
-//     colony: PERF.md.)
+//     in shared memory. Every band gets +0 in its six output planes
+//     (16-byte stores), and an empty band costs nothing more — the Pallas
+//     kernel's `pl.when(occ_t…)`; the 1M colony is a ball inside a cube, so
+//     a third of its bands are empty.
+//  a. The band's occupied own slots listed in layout order from the masks
+//     (a warp prefix sum of their popcounts), so every active lane of the
+//     walk has a particle.
+//  b. Walk, one thread per listed slot, two passes. The slot's STENCIL —
+//     the nine row starts (z + dz, y + dy) and the 2P + 1 lanes l + o, each
+//     wrapped as the plain roll wraps it — is formed once; a partner's
+//     index is a row start plus a lane. Pass 1 visits the slot's 9·(2P +
+//     1) − 1 variants (62 at K = 2), reads the partner's position and
+//     radius from device memory through L1 (the band's partners are its
+//     own rows and their neighbours, so neighbouring lanes share the lines
+//     and L1 serves most of the reads), forms the overlap with the pair
+//     term's own operations and marks, in a register bitmask, every
+//     variant whose pair it cannot skip (overlap > ε, or NaN). Pass 2
+//     walks the lane's own marks in variant order: it forms the same
+//     overlap again, loads the partner's velocity and spin from global
+//     memory and adds the full terms. The lanes of a warp thus run the full
+//     terms max-over-lanes times, not at every variant where any lane has
+//     a contact (K2's remedy, csrc/fluid_sweep.cu). A slot with no mark is
+//     not written again: it already holds +0. (A one-pass walk, a halo of
+//     the band's planes staged in shared memory, a ring that staged each
+//     plane once a column of bands, and lanes that split a slot's screens
+//     were all slower at the 1M colony: PERF.md.)
 // The claims are pipelined: a block holds the band it sweeps, the next
 // band (its occupancy in flight) and a claim on the one after, made at
 // the top of the sweep and read at its end, so no claim's round trip and
@@ -100,12 +95,10 @@
 //  - kZero: +0 into every band's six planes, as `zero_kernel` writes zeros
 //    into every block: no occupancy read, no gate, no staging, and no
 //    shared memory but the claim slot (so more blocks fit on an SM).
-//  - kPads: the gate, the halo staging and the lane pads. Output 0 of every
-//    slot of an occupied band is f32(1e-37) times the sum of the ten
-//    fields over planes z − 1, z, z + 1 at the slot's own (y, l), fields
-//    outer, planes inner, from +0: px, py, pz and rad from the staged rows,
-//    the other six from device memory (the halo stages four fields; ten
-//    would not fit).
+//  - kPads: the gate and the reads of the band's stencil planes. Output 0
+//    of every slot of an occupied band is f32(1e-37) times the sum of the
+//    ten fields over planes z − 1, z, z + 1 at the slot's own (y, l),
+//    fields outer, planes inner, from +0, each read through L1.
 //  - kScreen: and the list of occupied own slots and pass 1, as a running
 //    margin max(−1, overlap − ε over the variants) that keeps NaN, then the
 //    band's max margin (NaN kept) by a block reduction; the margins wait
@@ -125,8 +118,9 @@
 // pair in contact, but every occupied slot screens all 62 variants (65M
 // screens of ~21 instructions, most against empty partners, and no FMA may
 // form), so the walk is bound by instruction issue and latency, and the
-// sweep by the walk and the halo staging together (PERF.md, PR 4: the
-// design measurements of tools/probe_contact_sweep.py).
+// sweep by the walk, the +0 stores and the reads of the stencil's rows
+// together (PERF.md; the design probes tools/probe_contact_sweep.py and
+// tools/probe_contact_plans.py).
 
 #include <cuda_runtime.h>
 
@@ -138,12 +132,11 @@
 namespace {
 
 constexpr int kFields = 10;  // px py pz vx vy vz ox oy oz rad
-constexpr int kStaged = 4;   // px py pz rad: the fields the screen reads
 constexpr int kComps = 6;    // fx fy fz tx ty tz
 constexpr int kThreads = 256;  // a block; two blocks per SM
 constexpr int kWarps = kThreads / 32;
-// The three mbarriers (the halo's, one per occupancy buffer) and the slot
-// of the next band's index, padded to 16 bytes.
+// The two mbarriers (one per occupancy buffer) and the slot of the next
+// band's index, padded to 16 bytes.
 constexpr int kTail = 32;
 
 // How far the band sweep runs (the floor modes above); the values are
@@ -169,12 +162,6 @@ struct Model {
 struct Geom {
   int Z, Y, L;
 };
-
-// Lanes staged beyond each end of a row: P = 2K − 1 rounded up to 4, so
-// every copy is a multiple of 16 bytes (ops/contact.py `lane_pad`).
-__host__ __device__ constexpr int lane_pad(int k) {
-  return (2 * k - 1 + 3) / 4 * 4;
-}
 
 __device__ __forceinline__ float mul(float a, float b) {
   return __fmul_rn(a, b);
@@ -233,12 +220,6 @@ __device__ __forceinline__ bool mbar_try_wait(uint64_t* bar,
 __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   for (int spin = 0; !mbar_try_wait(bar, parity); ++spin)
     if (spin > (1 << 20)) __trap();
-}
-
-// Orders this thread's generic-proxy shared-memory writes before later
-// bulk copies into the same buffer.
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 // TMA bulk copy global → shared (16-byte aligned ends, 16-byte multiple).
@@ -390,43 +371,72 @@ __device__ __forceinline__ Motion motion(const InFields& in, size_t i) {
                 in.f[6][i], in.f[7][i], in.f[8][i]};
 }
 
-// One band's staged halo: field f (px, py, pz, rad), plane z − 1 + p, row
-// r0 − 1 + r, lane l + o lives at h[f·field + p·plane + r·run + kPad + l +
-// o]; `own` is an own slot's index in that frame (p = 1). (No member is an
-// array indexed at run time: that would put the struct on the stack and
-// turn its shared-memory loads into generic ones.)
-struct Halo {
-  const float* h;
-  int field, plane, run;
+// The position and radius fields the screen reads.
+struct Pos {
+  const float *x, *y, *z, *r;
+};
 
-  __device__ __forceinline__ Own own_at(int own) const {
-    return Own{h[own], h[field + own], h[2 * field + own],
-               mul(h[3 * field + own], 0.5f)};
+__device__ __forceinline__ Pos pos_of(const InFields& in) {
+  return Pos{in.f[0], in.f[1], in.f[2], in.f[9]};
+}
+
+// The screen of own slot c against the slot at index q, its position and
+// radius read through the L1 cache.
+__device__ __forceinline__ Screen screen_at(const Own& c, const Pos& p,
+                                            int q) {
+  return screen(c, __ldg(p.x + q), __ldg(p.y + q), __ldg(p.z + q),
+                __ldg(p.r + q));
+}
+
+// Own slot (z, y, l)'s stencil: the global index of its partner (z + dz, y
+// + dy, l + o) is row[3(dz + 1) + dy + 1] + lane[o + P], each axis wrapped
+// as the plain roll wraps it — nine row starts and 2P + 1 lanes formed
+// once a slot, added at every variant. Indexed only with compile-time
+// constants (the unrolled variants), so both arrays stay in registers;
+// 32-bit (the launch refuses a layout of 2^31 slots or more), so that the
+// walk's pass 2 still fits in 128 registers without spilling.
+template <int K>
+struct Stencil {
+  static constexpr int kP = 2 * K - 1;
+  int row[9];
+  int lane[2 * kP + 1];
+
+  __device__ __forceinline__ Stencil(const Geom& g, int z, int y, int l) {
+#pragma unroll
+    for (int dz = -1; dz <= 1; ++dz)
+#pragma unroll
+      for (int dy = -1; dy <= 1; ++dy)
+        row[3 * (dz + 1) + dy + 1] =
+            (wrap(z + dz, g.Z) * g.Y + wrap(y + dy, g.Y)) * g.L;
+#pragma unroll
+    for (int o = -kP; o <= kP; ++o) lane[o + kP] = wrap(l + o, g.L);
   }
-  // The screen of variant (dz, dy, o) of own slot `own`.
-  __device__ __forceinline__ Screen screen_at(const Own& c, int own, int dz,
-                                              int dy, int o) const {
-    const int q = own + dz * plane + dy * run + o;
-    return screen(c, h[q], h[field + q], h[2 * field + q],
-                  h[3 * field + q]);
+  __device__ __forceinline__ int at(int dz, int dy, int o) const {
+    return row[3 * (dz + 1) + dy + 1] + lane[o + kP];
+  }
+  __device__ __forceinline__ Own own(const Pos& p) const {
+    const int i = at(0, 0, 0);
+    return Own{__ldg(p.x + i), __ldg(p.y + i), __ldg(p.z + i),
+               mul(__ldg(p.r + i), 0.5f)};
   }
 };
 
-// The walk of one occupied own slot (halo index `own`; global slot i at
-// z, y, l). Writes the slot's six sums where a pair is kept.
+// The walk of one occupied own slot (global slot i at z, y, l). Writes the
+// slot's six sums where a pair is kept.
 template <int K>
-__device__ __forceinline__ void walk(const Halo& hs, int own, const Geom& g,
-                                     int z, int y, int l, size_t i,
-                                     const InFields& in, const OutComps& out,
-                                     const Model& m) {
+__device__ __forceinline__ void walk(const Geom& g, int z, int y, int l,
+                                     size_t i, const InFields& in,
+                                     const OutComps& out, const Model& m) {
   using V = Variants<K>;
-  const Own c = hs.own_at(own);
+  const Pos p = pos_of(in);
+  const Stencil<K> st(g, z, y, l);
+  const Own c = st.own(p);
   // Pass 1: mark every variant whose pair the screen keeps.
   unsigned marks[V::kWords];
 #pragma unroll
   for (int w = 0; w < V::kWords; ++w) marks[w] = 0u;
   V::each([&](int j, int dz, int dy, int o) {
-    const Screen s = hs.screen_at(c, own, dz, dy, o);
+    const Screen s = screen_at(c, p, st.at(dz, dy, o));
     // Every term is an exact ±0 unless this fails; NaN fails it.
     if (!(s.overlap <= m.eps)) marks[j >> 5] |= 1u << (j & 31);
   });
@@ -445,8 +455,8 @@ __device__ __forceinline__ void walk(const Halo& hs, int own, const Geom& g,
       b &= b - 1u;
       int dz, dy, o;
       V::decode(j, dz, dy, o);
-      add_pair(acc, c, v, hs.screen_at(c, own, dz, dy, o), in,
-               partner(g, z, y, l, dz, dy, o), m);
+      const int q = static_cast<int>(partner(g, z, y, l, dz, dy, o));
+      add_pair(acc, c, v, screen_at(c, p, q), in, q, m);
     }
   }
 #pragma unroll
@@ -462,12 +472,14 @@ __device__ __forceinline__ float nan_max(float a, float b) {
 // Pass 1 as the screen stub forms it: max(−1, overlap − ε over the
 // variants in order), NaN kept.
 template <int K>
-__device__ __forceinline__ float margin(const Halo& hs, int own,
-                                        const Model& m) {
-  const Own c = hs.own_at(own);
+__device__ __forceinline__ float margin(const Geom& g, int z, int y, int l,
+                                        const InFields& in, const Model& m) {
+  const Pos p = pos_of(in);
+  const Stencil<K> st(g, z, y, l);
+  const Own c = st.own(p);
   float mg = -1.0f;
   Variants<K>::each([&](int, int dz, int dy, int o) {
-    mg = nan_max(mg, sub(hs.screen_at(c, own, dz, dy, o).overlap, m.eps));
+    mg = nan_max(mg, sub(screen_at(c, p, st.at(dz, dy, o)).overlap, m.eps));
   });
   return mg;
 }
@@ -519,20 +531,14 @@ __device__ __forceinline__ int each_occupied(const unsigned* masks,
   return count;
 }
 
-// The band block's shared memory: the staged halo [4][3][band_rows +
-// 2][run], two occupancy buffers of band_rows·L floats, the tail (kTail:
-// the three mbarriers and the next band's index), the list of occupied own
-// slots, their masks (band_rows·L/32 words) and the warp counts. The zero
-// mode has the tail alone. The host computes the same bytes
-// (ops/contact.py `band_plan`).
-__host__ __device__ inline size_t halo_floats(int band_rows, int run) {
-  return static_cast<size_t>(kStaged) * 3 * (band_rows + 2) * run;
-}
-__host__ __device__ inline size_t smem_bytes_of(int band_rows, int L,
-                                                int run) {
+// The band block's shared memory: two occupancy buffers of band_rows·L
+// floats, the tail (kTail: the two mbarriers and the next band's index),
+// the list of occupied own slots, their masks (band_rows·L/32 words) and
+// the warp counts. The zero mode has the tail alone. The host computes the
+// same bytes (ops/contact.py `band_plan`).
+__host__ __device__ inline size_t smem_bytes_of(int band_rows, int L) {
   const size_t own = static_cast<size_t>(band_rows) * L;
-  return 4 * (halo_floats(band_rows, run) + 3 * own + own / 32 + kWarps) +
-         kTail;
+  return 4 * (3 * own + own / 32 + kWarps) + kTail;
 }
 
 // Thread 0: a TMA bulk copy of n floats from `src` into `dst`, completed on
@@ -553,18 +559,13 @@ __global__ void __launch_bounds__(kThreads, 2)
                         OutComps out, Geom g, int band_rows, int bands,
                         Model m, int* cursor) {
   constexpr bool kGate = M != Mode::kZero;  // reads the occupancy
-  constexpr int kPad = lane_pad(K);
   extern __shared__ __align__(128) unsigned char smem[];
-  const int run = g.L + 2 * kPad;
-  const int plane = (band_rows + 2) * run;
-  const int field = 3 * plane;
   const int own_max = band_rows * g.L;
-  float* halo = reinterpret_cast<float*>(smem);
-  float* occ_buf = halo + (kGate ? halo_floats(band_rows, run) : 0);
+  float* occ_buf = reinterpret_cast<float*>(smem);
   unsigned char* tail =
       reinterpret_cast<unsigned char*>(occ_buf + (kGate ? 2 * own_max : 0));
-  uint64_t* bars = reinterpret_cast<uint64_t*>(tail);  // halo, occ 0, occ 1
-  int* next = reinterpret_cast<int*>(bars + 3);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(tail);  // occ 0, occ 1
+  int* next = reinterpret_cast<int*>(bars + 2);
   int* list = reinterpret_cast<int*>(tail + kTail);
   unsigned* masks = reinterpret_cast<unsigned*>(list + own_max);
   int* warp_count = reinterpret_cast<int*>(masks + own_max / 32);
@@ -580,23 +581,21 @@ __global__ void __launch_bounds__(kThreads, 2)
   const auto own_slots = [&](int band) {
     return min(band_rows, g.Y - band % bands * band_rows) * g.L;
   };
-  const Halo hs{halo, field, plane, run};
   // Thread 0 holds the claim on the band after the next.
   int claimed = 0;
   if (threadIdx.x == 0) {
     if constexpr (kGate) {
-      for (int b = 0; b < 3; ++b) mbar_init(bars + b);
+      for (int b = 0; b < 2; ++b) mbar_init(bars + b);
     }
     const int first = atomicAdd(cursor, 1);
     if constexpr (kGate) {
       if (first < total)
-        fetch_run(occ_buf, occ + first_slot(first), own_slots(first),
-                  bars + 1);
+        fetch_run(occ_buf, occ + first_slot(first), own_slots(first), bars);
     }
     claimed = atomicAdd(cursor, 1);
     *next = first;
   }
-  uint32_t halo_phase = 0, occ_phase = 0;  // occ_phase bit b: buffer b's
+  uint32_t occ_phase = 0;  // bit b: buffer b's parity
   for (int it = 0;; ++it) {
     // The last band's reads are done before its buffers are refilled, and
     // `next` (and, at first, the barriers' init) is visible.
@@ -611,7 +610,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       if constexpr (kGate) {
         if (claimed < total)
           fetch_run(occ_buf + (cur ^ 1) * own_max, occ + first_slot(claimed),
-                    own_slots(claimed), bars + 1 + (cur ^ 1));
+                    own_slots(claimed), bars + (cur ^ 1));
       }
       following = atomicAdd(cursor, 1);
     }
@@ -625,7 +624,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     // is a multiple of 32, so every warp's loop is uniform).
     bool live = false;
     if constexpr (kGate) {
-      mbar_wait(bars + 1 + cur, occ_phase >> cur & 1u);
+      mbar_wait(bars + cur, occ_phase >> cur & 1u);
       occ_phase ^= 1u << cur;
       const float* o = occ_buf + cur * own_max;
       bool any = false;
@@ -636,102 +635,56 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
       live = __syncthreads_or(any) != 0;
     }
-    if (!live) {
-      // An empty band (every band in the zero mode): +0 and nothing more.
+    // a. +0 into the band's outputs (16-byte stores): all of an empty
+    // band's work (every band's in the zero mode).
 #pragma unroll
-      for (int c = 0; c < kComps; ++c) {
-        float4* dst = reinterpret_cast<float4*>(out.c[c] + base);
-        for (int t = threadIdx.x; t < n_own / 4; t += kThreads) dst[t] = zero;
-      }
-    } else if constexpr (kGate) {
-      // a. Stage px, py, pz, rad of planes z ± 1, rows r0 − 1 .. r0 + rows:
-      // one copy per (field, plane, row), one per thread.
-      const int copies = kStaged * 3 * (rows + 2);
-      if (threadIdx.x == 0)
-        mbar_expect_tx(bars, static_cast<uint32_t>(copies) *
-                                 static_cast<uint32_t>(g.L) * 4u);
-      for (int t = threadIdx.x; t < copies; t += kThreads) {
-        const int r = t % (rows + 2), p = t / (rows + 2) % 3,
-                  f = t / (rows + 2) / 3;
-        const float* src = f == 0   ? in.f[0]
-                           : f == 1 ? in.f[1]
-                           : f == 2 ? in.f[2]
-                                    : in.f[9];
-        bulk_load(halo + f * field + p * plane + r * run + kPad,
-                  src + (static_cast<size_t>(wrap(z - 1 + p, g.Z)) * g.Y +
-                         wrap(r0 - 1 + r, g.Y)) *
-                            g.L,
-                  g.L * 4u, bars);
-      }
-
-      // b. +0 into the band's outputs, and the list of its occupied own
-      // slots, in layout order, from the masks (a warp prefix sum of their
-      // popcounts), while the copies land.
-#pragma unroll
-      for (int c = 0; c < kComps; ++c) {
-        float4* dst = reinterpret_cast<float4*>(out.c[c] + base);
-        for (int t = threadIdx.x; t < n_own / 4; t += kThreads) dst[t] = zero;
-      }
+    for (int c = 0; c < kComps; ++c) {
+      float4* dst = reinterpret_cast<float4*>(out.c[c] + base);
+      for (int t = threadIdx.x; t < n_own / 4; t += kThreads) dst[t] = zero;
+    }
+    if (live) {
+      // b. The list of the band's occupied own slots, in layout order,
+      // from the masks (a warp prefix sum of their popcounts); its last
+      // barrier also orders the +0 stores before the walk's.
       int count = 0;
       if constexpr (M == Mode::kScreen || M == Mode::kFull)
         count = each_occupied(masks, n_own / 32, warp_count,
                               [&](int rank, int own) { list[rank] = own; });
-
-      // The lane pads of the staged rows, once they land: the row's last
-      // kPad lanes to the left, its first kPad to the right (the plain
-      // roll's wrap). The buffer is refilled by bulk copies later, hence
-      // the proxy fence.
-      mbar_wait(bars, halo_phase);
-      halo_phase ^= 1u;
-      for (int t = threadIdx.x; t < copies * 2 * kPad; t += kThreads) {
-        const int i = t % (2 * kPad), row = t / (2 * kPad);
-        float* r = halo + row / (rows + 2) * plane + row % (rows + 2) * run;
-        if (i < kPad)
-          r[i] = r[g.L + i];
-        else
-          r[g.L + i] = r[i];
-      }
-      fence_proxy_async();
-      __syncthreads();
 
       if constexpr (M == Mode::kFull) {
         // c. Walk the occupied own slots.
         for (int t = threadIdx.x; t < count; t += kThreads) {
           const int own = list[t];
           const int ry = own / g.L, l = own - ry * g.L;
-          walk<K>(hs, plane + (ry + 1) * run + kPad + l, g, z, r0 + ry, l,
-                  base + own, in, out, m);
+          walk<K>(g, z, r0 + ry, l, base + own, in, out, m);
         }
       } else if constexpr (M == Mode::kPads) {
         // Every slot of the band: f32(1e-37) · Σ fields (outer), dz
-        // (inner).
+        // (inner). The barrier orders the +0 stores before these.
+        __syncthreads();
         for (int t = threadIdx.x; t < n_own; t += kThreads) {
           const int ry = t / g.L, l = t - ry * g.L;
-          const int own = plane + (ry + 1) * run + kPad + l;
           float acc = 0.0f;
 #pragma unroll
           for (int f = 0; f < kFields; ++f)
 #pragma unroll
             for (int dz = -1; dz <= 1; ++dz)
-              acc = add(
-                  acc, f < 3    ? halo[f * field + dz * plane + own]
-                       : f == 9 ? halo[3 * field + dz * plane + own]
-                                : in.f[f][partner(g, z, r0 + ry, l, dz, 0, 0)]);
+              acc = add(acc,
+                        __ldg(in.f[f] + partner(g, z, r0 + ry, l, dz, 0, 0)));
           out.c[0][base + t] = mul(acc, 1e-37f);
         }
       } else if constexpr (M == Mode::kScreen) {
         // Pass 1 of every occupied own slot, its margin over its list
         // entry (the thread that reads an entry writes it) and into a
-        // running max; then the band's max margin. Where it is > 0 (a band
-        // the production sweep would walk), the margins go to their slots
-        // in list order and −1 into the empty slots; else output 0 keeps
-        // its +0 and nothing is stored.
+        // running max; then the band's max margin. Where it is > 0 (a
+        // band the production sweep would walk), the margins go to their
+        // slots in list order and −1 into the empty slots; else output 0
+        // keeps its +0 and nothing is stored.
         float band_max = -1.0f;
         for (int t = threadIdx.x; t < count; t += kThreads) {
           const int own = list[t];
           const int ry = own / g.L, l = own - ry * g.L;
-          const float mg =
-              margin<K>(hs, plane + (ry + 1) * run + kPad + l, m);
+          const float mg = margin<K>(g, z, r0 + ry, l, in, m);
           list[t] = __float_as_int(mg);
           band_max = nan_max(band_max, mg);
         }
@@ -768,6 +721,28 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+// The persistent grid of <K, M> at `smem_bytes` (checked against the
+// kernel's own layout) on `device`: the blocks resident at once on every
+// SM (csrc/persistent.cuh), and the launch's shared memory. Returns a
+// cudaError_t value.
+template <int K, Mode M>
+int grid_k(const Geom& g, int band_rows, int smem_bytes, int device,
+           int* grid, int* smem) {
+  if (static_cast<size_t>(smem_bytes) != smem_bytes_of(band_rows, g.L))
+    return cudaErrorInvalidValue;
+  *smem = M == Mode::kZero ? kTail : smem_bytes;
+  // The staged modes read their partners through L1: they ask for the
+  // shared memory two blocks take (1 KB a block reserved, of the SM's
+  // 233,472 bytes) and leave the rest of the SM's 256 KB to L1.
+  const int carveout =
+      M == Mode::kZero
+          ? -1
+          : std::min(100, (2 * (*smem + 1024) * 100 + 233471) / 233472);
+  return sph::persistent_grid(
+      reinterpret_cast<const void*>(contact_band_kernel<K, M>), kThreads,
+      *smem, device, grid, carveout);
+}
+
 // Launches the sweep on `stream` (its persistent grid cached per (kernel,
 // shared memory, device): csrc/persistent.cuh); returns a cudaError_t
 // value (0 on success).
@@ -775,19 +750,22 @@ template <int K, Mode M>
 int launch_k(const InFields& in, const float* occ, const OutComps& out,
              const Geom& g, int band_rows, int smem_bytes, const Model& m,
              int* cursor, int device, cudaStream_t stream) {
-  const int run = g.L + 2 * lane_pad(K);
-  if (static_cast<size_t>(smem_bytes) != smem_bytes_of(band_rows, g.L, run))
-    return cudaErrorInvalidValue;
-  const int bands = (g.Y + band_rows - 1) / band_rows;
-  const int smem = M == Mode::kZero ? kTail : smem_bytes;
-  auto* kernel = contact_band_kernel<K, M>;
-  int grid = 0;
-  const cudaError_t rc = sph::persistent_grid(
-      reinterpret_cast<const void*>(kernel), kThreads, smem, device, &grid);
+  int grid = 0, smem = 0;
+  const int rc = grid_k<K, M>(g, band_rows, smem_bytes, device, &grid, &smem);
   if (rc != cudaSuccess) return rc;
-  kernel<<<std::min(grid, g.Z * bands), kThreads, smem, stream>>>(
-      in, occ, out, g, band_rows, bands, m, cursor);
+  const int bands = (g.Y + band_rows - 1) / band_rows;
+  contact_band_kernel<K, M>
+      <<<std::min(grid, g.Z * bands), kThreads, smem, stream>>>(
+          in, occ, out, g, band_rows, bands, m, cursor);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The layouts the kernels take: whole 32-slot masks, fewer than 2^31
+// slots (32-bit stencil indices).
+bool valid(const Geom& g, int band_rows) {
+  return g.Z >= 1 && g.Y >= 1 && g.L >= 32 && g.L % 32 == 0 &&
+         band_rows >= 1 &&
+         static_cast<long long>(g.Z) * g.Y * g.L <= 0x7fffffffLL;
 }
 
 // The K the kernels are built for; anything else is refused.
@@ -796,8 +774,7 @@ int launch_mode(const InFields& in, const float* occ, const OutComps& out,
                 const Geom& g, int K, int band_rows, int smem_bytes,
                 const Model& m, int* cursor, int device,
                 cudaStream_t stream) {
-  if (g.Z < 1 || g.Y < 1 || g.L < 32 || g.L % 32 || band_rows < 1)
-    return cudaErrorInvalidValue;
+  if (!valid(g, band_rows)) return cudaErrorInvalidValue;
   switch (K) {
     case 1:
       return launch_k<1, M>(in, occ, out, g, band_rows, smem_bytes, m, cursor,
@@ -808,6 +785,23 @@ int launch_mode(const InFields& in, const float* occ, const OutComps& out,
     case 4:
       return launch_k<4, M>(in, occ, out, g, band_rows, smem_bytes, m, cursor,
                             device, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <Mode M>
+int grid_mode(const Geom& g, int K, int band_rows, int smem_bytes,
+              int device, int* grid) {
+  if (!valid(g, band_rows)) return cudaErrorInvalidValue;
+  int smem = 0;
+  switch (K) {
+    case 1:
+      return grid_k<1, M>(g, band_rows, smem_bytes, device, grid, &smem);
+    case 2:
+      return grid_k<2, M>(g, band_rows, smem_bytes, device, grid, &smem);
+    case 4:
+      return grid_k<4, M>(g, band_rows, smem_bytes, device, grid, &smem);
     default:
       return cudaErrorInvalidValue;
   }
@@ -871,6 +865,28 @@ extern "C" int sph_contact_floor(const void* const* fields, const float* occ,
     case static_cast<int>(Mode::kScreen):
       return launch_mode<Mode::kScreen>(in, occ, out, g, K, band_rows,
                                         smem_bytes, m, cursor, device, st);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// The persistent grid of a mode (0 zero … 3 full) at a band plan, as a
+// launch with the same arguments sizes it: the blocks resident at once on
+// every SM (the occupancy API), into *grid; returns a cudaError_t value.
+extern "C" int sph_contact_grid(int Z, int Y, int L, int K, int band_rows,
+                                int smem_bytes, int mode, int device,
+                                int* grid) {
+  const Geom g{Z, Y, L};
+  switch (mode) {
+    case static_cast<int>(Mode::kZero):
+      return grid_mode<Mode::kZero>(g, K, band_rows, smem_bytes, device, grid);
+    case static_cast<int>(Mode::kPads):
+      return grid_mode<Mode::kPads>(g, K, band_rows, smem_bytes, device, grid);
+    case static_cast<int>(Mode::kScreen):
+      return grid_mode<Mode::kScreen>(g, K, band_rows, smem_bytes, device,
+                                      grid);
+    case static_cast<int>(Mode::kFull):
+      return grid_mode<Mode::kFull>(g, K, band_rows, smem_bytes, device, grid);
     default:
       return cudaErrorInvalidValue;
   }

@@ -7,8 +7,11 @@
 // The kernel's shared-memory limit, one value per kernel and device, is
 // raised to the largest size asked so far (a launch needs it at least as
 // large as its own size, so it is never lowered); the runtime is asked
-// only for a larger size. `device` must be the caller's current device
-// (the wrappers launch under `torch.cuda.device`).
+// only for a larger size. `carveout`, where not −1, is the kernel's
+// preferred share of the SM's unified L1 and shared memory for shared
+// memory, in percent (cudaFuncAttributePreferredSharedMemoryCarveout), set
+// with the first query of a size. `device` must be the caller's current
+// device (the wrappers launch under `torch.cuda.device`).
 
 #pragma once
 
@@ -20,7 +23,8 @@
 namespace sph {
 
 inline cudaError_t persistent_grid(const void* kernel, int threads, int smem,
-                                   int device, int* grid) {
+                                   int device, int* grid,
+                                   int carveout = -1) {
   struct Entry {
     const void* kernel;
     int smem, device, grid;
@@ -41,6 +45,11 @@ inline cudaError_t persistent_grid(const void* kernel, int threads, int smem,
   if (smem > limit) {
     rc = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (rc != cudaSuccess) return rc;
+  }
+  if (carveout >= 0) {
+    rc = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributePreferredSharedMemoryCarveout, carveout);
     if (rc != cudaSuccess) return rc;
   }
   int per_sm = 0, sms = 0;

@@ -57,6 +57,8 @@ _ARGTYPES = {
     # mode, eps, device, stream
     "sph_contact_floor": [ctypes.POINTER(_P), _P, ctypes.POINTER(_P), _P]
     + [_I] * 7 + [_F, _I, _P],
+    # Z, Y, L, K, band_rows, smem_bytes, mode, device, grid
+    "sph_contact_grid": [_I] * 8 + [ctypes.POINTER(_I)],
     # rows, key, out, n, ncol, slots, fills (host), device, stream
     "sph_expand_rows": [_P] * 3 + [_I] * 3 + [ctypes.POINTER(_F), _I, _P],
 }

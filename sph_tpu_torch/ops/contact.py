@@ -32,69 +32,53 @@ from sph_tpu_torch.ops.build import (
     slab_planes,
     stream_of,
 )
-from sph_tpu_torch.ops.fluid import SMEM_LIMIT, SMEM_TARGET
+from sph_tpu_torch.ops.fluid import SMEM_LIMIT
 
 NCOMP = 6  # force[3], torque[3]
 THREADS = 256                   # kThreads in csrc/contact_sweep.cu
-STAGED = 4                      # kStaged: px, py, pz, rad
 TAIL = 32                       # kTail: the mbarriers and the claim slot
-MAX_BAND_ROWS = 8
+BAND_ROWS = 5                   # rows a band (tools/probe_contact_plans.py)
 SLOT_COUNTS = (1, 2, 4)         # the K the kernel is built for
 CURSOR_INTS = 2                 # the band cursor: next band, blocks done
 
 
-def lane_pad(k: int) -> int:
-    """Lanes staged beyond each end of a row: the stencil's lane reach
-    P = 2K − 1 rounded up to 4 floats (16 bytes), as `lane_pad` in the
-    kernel."""
-    return -(-(2 * k - 1) // 4) * 4
-
-
 @dataclass(frozen=True)
 class BandPlan:
-    """One band = `rows` whole rows of one plane; a sweep block stages, per
-    band, px, py, pz and rad of planes z − 1, z, z + 1 and rows r0 − 1 ..
-    r0 + rows, each row `run` = L + 2·lane_pad(K) floats, the occupancy of
-    the band and of the next one (two buffers of rows·L floats), and
-    lists the band's occupied slots from its masks, in `smem_bytes` of
-    dynamic shared memory (csrc/contact_sweep.cu `smem_bytes_of`)."""
+    """One band = `rows` whole rows of one plane; a sweep block holds the
+    occupancy of the band and of the next one (two buffers of rows·L
+    floats) and lists the band's occupied slots from its masks, in
+    `smem_bytes` of dynamic shared memory (csrc/contact_sweep.cu
+    `smem_bytes_of`); the screen reads the partners' positions and radii
+    through L1, nothing is staged."""
 
     rows: int          # rows a band holds (the last band may be shorter)
     bands: int         # bands per plane
-    run: int           # staged floats per (field, plane, row)
     smem_bytes: int
 
 
 def _plan(spec, rows: int) -> BandPlan:
-    run = spec.L + 2 * lane_pad(spec.k)
-    halo = STAGED * 3 * (rows + 2) * run
     own = rows * spec.L        # the occupancy buffers, list and masks
-    smem = 4 * (halo + 3 * own + own // 32 + THREADS // 32) + TAIL
-    return BandPlan(rows=rows, bands=-(-spec.ny // rows), run=run,
-                    smem_bytes=smem)
+    smem = 4 * (3 * own + own // 32 + THREADS // 32) + TAIL
+    return BandPlan(rows=rows, bands=-(-spec.ny // rows), smem_bytes=smem)
 
 
 @functools.lru_cache(maxsize=None)
 def band_plan(spec) -> BandPlan:
-    """The most rows per band (up to MAX_BAND_ROWS and the plane's Y) that
-    keep two sweep blocks resident on an SM; one row if even that needs
-    more; raises when one row does not fit in a block's shared memory, or
-    the kernel is not built for the spec's K."""
+    """Bands of BAND_ROWS rows (the plane's Y if fewer); raises when that
+    does not fit in a block's shared memory, or the kernel is not built for
+    the spec's K."""
     if spec.k not in SLOT_COUNTS:
         raise ValueError(f"the contact sweep kernel is built for K in "
                          f"{SLOT_COUNTS}, not K={spec.k}")
-    if spec.L % 32 or spec.L < 2 * lane_pad(spec.k):
-        raise ValueError(f"lane axis {spec.L} is not a multiple of 32 at "
-                         f"least 2·{lane_pad(spec.k)} long: the staging "
-                         f"copies need 16-byte runs, the gate whole masks")
-    plans = [_plan(spec, r) for r in range(1, min(MAX_BAND_ROWS, spec.ny) + 1)]
-    fits = [p for p in plans if p.smem_bytes <= SMEM_TARGET]
-    plan = fits[-1] if fits else plans[0]
+    if spec.L % 32:
+        raise ValueError(f"lane axis {spec.L} is not a multiple of 32: the "
+                         f"gate needs whole 32-slot masks")
+    plan = _plan(spec, min(BAND_ROWS, spec.ny))
     if plan.smem_bytes > SMEM_LIMIT:
         raise ValueError(
-            f"a band of one row needs {plan.smem_bytes} bytes of shared "
-            f"memory, more than the {SMEM_LIMIT} a block has (L={spec.L}, "
-            f"K={spec.k})")
+            f"a band of {plan.rows} rows needs {plan.smem_bytes} bytes of "
+            f"shared memory, more than the {SMEM_LIMIT} a block has "
+            f"(L={spec.L}, K={spec.k})")
     return plan
 
 
@@ -123,6 +107,24 @@ def launch_on_cursor(name: str, dev, stream: int, launch) -> None:
     if rc != 0:
         _CURSORS.pop(key, None)
         check_launch(name, rc)
+
+
+# The band sweep's stage modes and their codes (`Mode` in the .cu): the
+# floor modes of ops/contact_floor.py, then the production sweep.
+MODE_CODES = {"zero": 0, "pads": 1, "screen": 2, "full": 3}
+
+
+def resident_blocks(spec, mode: str, plan: BandPlan, dev) -> int:
+    """Sweep blocks of `mode` (K4 is "full"; the floor modes' names) that
+    the occupancy API puts on one SM of CUDA device `dev` at `plan`: the
+    persistent grid a launch sizes, over the SM count."""
+    grid = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        check_launch("contact_grid", library().lib.sph_contact_grid(
+            spec.nz, spec.ny, spec.L, spec.k, plan.rows, plan.smem_bytes,
+            MODE_CODES[mode], dev.index, ctypes.byref(grid)))
+    return grid.value // torch.cuda.get_device_properties(
+        dev).multi_processor_count
 
 
 def contact_sweep(fields, occ, params, spec, rows: int | None = None):
@@ -158,6 +160,9 @@ def launch_bands(name, entry, fields, occ, spec, plan: BandPlan, *model):
     if len(fields) != 10:
         raise ValueError(f"{name}: expected 10 fields, got {len(fields)}")
     nz = slab_planes(name, (*fields, occ), (spec.ny, spec.L))
+    if occ.numel() >= 1 << 31:
+        raise ValueError(f"{name}: {occ.numel()} slots; the kernel's "
+                         f"stencil indices are 32-bit (fewer than 2^31)")
     if plan.smem_bytes > SMEM_LIMIT:
         raise ValueError(f"{name}: a band of {plan.rows} rows needs "
                          f"{plan.smem_bytes} bytes of shared memory, more "

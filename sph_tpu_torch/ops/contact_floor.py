@@ -1,6 +1,6 @@
 """K4's floor modes: the colony contact sweep run one stage at a time, to
-split its time into the six +0 planes, the gate and the halo staging, the
-screen and the pair terms.
+split its time into the six +0 planes, the gate and the reads of the
+band's planes, the screen and the pair terms.
 
 Counterparts of the stub kernels of tools/probe_kernel_floor.py
 (`zero_kernel` :78, `pads_kernel` :84, `screen_kernel` :105), which that
@@ -11,8 +11,10 @@ compile-time stage mode of K4's own band sweep (csrc/contact_sweep.cu
 
 - "zero"   — +0 into every band's six planes, reading nothing (as
              `zero_kernel` writes zeros into every block);
-- "pads"   — the gate (the band's occupancy, staged by TMA, into masks),
-             the halo staging (TMA) and the lane pads;
+- "pads"   — the gate (the band's occupancy, staged by TMA, into masks)
+             and the reads of all ten fields at the band's slots in
+             planes z − 1 .. z + 1, through L1 (the sweep reads its
+             partners the same way; it stages none);
 - "screen" — and the list of the band's occupied slots and pass 1 (the 62
              screens of each at K = 2) as a running margin max; only a
              band that hits stores (pass 1 again, its margins);
@@ -38,7 +40,7 @@ the plain versions take it as `tile_rows`, and the wrapper gives them the
 band's rows.
 
 Partners wrap in every axis, as `_sweep_plain`'s torch.roll and the
-kernel's halo staging wrap them. The Pallas kernel clamps planes and
+kernel's stencil indices wrap them. The Pallas kernel clamps planes and
 edge tiles instead; on a pack those reach only slots of the sentinel
 margin (own or partner, on an own slot whose screen is below −1 either
 way), so wrap and clamp give the same bits there. Input that is not a
@@ -61,6 +63,7 @@ import torch.nn.functional as F
 from sph_tpu_torch.ops import FLOOR_LAUNCHES
 from sph_tpu_torch.ops.build import library
 from sph_tpu_torch.ops.contact import (
+    MODE_CODES,
     NCOMP,
     contact_sweep,
     launch_bands,
@@ -68,7 +71,6 @@ from sph_tpu_torch.ops.contact import (
 )
 
 MODES = ("zero", "pads", "screen", "full")
-STUBS = ("zero", "pads", "screen")    # mode code = index (Mode in the .cu)
 PADS_SCALE = 1e-37                    # the pads stub's f32 factor
 
 
@@ -155,6 +157,6 @@ def contact_floor(fields, occ, params, spec, mode: str,
         return PLAIN[mode](fields, occ, params, spec, plan.rows)
     outs = launch_bands(
         f"contact_floor {mode}", library().lib.sph_contact_floor, fields,
-        occ, spec, plan, STUBS.index(mode), params.contact_epsilon)
+        occ, spec, plan, MODE_CODES[mode], params.contact_epsilon)
     FLOOR_LAUNCHES[mode] += 1
     return outs

@@ -1,5 +1,5 @@
 """The colony kernels' host-side geometry, on the CPU: K4's band planner
-(ops/contact.py `band_plan`), its halo indexing and its wrapper's band
+(ops/contact.py `band_plan`), its stencil indexing and its wrapper's band
 cursor, and K5's row lookup (csrc/expand_rows.cu, written out in plain
 PyTorch as sph_tpu_torch.utils.verify `expand_lookup` and
 `expand_search`) against the pack's own bookkeeping `_rank_and_slots`.
@@ -42,14 +42,10 @@ def test_band_plan_fits_and_covers(case):
     if case == "y8":
         assert spec.ny == 8
     plan = oc.band_plan(spec)
-    # Two sweep blocks fit on an SM, and one more row would not keep them.
-    assert plan.smem_bytes <= SMEM_TARGET <= SMEM_LIMIT
-    assert plan.rows == min(oc.MAX_BAND_ROWS, spec.ny) or \
-        oc._plan(spec, plan.rows + 1).smem_bytes > SMEM_TARGET
-    # The halo row holds every lane offset of the stencil, 16-byte runs.
-    reach = 2 * spec.k - 1
-    assert plan.run == spec.L + 2 * oc.lane_pad(spec.k)
-    assert oc.lane_pad(spec.k) >= reach and oc.lane_pad(spec.k) % 4 == 0
+    # Bands of BAND_ROWS rows (fewer on a shorter plane); four sweep blocks
+    # fit on an SM by shared memory (registers allow two).
+    assert plan.rows == min(oc.BAND_ROWS, spec.ny)
+    assert 4 * (plan.smem_bytes + 1024) <= 233_472
     # Every row of every plane is in exactly one band (the gate's grid).
     seen = torch.zeros((spec.nz, spec.ny), dtype=torch.int64)
     for band in range(spec.nz * plan.bands):
@@ -58,63 +54,87 @@ def test_band_plan_fits_and_covers(case):
     assert bool((seen == 1).all())
     if case == "colony_1m":
         assert spec.shape() == (186, 192, 384)
-        # The halo, list and warp counts (98,720 B), two occupancy buffers
-        # of 4,608 B, 36 mask words and the 32-byte tail.
-        assert (plan.rows, plan.bands, plan.smem_bytes) == (3, 64, 108_112)
+        # Two occupancy buffers and the list of 1,920 slots (23,040 B),
+        # 60 mask words, the warp counts and the 32-byte tail; nothing
+        # staged.
+        assert (plan.rows, plan.bands, plan.smem_bytes) == (5, 39, 23_344)
     # The block holds the band's occupancy and the next band's (two
-    # buffers of rows·L floats) and a whole number of 32-slot masks.
+    # buffers of rows·L floats), the list and a whole number of 32-slot
+    # masks.
     own = plan.rows * spec.L
     assert own % 32 == 0
-    halo = oc.STAGED * 3 * (plan.rows + 2) * plan.run
-    assert plan.smem_bytes == 4 * (halo + 2 * own + own + own // 32
+    assert plan.smem_bytes == 4 * (2 * own + own + own // 32
                                    + oc.THREADS // 32) + oc.TAIL
+
+
+@pytest.mark.parametrize("k", oc.SLOT_COUNTS)
+def test_band_plan_at_every_k(k):
+    """At each K the kernel is built for, on the 1M colony's layout and on
+    a small blob: BAND_ROWS rows (the plane's Y if fewer), shared memory
+    under the two-block target, every forced height's plan the same
+    formula, and one more row costing one more row of buffers."""
+    for spec in (dataclasses.replace(COLONY_1M, k=k), blob_spec(k)):
+        plan = oc.band_plan(spec)
+        assert plan == oc._plan(spec, min(oc.BAND_ROWS, spec.ny))
+        assert plan.bands == -(-spec.ny // plan.rows)
+        assert plan.smem_bytes <= SMEM_TARGET <= SMEM_LIMIT
+        for rows in (2, 5, 8):
+            forced = oc.plan_of(spec, rows)
+            assert forced == oc._plan(spec, rows)
+            assert forced.smem_bytes - oc._plan(spec, rows - 1).smem_bytes \
+                == 4 * (3 * spec.L + spec.L // 32)
 
 
 def test_band_plan_refuses_what_it_cannot_take():
     with pytest.raises(ValueError, match="built for K"):
         oc.band_plan(dataclasses.replace(COLONY_1M, k=3))
     with pytest.raises(ValueError, match="more than"):
-        oc.band_plan(dataclasses.replace(COLONY_1M, nx_pad=4096))
+        oc.band_plan(dataclasses.replace(COLONY_1M, nx_pad=4096 * 4))
+    with pytest.raises(ValueError, match="multiple of 32"):
+        oc.band_plan(dataclasses.replace(COLONY_1M, nx_pad=200))
+
+
+def stencil(spec, z, y, l):
+    """The kernel's `Stencil` of own slot (z, y, l): nine wrapped row
+    starts (dz outer) and 2P + 1 wrapped lanes."""
+    P = 2 * spec.k - 1
+    Z, Y, L = spec.nz, spec.ny, spec.L
+    rows = [((z + dz) % Z * Y + (y + dy) % Y) * L
+            for dz in (-1, 0, 1) for dy in (-1, 0, 1)]
+    lanes = [(l + o) % L for o in range(-P, P + 1)]
+    return rows, lanes
 
 
 @pytest.mark.parametrize("case", ["blob_k4", "y8"])
 def test_band_halo_holds_the_rolled_partners(case):
-    """The sweep's halo, staged as the kernel stages it (planes and rows
-    wrapped; each row copied to lane kPad, then padded with its own wrapped
-    lanes), gives at every own slot of a band and every variant the plain
-    sweep's rolled partner — for the first band row, the last (short or at
-    the array's edge) and one inside, in the first, a middle and the last
-    plane."""
+    """The sweep's partner indices — its `Stencil`: row start of (z + dz, y
+    + dy) plus lane l + o, each wrapped, formed once a slot; nothing is
+    staged — give at every own slot of a band and every
+    variant the plain sweep's rolled partner: for the first band row, the
+    last (short or at the array's edge) and one inside, in the first, a
+    middle and the last plane, at the first lanes, the last and one
+    inside."""
     spec = SPECS[case]()
     plan = oc.band_plan(spec)
-    Z, Y, L, pad = spec.nz, spec.ny, spec.L, oc.lane_pad(spec.k)
+    Z, Y, L = spec.nz, spec.ny, spec.L
+    P = 2 * spec.k - 1
     g = torch.Generator().manual_seed(1)
     field = torch.rand((Z, Y, L), generator=g)
-    plane, run = (plan.rows + 2) * plan.run, plan.run
+    flat = field.reshape(-1)
     for z in (0, Z // 2, Z - 1):
         for b in (0, plan.bands // 2, plan.bands - 1):
             r0 = b * plan.rows
             rows = min(plan.rows, Y - r0)
-            halo = torch.full((3 * plane,), float("nan"))
-            for t in range(3 * (rows + 2)):        # the copies
-                r, p = t % (rows + 2), t // (rows + 2)
-                at = p * plane + r * run
-                halo[at + pad:at + pad + L] = field[(z - 1 + p) % Z,
-                                                    (r0 - 1 + r) % Y]
-            for t in range(3 * (rows + 2) * 2 * pad):   # the pads
-                i, row = t % (2 * pad), t // (2 * pad)
-                at = row // (rows + 2) * plane + row % (rows + 2) * run
-                if i < pad:
-                    halo[at + i] = halo[at + L + i]
-                else:
-                    halo[at + L + i] = halo[at + i]
-            for dz, dy, o in cd.contact_variants(spec):
-                want = torch.roll(field, (-dz, -dy, -o), (0, 1, 2))
-                for ry in range(rows):
-                    own = plane + (ry + 1) * run + pad + torch.arange(L)
-                    got = halo[own + dz * plane + dy * run + o]
-                    assert torch.equal(got, want[z, r0 + ry]), \
-                        (z, b, dz, dy, o)
+            for ry in (0, rows // 2, rows - 1):
+                y = r0 + ry
+                for l in (0, 1, L // 2, L - 2, L - 1):
+                    row, lane = stencil(spec, z, y, l)
+                    for dz, dy, o in cd.contact_variants(spec):
+                        want = torch.roll(field, (-dz, -dy, -o),
+                                          (0, 1, 2))[z, y, l]
+                        got = flat[row[3 * (dz + 1) + dy + 1] + lane[o + P]]
+                        assert torch.equal(got, want), (z, y, l, dz, dy, o)
+                    assert flat[row[4] + lane[P]] == field[z, y, l]
 
 
 def slot_rows(flat, fits, slots):

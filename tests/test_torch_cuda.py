@@ -507,6 +507,103 @@ def test_one_band_and_the_cursor_left_zeroed(cuda):
             assert oc._CURSORS[(cuda, stream)].tolist() == [0, 0]
 
 
+def stages_exact(monkeypatch, fields, occ, params, spec, plan):
+    """S2 (pads), S3 (screen) and K4 at a forced band `plan` against their
+    plain versions: the floor modes
+    bitwise at the plan's rows, K4 bitwise to `_sweep_plain` with +0 on
+    empty slots. Returns the slots of the bands that hit the screen."""
+    monkeypatch.setattr(oc, "band_plan", lambda _spec: plan)
+    outs = {}
+    for mode in ("pads", "screen"):
+        outs[mode] = cf.contact_floor(fields, occ, params, spec, mode)
+        plain = cf.PLAIN[mode](fields, occ, params, spec, plan.rows)
+        for a, b in zip(outs[mode], plain):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), \
+                (mode, plan)
+    contact_exact(fields, occ, params, spec)
+    return int((outs["screen"][0] != 0).sum())
+
+
+@pytest.mark.parametrize("k", oc.SLOT_COUNTS)
+def test_stages_on_few_planes(cuda, monkeypatch, k):
+    """S2, S3 and K4 at each K on slabs of Z = 1, 2, 3 and 11 planes of a
+    crowded ball (bands that hit), at the plan's rows and at 5 (Y not a
+    multiple of the band's rows): the first and last planes' halos wrap
+    past the slab's ends, and a one-plane slab's three staged planes are
+    one plane."""
+    state, params, spec = blob(n=2000, k=k, radius=14.0, spawn=16.0,
+                               device=cuda)
+    fields, occ, _, _ = cd._pack_args(state, spec)
+    assert spec.ny % 5
+    z = int((occ > 0.5).sum(dim=(1, 2)).argmax())
+    hits, planned = 0, oc.band_plan(spec).rows
+    for nz in (1, 2, 3, 11):
+        planes = [(z - nz // 2 + i) % spec.nz for i in range(nz)]
+        slab = [f[planes].contiguous() for f in (*fields, occ)]
+        sspec = dataclasses.replace(spec, nz=nz)
+        for rows in (planned, 5):
+            plan = oc._plan(sspec, rows)
+            if plan.smem_bytes <= oc.SMEM_LIMIT:
+                hits += stages_exact(monkeypatch, slab[:10], slab[10],
+                                     params, sspec, plan)
+    assert hits > 0
+
+
+@pytest.mark.parametrize("k", oc.SLOT_COUNTS)
+def test_stages_with_margins_of_zero(cuda, monkeypatch, k):
+    """S2, S3 and K4 at each K with ε equal to an overlap the pack makes
+    (the median of the occupied slots' positive largest overlaps), so that
+    margins are exactly 0 and pairs sit on the screen's bound, on the
+    crowded ball and on it compressed ×0.7: bands hit, and every stage is
+    bitwise."""
+    state, params, spec = blob(n=2000, k=k, radius=14.0, spawn=16.0,
+                               device=cuda)
+    plan = oc.band_plan(spec)
+    for st in (state, compressed(state, 0.7)):
+        fields, occ, _, _ = cd._pack_args(st, spec)
+        overlap = cf.screen_margin(fields, params.replace(
+            contact_epsilon=0.0), spec)
+        positive = overlap[(occ > 0.5) & (overlap > 0)]
+        eps = float(positive.median())
+        p = params.replace(contact_epsilon=eps)
+        margin = cf.screen_margin(fields, p, spec)
+        assert bool(((margin == 0) & (occ > 0.5)).any())
+        assert stages_exact(monkeypatch, fields, occ, p, spec, plan) > 0
+
+
+@pytest.mark.parametrize("k", oc.SLOT_COUNTS)
+def test_stages_with_a_nan_position(cuda, monkeypatch, k):
+    """S2, S3 and K4 at each K on a settled colony (no band hits the
+    screen) with one cell's x NaN: S2 and S3 bitwise to their plain
+    versions on every slot (NaN for NaN); K4 bitwise to `_sweep_plain` on
+    the occupied slots, NaN where it is NaN, and +0 on the empty ones."""
+    state, params, _ = bonded_colony(4000, device=cuda,
+                                     **{**COLONY, "dense_k": k})
+    spec = cd.make_contact_spec(params, k=k,
+                                cell_factor=params.dense_cell_factor)
+    pos = state.pos.clone()
+    pos[7, 0] = float("nan")
+    fields, occ, _, _ = cd._pack_args(state.replace_fields(pos=pos), spec)
+    plan = oc.band_plan(spec)
+    monkeypatch.setattr(oc, "band_plan", lambda _spec: plan)
+    for mode in ("pads", "screen"):
+        kern = cf.contact_floor(fields, occ, params, spec, mode)
+        plain = cf.PLAIN[mode](fields, occ, params, spec, plan.rows)
+        for a, b in zip(kern, plain):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32)), mode
+    assert bool(kern[0].eq(0).all())          # no band hits the screen
+    plain = cd._sweep_plain(
+        fields, lambda *a: cd.contact_pair_terms(params, *a), 6, spec)
+    kern = contact_sweep(fields, occ, params, spec)
+    m = occ > 0.5
+    assert bool(plain[0][m].isnan().any())
+    for a, b in zip(kern, plain):
+        assert torch.equal(a[m].isnan(), b[m].isnan())
+        assert torch.equal(a[m].view(torch.int32).masked_fill(a[m].isnan(), 0),
+                           b[m].view(torch.int32).masked_fill(b[m].isnan(), 0))
+        assert not bool(a[~m].view(torch.int32).any())
+
+
 @pytest.mark.parametrize("kw", [
     dict(n=4000, k=2, radius=9.0, alive=3900),     # overflow, dead rows
     dict(n=400, k=4, alive=380),                   # the probe's scene

@@ -11,12 +11,13 @@ zero, pads, screen, full) is checked bitwise against its plain version
 ("full" against contact_sweep) and timed with CUDA events (turns plain,
 kernel, kernel, plain), beside the bytes and operations its function needs
 and the bound they set; then the split: the six +0 planes (zero, which
-reads no occupancy), the gate with the staging and pads (pads − zero),
-the gate, staging, list and pass 1 (screen − zero), screen − pads, and
+reads no occupancy), the gate with the reads of the band's planes (pads
+− zero), the gate, list and pass 1 (screen − zero), screen − pads, and
 the pair terms (full − screen), from the device times under
-torch.profiler (each mode one device kernel a call, asserted). The pads mode reads the six fields the production
-sweep does not stage and writes a plane, so its difference over-counts
-the staging and screen − pads is no stage of its own; the screen mode
+torch.profiler (each mode one device kernel a call, asserted). The pads
+mode reads six fields the screen does not and writes a plane, so its
+difference over-counts the reads and screen − pads is no stage of its
+own; the screen mode
 stores only in bands that hit. Last, where a call's time goes
 between host and device for the zero and full modes.
 

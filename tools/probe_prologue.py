@@ -17,7 +17,9 @@ of the 1M pack (a 4-ring's rank 1, a 2×2 mesh's rank (1, 0)); K5
 torch.index_copy beside each. Each: ms over 20 calls with CUDA events
 (two runs), device ms and kernels a call under torch.profiler, host
 enqueue ms a call, the bound; K4, S1–S3 and K5 bitwise to their plain
-versions first. Prints the card's `nvidia-smi` name and power limit, the
+versions first. Also, a colony, the blocks an SM of each mode (the
+occupancy API, where the tree has `resident_blocks`) and the threads busy
+in pass 1 (chip_smoke.py `pass1_threads`). Prints the card's `nvidia-smi` name and power limit, the
 ptxas lines of the two sources, and one JSON line per kernel; with --out,
 all of it as one JSON object.
 """
@@ -65,6 +67,7 @@ def run(root: str, out: str | None, cs, device="cuda:0") -> list:
     """The probe on the tree at `root` (first on sys.path) with the helpers
     `cs`; returns the rows (and writes them to `out` when given)."""
     from sph_tpu_torch.engine.colony import bonded_colony
+    from sph_tpu_torch.ops import contact as oc
     from sph_tpu_torch.ops.build import library
     from sph_tpu_torch.ops.contact import contact_sweep
     from sph_tpu_torch.parallel.dist import contact_block
@@ -98,6 +101,13 @@ def run(root: str, out: str | None, cs, device="cuda:0") -> list:
         fields, occ = cd._pack_args(state, spec, expand=True)[:2]
         tag = f"{n} colony {list(spec.shape())}"
         print(f"{tag}: {cs.contact_band_line(occ, spec)}", flush=True)
+        plan = oc.band_plan(spec)
+        blocks = ({m: oc.resident_blocks(spec, m, plan, dev)
+                   for m in ("zero", "pads", "screen", "full")}
+                  if hasattr(oc, "resident_blocks") else "not available")
+        print(f"{tag}: blocks an SM (occupancy API) {blocks}; threads busy "
+              f"in pass 1 of 256 {cs.pass1_threads(occ, spec, plan.rows)}",
+              flush=True)
         r = check_contact_fields(fields, occ, p, spec)
         cs.exact_contact(tag, r)
         pairs = cs.floor_pairs(fields, occ, p, spec)
