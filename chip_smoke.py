@@ -14,15 +14,23 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
                atol 1e-6·max|x|), with their band plans; the rebin bitwise
                with equal `dropped` > 0 under a crowding nudge, and
                bitwise with equal `dropped` on the config[3] state with a
-               NaN, a +inf and a −inf coordinate (NaN as NaN).
+               NaN, a +inf and a −inf coordinate (NaN as NaN); the step's
+               tail, F2 (density fixup + Tait EOS + p/ρ²) and F1
+               (`_integrate`), bitwise on every slot (NaN as NaN) with
+               equal clamp counts on K1's and K2's outputs at config[3]
+               and the 2D scene, as the step runs them and stirred so the
+               clamp and the walls fire, with a drag; at config[3] also
+               with a sphere and a box beside the cylinder, an inexact
+               1/mass and NaN lanes.
 4. main      — config[3] through FluidSimulation for 60 steps = 10 rebins,
                launch counters reset just before: count conserved, dropped
                == 0, positions finite and in bounds, every sweep and both
                passes of every rebin (codes, placement) launched through
-               the kernels. Then a small 2D scene through the kernels
-               against the plain versions.
+               the kernels, F2 and F1 once a step. Then a small 2D scene
+               through the kernels against the plain versions.
 5. fluid phases — where the time of a config[3] step goes (CUDA events
-               per phase; K1/K2 split into their gate and sweep launches
+               per phase, F2 and F1 with their plain versions' ms and
+               their bounds beside; K1/K2 split into their gate and sweep launches
                and K3 into its codes and placement launches by
                torch.profiler), one step by host clock, and the device's
                busy share under torch.profiler.
@@ -84,13 +92,14 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
 12. shard    — the sharded paths (sph_tpu_torch/parallel): config[4]
                (dam_break_3d, 4,012,092 particles, [234, 8, 16384]) 45
                steps on one device; K1 and K2 on its halo-padded blocks
-               (a 4-ring's [61, 8, 16384], a 2×2 mesh's [119, 8, 10240])
+               (a 4-ring's [61, 8, 16384], a 2×2 mesh's [119, 8, 10240]),
+               F2 and F1 on the same blocks,
                and K4 on the 1M colony's, bitwise to their plain versions,
                timed against them beside their bounds. Then one world of 4
                ranks sharing the card over gloo (halos through pinned host
                buffers): config[4] on a 4-ring and a 2×2 mesh, 45 steps
                each, every block bitwise to one device with its counters,
-               K1/K2 45 launches a rank and K3 none; checkpoints saved on
+               K1/K2, F2/F1 45 launches a rank and K3 none; checkpoints saved on
                the ring and loaded on one device, and the reverse, each 15
                more steps bitwise; the random fluid of tests/test_dist.py
                at 262,144 particles, 12 steps on the ring (population
@@ -103,7 +112,8 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
                halo and staged bytes and host-staging ms are those of
                ranks sharing one card, not a multi-GPU speed.
 13. times    — each kernel's ms against its plain version's (and, for the
-               placement, one PyTorch index_copy), beside its bound; K4
+               placement, one PyTorch index_copy), beside its bound (F1
+               and F2 have no one PyTorch call: library null); K4
                also on the compressed copy, K5 also at the probe's
                scene (K6), with K5's and K6's host enqueue ms a call;
                K4 and K5 (1M and the probe's scene) must launch one
@@ -145,8 +155,8 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
 18. app      — `python -m sph_tpu_torch.app` in process: `fluid` at
                config[3]'s scene and particle count (30 steps, a frame
                every 15), counters reset just before: exit 0, two frames,
-               `dropped` 0, and the sweeps and the rebin launched as many
-               times as the steps it ran ask; then `cells` with
+               `dropped` 0, and the sweeps, the tail and the rebin
+               launched as many times as the steps it ran ask; then `cells` with
                --render-every and `view` with a script at their default
                sizes; and utils.profiling.step_breakdown at config[3].
 19. bench    — `python -m sph_tpu_torch.bench --all --cells --breakdown`
@@ -210,6 +220,13 @@ KERNELS = {
                 "sph_tpu/ops/pallas/contact.py:64"),
     "expand": ("sph_tpu_torch/csrc/expand_rows.cu",
                "sph_tpu/ops/pallas/expand.py:80"),
+    # The step's per-slot tail, which XLA fuses in the JAX package (no
+    # Pallas kernel): F2, the density fixup + Tait EOS + p/rho^2 of
+    # dense_step, and F1, _integrate.
+    "density_tail": ("sph_tpu_torch/csrc/integrate.cu",
+                     "sph_tpu/sph/dense.py:682"),
+    "integrate": ("sph_tpu_torch/csrc/integrate.cu",
+                  "sph_tpu/sph/dense.py:460"),
     # K4's floor modes: the stubs tools/probe_kernel_floor.py swaps into
     # the Pallas contact sweep.
     "floor_zero": ("sph_tpu_torch/csrc/contact_sweep.cu",
@@ -234,6 +251,12 @@ CONTACT_SCREEN_FLOPS = 14
 CONTACT_PAIR_FLOPS = 110
 # The floor's pads stub: 30 adds and a multiply per slot of a gated band.
 FLOOR_PADS_FLOPS = 31
+# Operations a slot of the step's tail, counted from csrc/integrate.cu:
+# F2's fixup, scaled pow, Tait B and p/rho^2 (pow as one); F1's gravity,
+# one cylinder's push (norm, normal, penalty), the Euler update, the
+# speed, the clamp and the three walls. Both are far below their bytes.
+DENSITY_TAIL_FLOPS = 8
+INTEGRATE_FLOPS = 60
 # Calls a timing takes of a kernel and of its plain version (`turns`).
 TURN_REPS_KERN, TURN_REPS_PLAIN = 20, 3
 
@@ -370,6 +393,72 @@ def exact_sweeps(where: str, checks: dict) -> None:
             raise AssertionError(f"{where} {name}: not exact: {r}")
 
 
+def tail_checks(sim, s2) -> dict:
+    """F2 (density_tail) and F1 (integrate) against their plain versions
+    at config[3] (`sim`) and the 2D scene (`s2`), on K1's raw density and
+    K2's accelerations of each state: as the step runs them; stirred so
+    the vmax clamp and the walls fire, with a drag on the fluid; and at
+    config[3] also with a sphere and a box beside the cylinder, a particle
+    mass whose reciprocal is inexact, and NaN lanes (NaN in the raw
+    density, an acceleration and a position, +inf in a velocity)."""
+    from sph_tpu_torch.sph import dense
+    from sph_tpu_torch.sph.model import FluidDrag
+    from sph_tpu_torch.utils.verify import (
+        check_density_tail,
+        check_integrate,
+        stirred,
+        tail_inputs,
+    )
+
+    out = {}
+    for tag, s in (("config[3]", sim), ("2D", s2)):
+        d, p, spec = s.dstate, s.params, s.spec
+        vmax = dense.rebin_vmax(p, spec)
+        raw, d2, acc = tail_inputs(d, p, spec)
+        shape = list(d.px.shape)
+        out[f"{tag} {shape} density_tail"] = check_density_tail(raw, d.occ,
+                                                                p)
+        out[f"{tag} {shape} integrate"] = check_integrate(d2, *acc, p, vmax)
+        m = d.occ > 0.5
+        ctr = [float(f[m].mean()) for f in (d.px, d.py, d.pz)]
+        drag = FluidDrag.at(ctr, [c + 0.1 for c in ctr], 4 * p.h, 3000.0,
+                            device=d.px.device)
+        ds, accs = stirred(d2, acc, p, vmax, seed=1)
+        out[f"{tag} {shape} integrate stirred, drag"] = check_integrate(
+            ds, *accs, p, vmax, drag=drag)
+        if tag != "config[3]":
+            continue
+        more = p.replace(particle_mass=1.3, obstacles=(
+            ("sphere", (0.8, 0.2, 0.5), 0.15),
+            ("box", (0.4, 0.3, 0.5), (0.1, 0.1, 0.2)), *p.obstacles))
+        ds, accs = stirred(d2, acc, more, vmax, seed=2, nan=True)
+        out[f"{tag} {shape} integrate, three kinds, mass 1.3, NaN lanes"] = (
+            check_integrate(ds, *accs, more, vmax, drag=drag))
+        raw = raw.clone()
+        raw.view(-1)[torch.nonzero(m.view(-1))[:2, 0]] = torch.tensor(
+            [float("nan"), float("-inf")], device=raw.device)
+        out[f"{tag} {shape} density_tail, NaN and -inf lanes"] = (
+            check_density_tail(raw, d.occ, p))
+    return out
+
+
+def exact_tail(where: str, checks: dict) -> dict:
+    """F1 and F2 must equal their plain versions bit for bit on every slot
+    (NaN as NaN) with equal clamp counts, the stirred runs clamping;
+    returns the worst result of each kernel."""
+    worst = {}
+    for name, r in checks.items():
+        if not (r["bitwise"] and r["max_abs_err"] == 0):
+            raise AssertionError(f"{where} {name}: not exact: {r}")
+        if "stirred" in name and r["n_clamped"] == 0:
+            raise AssertionError(f"{where} {name}: the clamp never fired")
+        kernel = "integrate" if "integrate" in name else "density_tail"
+        if r["max_abs_err"] >= worst.get(kernel, {"max_abs_err": -1.0})[
+                "max_abs_err"]:
+            worst[kernel] = r
+    return worst
+
+
 def nonfinite_rebin(d, p, spec) -> dict:
     """K3 against the plain rebin on `d` with three occupied slots' x, y
     and z set to NaN, +inf and −inf (ROADMAP C1): equal bits on every
@@ -435,7 +524,7 @@ def main() -> int:
     from sph_tpu_torch.ops.build import library
     from sph_tpu_torch.ops.rebin import staged_rebin
     from sph_tpu_torch.sph import dense
-    from sph_tpu_torch.utils.verify import check_fluid_twins
+    from sph_tpu_torch.utils.verify import check_fluid_twins, tail_inputs
 
     dev = torch.device("cuda", 0)
 
@@ -473,6 +562,10 @@ def main() -> int:
             f"{json.dumps(r)}")
     say("kernels", f"config[3] rebin with non-finite coordinates: "
         f"{json.dumps(nonfinite_rebin(sim.dstate, sim.params, sim.spec))}")
+    tails = tail_checks(sim, s2)
+    checks.update(exact_tail("kernels", tails))
+    for name, r in tails.items():
+        say("kernels", f"{name}: {json.dumps(r)}")
 
     # 4. main path: config[3], counters reset just before.
     reset_launches()
@@ -481,7 +574,8 @@ def main() -> int:
     m = check_state(sim, N_CONFIG3)
     rebins = MAIN_STEPS // sim.params.rebin_every
     want = {"density": MAIN_STEPS, "accel": MAIN_STEPS,
-            "rebin": 2 * rebins, "contact": 0, "expand": 0}
+            "rebin": 2 * rebins, "contact": 0, "expand": 0,
+            "density_tail": MAIN_STEPS, "integrate": MAIN_STEPS}
     if launches != want:
         raise AssertionError(f"launches {launches} != {want}")
     say("main", f"config[3] {MAIN_STEPS} steps ({rebins} rebins): "
@@ -535,8 +629,10 @@ def main() -> int:
     d, p, spec = sim.dstate, sim.params, sim.spec
     plane = d.px.numel() * 4
     n_pairs, n_near, n_occ = fluid_pairs(d, spec)
+    raw, d_tail, acc = tail_inputs(d, p, spec)
     pairs = {
         **sweep_time_pairs(d, p, spec, n_pairs, n_near),
+        **tail_time_pairs(d_tail, raw, acc, p, spec),
         # occupancy in, 7 planes out; 6 payload fields of occupied slots.
         "rebin": (
             lambda: staged_rebin(d, d.px, d.py, d.pz, d.vx, d.vy, d.vz,
@@ -616,36 +712,63 @@ def device_busy(run, card) -> str:
             f"busy share {busy_us / 1e3 / (wall * 1e3):.3f} | {card}")
 
 
+def tail_time_pairs(d, raw, acc, p, spec) -> dict:
+    """(kernel, plain, library call, bound) of F2 and F1 on a state (or a
+    rank's halo-padded block) with K1's raw density and K2's
+    accelerations. What the bounds count: F2 reads the occupancy and the
+    raw density of occupied slots (an empty slot's is rest density) and
+    writes 3 planes; F1 reads the occupancy and the positions (an empty
+    slot keeps its own) and the velocities and accelerations of occupied
+    slots (in 2D every slot's vz: vz·0 keeps NaN) and writes 6 planes."""
+    from sph_tpu_torch.ops.integrate import density_tail, integrate
+    from sph_tpu_torch.sph import dense
+
+    plane = d.px.numel() * 4
+    n_occ = int((d.occ > 0.5).sum())
+    vmax = dense.rebin_vmax(p, spec)
+    vz_all = plane - 4 * n_occ if p.ndim == 2 else 0
+    return {
+        "density_tail": (
+            lambda: density_tail(raw, d.occ, p),
+            lambda: dense.density_tail(raw, d.occ, p),
+            None, bound(4 * plane + 4 * n_occ,
+                        d.px.numel() * DENSITY_TAIL_FLOPS)),
+        "integrate": (
+            lambda: integrate(d, *acc, p, vmax),
+            lambda: dense._integrate(d, *acc, p, vmax),
+            None, bound(10 * plane + 6 * 4 * n_occ + vz_all,
+                        d.px.numel() * INTEGRATE_FLOPS)),
+    }
+
+
 def fluid_phases(sim, card) -> None:
     """Phase 5: CUDA-event times of each part of a config[3] step (on the
-    state after the main run), the K1/K2/K3 launches by kernel under
-    torch.profiler, one step by host clock and the busy share."""
+    state after the main run) — the kernels as the step runs them, the
+    tail's plain versions and bounds beside F1 and F2 — the K1/K2/K3
+    launches by kernel under torch.profiler, one step by host clock and
+    the busy share."""
     from torch.profiler import ProfilerActivity, profile
 
     from sph_tpu_torch.ops.fluid import accel_sweep, density_sweep
+    from sph_tpu_torch.ops.integrate import density_tail, integrate
     from sph_tpu_torch.ops.rebin import staged_rebin
     from sph_tpu_torch.sph import dense
-    from sph_tpu_torch.sph.model import eos_pressure
 
     d, p, spec = sim.dstate, sim.params, sim.spec
     raw = density_sweep(d.px, d.py, d.pz, d.occ, p, spec)
-    rho = dense.density_fixup(raw, d.occ, p)
-    d = d.replace_fields(rho=rho, prs=torch.where(
-        d.occ > 0.5, eos_pressure(rho, p), 0.0))
-    pr2 = d.prs / (d.rho * d.rho)
+    rho, prs, pr2 = density_tail(raw, d.occ, p)
+    d = d.replace_fields(rho=rho, prs=prs)
     acc = accel_sweep(d, pr2, p, spec)
     vmax = dense.rebin_vmax(p, spec)
-    moved = dense._integrate(d, *acc, p, vmax)[:6]
+    moved = integrate(d, *acc, p, vmax)[:6]
+    tail = tail_time_pairs(d, raw, acc, p, spec)
     phases = {
         "K1 density sweep": lambda: density_sweep(d.px, d.py, d.pz, d.occ,
                                                   p, spec),
-        "density fixup + EOS": lambda: torch.where(
-            d.occ > 0.5, eos_pressure(dense.density_fixup(raw, d.occ, p), p),
-            0.0),
-        "p/rho^2": lambda: d.prs / (d.rho * d.rho),
+        "F2 density tail (fixup + EOS + p/rho^2)": tail["density_tail"][0],
         "K2 accel sweep": lambda: accel_sweep(d, pr2, p, spec),
-        "_integrate (gravity, obstacle, drag, vmax clamp, walls)":
-            lambda: dense._integrate(d, *acc, p, vmax),
+        "F1 integrate (gravity, obstacle, drag, vmax clamp, walls)":
+            tail["integrate"][0],
         "one rebin (K3: codes + placement)": lambda: staged_rebin(
             d, *moved, p, spec),
     }
@@ -654,6 +777,9 @@ def fluid_phases(sim, card) -> None:
         ms = cuda_ms(fn, 10)
         total += ms / p.rebin_every if name.startswith("one rebin") else ms
         say("fluid phases", f"{name}: {ms:.4f} ms")
+    for name, (_, plain, _, bnd) in tail.items():
+        say("fluid phases", f"{name}: plain version {cuda_ms(plain, 5):.4f}"
+            f" ms, bound {bnd['bound_ms']:.4f} ms by {bnd['bound_by']}")
     for name, fn in (("K1", phases["K1 density sweep"]),
                      ("K2", phases["K2 accel sweep"]),
                      ("K3", phases["one rebin (K3: codes + placement)"])):
@@ -768,7 +894,8 @@ def colony_main(colony, card) -> dict:
     sim, sps, launches, plans, planned = run(colony["params"])
     m = sim.metrics()
     want = {"density": 0, "accel": 0, "rebin": 0,
-            "contact": COLONY_STEPS, "expand": COLONY_STEPS}
+            "contact": COLONY_STEPS, "expand": COLONY_STEPS,
+            "density_tail": 0, "integrate": 0}
     if launches != want:
         raise AssertionError(f"colony launches {launches} != {want}")
     # The plan is built once and every step takes the quiet branch: a
@@ -1622,7 +1749,7 @@ def viewer_phase(colony, card) -> None:
     launches = dict(LAUNCHES)
     per = VIEW_SUBSTEPS * VIEW_FRAMES
     if launches != {"density": 0, "accel": 0, "rebin": 0, "contact": per,
-                    "expand": per}:
+                    "expand": per, "density_tail": 0, "integrate": 0}:
         raise AssertionError(f"viewer launches {launches}, want {per} "
                              f"contact and expand")
     if not gap1 < gap0:
@@ -1720,6 +1847,8 @@ def app_phase(sim, card) -> None:
                 or frames != ["frame_00000.png", "frame_00001.png"]):
             raise AssertionError(f"app fluid: {m}, frames {frames}")
         if not (launches["density"] == launches["accel"] == steps
+                and launches["density_tail"] == launches["integrate"]
+                == steps
                 and launches["rebin"] > 0 and launches["rebin"] % 2 == 0
                 and launches["contact"] == launches["expand"] == 0):
             raise AssertionError(f"app fluid launches {launches} for "
@@ -2221,7 +2350,7 @@ BENCH_TIMEOUT = 600
 
 def bench_launches(rung) -> dict:
     want = dict.fromkeys(("density", "accel", "rebin", "contact",
-                          "expand"), 0)
+                          "expand", "density_tail", "integrate"), 0)
     if rung is None:
         return want
     kind, steps, sub, rebin_every = rung
@@ -2231,7 +2360,8 @@ def bench_launches(rung) -> dict:
     else:
         rebins = sum(i % rebin_every == rebin_every - 1
                      for i in range(total))
-        want.update(density=total, accel=total, rebin=2 * rebins)
+        want.update(density=total, accel=total, rebin=2 * rebins,
+                    density_tail=total, integrate=total)
     return want
 
 
@@ -2535,19 +2665,23 @@ def exact_same(where: str, r: dict, counters: bool = True) -> None:
 
 
 def slab_kernels(d, p, spec, colony, card) -> None:
-    """K1 and K2 on config[4]'s halo-padded blocks (ring rank 0; rank
-    (0, 1) of the 2×2 mesh, whose rows take the y halo) and K4 on the 1M
+    """K1, K2, F2 and F1 on config[4]'s halo-padded blocks (ring rank 0;
+    rank (0, 1) of the 2×2 mesh, whose rows take the y halo) and K4 on the 1M
     colony's (ring rank 1; 2×2 rank (1, 0)), each bitwise to its plain
     version and timed against it, beside its bound: one line of times
     and counts each."""
     from sph_tpu_torch.parallel.dist import contact_block, fluid_slab
     from sph_tpu_torch.physics import contact_dense as cd
+    from sph_tpu_torch.sph import dense
     from sph_tpu_torch.utils.verify import (
         accel_inputs,
         check_accel,
         check_contact_fields,
         check_density,
+        check_density_tail,
+        check_integrate,
         compressed,
+        tail_inputs,
     )
 
     rows = []
@@ -2566,6 +2700,19 @@ def slab_kernels(d, p, spec, colony, card) -> None:
                          "shape": list(slab.px.shape), "ms": ms,
                          "plain_ms": plain_ms, "turns_pkkp_ms": runs, **bnd,
                          "occupied": n_occ, "pairs": n_pairs})
+        # F2 and F1 on the block, as the sharded step runs them.
+        raw, slab_t, acc = tail_inputs(slab, p, sspec)
+        exact_tail(where, {
+            "density_tail": check_density_tail(raw, slab.occ, p),
+            "integrate": check_integrate(slab_t, *acc, p,
+                                         dense.rebin_vmax(p, spec))})
+        for name, (kern, plain, _, bnd) in tail_time_pairs(
+                slab_t, raw, acc, p, sspec).items():
+            ms, plain_ms, runs = turns(kern, plain)
+            rows.append({"kernel": name, "where": where,
+                         "shape": list(slab.px.shape), "ms": ms,
+                         "plain_ms": plain_ms, "turns_pkkp_ms": runs, **bnd,
+                         "occupied": n_occ})
     st, cp, cspec = colony["sim"].state, colony["sim"].params, colony["spec"]
     fields, occ, _, _ = cd._pack_args(st, cspec, expand=True)
     squeezed = cd._pack_args(compressed(st, 0.7), cspec, expand=True)[:2]
@@ -2632,7 +2779,8 @@ def shard_phase(colony, dev, card) -> None:
     m = check_state(one, N_CONFIG4)
     want = {"density": SHARD_STEPS, "accel": SHARD_STEPS,
             "rebin": 2 * (SHARD_STEPS // CONFIG4["rebin_every"]),
-            "contact": 0, "expand": 0}
+            "contact": 0, "expand": 0, "density_tail": SHARD_STEPS,
+            "integrate": SHARD_STEPS}
     if launches != want:
         raise AssertionError(f"config[4] launches {launches} != {want}")
     say("shard", f"config[4] one device, {SHARD_STEPS} steps: {sps:.2f} "
@@ -2713,7 +2861,8 @@ def shard_phase(colony, dev, card) -> None:
                      "ref": ref3},), timeout=SHARD_TIMEOUT)[0]
     exact_same("nccl config[3]", r["same"])
     want = {"density": NCCL_STEPS, "accel": NCCL_STEPS, "rebin": 0,
-            "contact": 0, "expand": 0}
+            "contact": 0, "expand": 0, "density_tail": NCCL_STEPS,
+            "integrate": NCCL_STEPS}
     if r["backend"] != "nccl" or r["launches"] != want:
         raise AssertionError(f"nccl world: {r['backend']} {r['launches']}")
     say("shard", f"config[3] on a one-rank nccl world, {NCCL_STEPS} steps: "
@@ -2740,7 +2889,8 @@ def shard_report(ranks, card) -> None:
         for i, r in enumerate(rs):
             exact_same(f"config[4] {name} rank {i}", r["same"])
             want = {"density": SHARD_STEPS, "accel": SHARD_STEPS,
-                    "rebin": 0, "contact": 0, "expand": 0}
+                    "rebin": 0, "contact": 0, "expand": 0,
+                    "density_tail": SHARD_STEPS, "integrate": SHARD_STEPS}
             if r["launches"] != want:
                 raise AssertionError(f"config[4] {name} rank {i} launches "
                                      f"{r['launches']} != {want}")
@@ -2799,7 +2949,8 @@ def shard_report(ranks, card) -> None:
                                      f"differ from one device: "
                                      f"{rs[0]['differ']}")
             want = {"density": 0, "accel": 0, "rebin": 0,
-                    "contact": steps, "expand": steps}
+                    "contact": steps, "expand": steps, "density_tail": 0,
+                    "integrate": 0}
             for i, r in enumerate(rs):
                 if r["launches"] != want:
                     raise AssertionError(f"{case} {name} rank {i} launches "

@@ -23,7 +23,7 @@ from pathlib import Path
 import torch
 
 SOURCES = ("fluid_sweep.cu", "rebin.cu", "contact_sweep.cu",
-           "expand_rows.cu")
+           "expand_rows.cu", "integrate.cu")
 HEADERS = ("persistent.cuh",)   # included by the sources; in the hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -61,6 +61,15 @@ _ARGTYPES = {
     "sph_contact_grid": [_I] * 8 + [ctypes.POINTER(_I)],
     # rows, key, out, n, ncol, slots, fills (host), device, stream
     "sph_expand_rows": [_P] * 3 + [_I] * 3 + [ctypes.POINTER(_F), _I, _P],
+    # in[10], out[6], clamped, n, ndim, consts[13] (host), n_obstacles,
+    # kinds (host), geometry (host), drag[4] or null, device, stream
+    "sph_integrate": [ctypes.POINTER(_P)] * 2 + [_P, _I, _I,
+                                                 ctypes.POINTER(_F), _I,
+                                                 ctypes.POINTER(_I),
+                                                 ctypes.POINTER(_F),
+                                                 ctypes.POINTER(_P), _I, _P],
+    # raw, occ, rho, prs, pr2, n, consts[5] (host), device, stream
+    "sph_density_tail": [_P] * 5 + [_I, ctypes.POINTER(_F), _I, _P],
 }
 
 

@@ -61,7 +61,7 @@ import torch.distributed as dist
 
 from sph_tpu_torch.sph import dense
 from sph_tpu_torch.sph.dense import DenseFluidState, DenseSpec
-from sph_tpu_torch.sph.model import SPHParams, eos_pressure
+from sph_tpu_torch.sph.model import SPHParams
 
 # The per-slot fields of a DenseFluidState (the counters are replicated).
 FIELDS = ("px", "py", "pz", "vx", "vy", "vz", "occ", "rho", "prs")
@@ -302,7 +302,7 @@ def _pad_fill(params: SPHParams) -> dict[str, float]:
     """Per-field fill value for inert (sentinel/empty) planes."""
     return dict(px=dense.SENTINEL, py=dense.SENTINEL, pz=dense.SENTINEL,
                 vx=0.0, vy=0.0, vz=0.0, occ=0.0,
-                rho=params.rest_density, prs=0.0)
+                rho=params.rest_density, prs=0.0, pr2=0.0)
 
 
 # -- the sharded fluid step ---------------------------------------------------
@@ -373,32 +373,24 @@ def _local_step(d: DenseFluidState, params: SPHParams, spec: DenseSpec,
     data is needed; every padded tensor's interior is its block."""
     # Density needs only the neighbours' positions and occupancy.
     pos = slab.pad(dict(px=d.px, py=d.py, pz=d.pz, occ=d.occ))
-    if params.use_pallas:
-        from sph_tpu_torch.ops.fluid import accel_sweep, density_sweep
+    f = dense.step_passes(params)
+    raw = f.density(pos["px"], pos["py"], pos["pz"], pos["occ"], params,
+                    slab.sweep_spec)
+    rho_p, prs_p, pr2_p = f.tail(raw, pos["occ"], params)
 
-        raw = density_sweep(pos["px"], pos["py"], pos["pz"], pos["occ"],
-                            params, slab.sweep_spec)
-    else:
-        raw = dense.density_raw(pos["px"], pos["py"], pos["pz"], params,
-                                slab.sweep_spec)
-    rho_p = dense.density_fixup(raw, pos["occ"], params)
-    prs_p = torch.where(pos["occ"] > 0.5, eos_pressure(rho_p, params), 0.0)
-
-    # Forces also need the neighbours' velocities and ρ, p: the halo's ρ
-    # and p come from their owners (the halo planes computed here saw
-    # positions only beyond the block's edge).
+    # Forces also need the neighbours' velocities, ρ and p/ρ²: the halo's
+    # come from their owners (the halo planes computed here saw positions
+    # only beyond the block's edge). p/ρ² is elementwise in (ρ, p), so the
+    # owner's equals what this block would form from their ρ and p (dp
+    # keeps the block's own unpadded p, which no pass reads).
     rho_own, prs_own = slab.interior(rho_p), slab.interior(prs_p)
     rest = slab.pad(dict(vx=d.vx, vy=d.vy, vz=d.vz, rho=rho_own,
-                         prs=prs_own))
+                         pr2=slab.interior(pr2_p)))
+    pr2 = rest.pop("pr2")
     dp = d.replace_fields(**pos, **rest)
-    if params.use_pallas:
-        pr2 = dp.prs / (dp.rho * dp.rho)
-        ax, ay, az = accel_sweep(dp, pr2, params, slab.sweep_spec)
-    else:
-        ax, ay, az = dense.accel_pass(dp, params, slab.sweep_spec)
-
-    *moved, n_clamped = dense._integrate(dp, ax, ay, az, params,
-                                         dense.rebin_vmax(params, spec))
+    ax, ay, az = f.accel(dp, pr2, params, slab.sweep_spec)
+    *moved, n_clamped = f.integrate(dp, ax, ay, az, params,
+                                    dense.rebin_vmax(params, spec))
     moved = dict(zip(MOVED, (slab.interior(a) for a in moved)))
     d = d.replace_fields(rho=rho_own, prs=prs_own)
     drops = torch.zeros_like(d.dropped)

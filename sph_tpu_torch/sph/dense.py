@@ -14,10 +14,11 @@ every array compares element by element with the reference:
   JAX twin's Newton-halved sweep order (whole-array rolls, mirror lumps,
   `combine_mirror_parts`), so the CPU comparison with the JAX twin stays
   tight. `rebin` is the plain version of K3 (`ops/rebin.py`).
-- `dense_step` dispatches on `params.use_pallas` (the JAX field name, kept
-  because checkpoints carry it): True runs the wrappers in `ops/`, which
-  launch the CUDA kernels on CUDA tensors and fall to these plain versions
-  only for CPU tensors.
+- `step_passes` picks the step's passes on `params.use_pallas` (the JAX
+  field name, kept because checkpoints carry it): True gives the wrappers
+  in `ops/`, which launch the CUDA kernels on CUDA tensors and fall to
+  these plain versions only for CPU tensors (the per-slot tail,
+  `density_tail` and `_integrate`, is F2 and F1 in `ops/integrate.py`).
 
 Differences from the JAX engine: no `jit` (a Python substep loop replaces
 `lax.scan`, a host `if` replaces `lax.cond`), and no tile-occupancy flags
@@ -28,6 +29,7 @@ from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
@@ -379,6 +381,16 @@ def density_fixup(rho, occ, params: SPHParams):
                        params.rest_density)
 
 
+def density_tail(raw, occ, params: SPHParams):
+    """(ρ, p, p/ρ²) from the raw ρ over every slot: the fixup, the Tait EOS
+    masked by occupancy and the operand of the force sweep — the lines of
+    the JAX twin's dense_step between its two pair sweeps, and the plain
+    version of kernel F2 (ops.integrate.density_tail)."""
+    rho = density_fixup(raw, occ, params)
+    prs = torch.where(occ > 0.5, eos_pressure(rho, params), 0.0)
+    return rho, prs, prs / (rho * rho)    # empty lanes: 0 / rest² = 0
+
+
 def density_pass(d: DenseFluidState, params: SPHParams,
                  spec: DenseSpec) -> torch.Tensor:
     """ρ over all lanes (the JAX twin's density_pass)."""
@@ -637,6 +649,38 @@ def finish_rebin(d: DenseFluidState, fields, dropped) -> DenseFluidState:
     )
 
 
+class StepPasses(NamedTuple):
+    """The dense step's passes, one signature each for the kernels'
+    wrappers and the plain versions."""
+
+    density: Callable     # (px, py, pz, occ, params, spec) -> raw ρ
+    tail: Callable        # (raw, occ, params) -> (ρ, p, p/ρ²)
+    accel: Callable       # (d, pr2, params, spec) -> (ax, ay, az)
+    integrate: Callable   # (d, ax, ay, az, params, vmax, drag=None)
+    rebin: Callable       # (d, px, py, pz, vx, vy, vz, params, spec)
+
+
+def step_passes(params: SPHParams) -> StepPasses:
+    """The kernels' wrappers in `ops/` (K1, F2, K2, F1, K3) when
+    `params.use_pallas`, else the plain versions."""
+    if params.use_pallas:
+        from sph_tpu_torch.ops.fluid import accel_sweep, density_sweep
+        from sph_tpu_torch.ops.integrate import density_tail as tail
+        from sph_tpu_torch.ops.integrate import integrate
+        from sph_tpu_torch.ops.rebin import staged_rebin
+
+        return StepPasses(density_sweep, tail, accel_sweep, integrate,
+                          staged_rebin)
+
+    def density(px, py, pz, occ, params, spec):
+        return density_raw(px, py, pz, params, spec)
+
+    def accel(d, pr2, params, spec):
+        return accel_raw(d, torch.reciprocal(d.rho), pr2, params, spec)
+
+    return StepPasses(density, density_tail, accel, _integrate, rebin)
+
+
 def dense_step(d: DenseFluidState, params: SPHParams, spec: DenseSpec,
                drag=None, rebin_now: bool | None = None) -> DenseFluidState:
     """One WCSPH step on the dense layout: density → EOS → forces →
@@ -646,33 +690,16 @@ def dense_step(d: DenseFluidState, params: SPHParams, spec: DenseSpec,
     index); None reads `d.step_count`, which waits for the device."""
     if rebin_now is None:
         rebin_now = is_rebin_step(int(d.step_count), params)
-    if params.use_pallas:
-        from sph_tpu_torch.ops.fluid import accel_sweep, density_sweep
-
-        rho = density_fixup(
-            density_sweep(d.px, d.py, d.pz, d.occ, params, spec),
-            d.occ, params,
-        )
-        prs = torch.where(d.occ > 0.5, eos_pressure(rho, params), 0.0)
-        d = d.replace_fields(rho=rho, prs=prs)
-        pr2 = d.prs / (d.rho * d.rho)
-        ax, ay, az = accel_sweep(d, pr2, params, spec)
-    else:
-        rho = density_pass(d, params, spec)
-        prs = torch.where(d.occ > 0.5, eos_pressure(rho, params), 0.0)
-        d = d.replace_fields(rho=rho, prs=prs)
-        ax, ay, az = accel_pass(d, params, spec)
-
-    px, py, pz, vx, vy, vz, n_clamped = _integrate(
+    f = step_passes(params)
+    rho, prs, pr2 = f.tail(f.density(d.px, d.py, d.pz, d.occ, params, spec),
+                           d.occ, params)
+    d = d.replace_fields(rho=rho, prs=prs)
+    ax, ay, az = f.accel(d, pr2, params, spec)
+    px, py, pz, vx, vy, vz, n_clamped = f.integrate(
         d, ax, ay, az, params, rebin_vmax(params, spec), drag=drag
     )
     if rebin_now:
-        if params.use_pallas:
-            from sph_tpu_torch.ops.rebin import staged_rebin
-
-            d = staged_rebin(d, px, py, pz, vx, vy, vz, params, spec)
-        else:
-            d = rebin(d, px, py, pz, vx, vy, vz, params, spec)
+        d = f.rebin(d, px, py, pz, vx, vy, vz, params, spec)
     else:
         d = d.replace_fields(px=px, py=py, pz=pz, vx=vx, vy=vy, vz=vz)
     return d.replace_fields(

@@ -8,8 +8,8 @@ knob is Application.targetFrameRate, ParticleSystemController.cs:213).
 - `step_breakdown(...)`: per-phase times of the dense fluid step —
   occupancy, density pass, force pass, integrate, rebin, the whole step —
   under the same keys as the JAX package, with achieved rates against the
-  card's peaks. Each phase goes through `params.use_pallas` as the step
-  does, so on the card K1–K3 run. Times are CUDA events on the card and the
+  card's peaks. Each phase goes through `dense.step_passes` as the step
+  does, so on the card K1–K3, F1 and F2 run. Times are CUDA events on the card and the
   host clock on the CPU.
 
 The card's peaks are kept here, once, for every bound the port states.
@@ -80,18 +80,9 @@ def step_breakdown(dstate, params, spec, n=4, sub=30) -> dict:
     (each as a state → state map), so their sum can differ from the whole
     step's time."""
     from sph_tpu_torch.sph import dense
-    from sph_tpu_torch.sph.model import eos_pressure
 
     vmax = dense.rebin_vmax(params, spec)
-
-    def density(d):
-        if params.use_pallas:
-            from sph_tpu_torch.ops.fluid import density_sweep
-
-            return dense.density_fixup(
-                density_sweep(d.px, d.py, d.pz, d.occ, params, spec),
-                d.occ, params)
-        return dense.density_pass(d, params, spec)
+    f = dense.step_passes(params)
 
     def ph_occ(d):
         # The sweeps' gate decision: which rows of a plane hold an
@@ -102,33 +93,29 @@ def step_breakdown(dstate, params, spec, n=4, sub=30) -> dict:
         return d.replace_fields(rho=d.rho + 1e-30 * t.sum())
 
     def ph_density(d):
-        rho = density(d)
-        prs = torch.where(d.occ > 0.5, eos_pressure(rho, params), 0.0)
+        # K1, then the fixup, the EOS and p/ρ² (F2) as the step runs them.
+        rho, prs, _ = f.tail(f.density(d.px, d.py, d.pz, d.occ, params,
+                                       spec), d.occ, params)
         return d.replace_fields(rho=rho, prs=prs)
 
-    def ph_force(d):
-        pr2 = d.prs / (d.rho * d.rho)
-        if params.use_pallas:
-            from sph_tpu_torch.ops.fluid import accel_sweep
+    # The force phase runs on d2 and the states it chains, whose ρ and p
+    # it leaves alone: its p/ρ² operand (F2's third output in the step) is
+    # formed once.
+    d2 = ph_density(dstate)
+    pr2 = d2.prs / (d2.rho * d2.rho)
 
-            ax, ay, az = accel_sweep(d, pr2, params, spec)
-        else:
-            ax, ay, az = dense.accel_pass(d, params, spec)
+    def ph_force(d):
+        ax, ay, az = f.accel(d, pr2, params, spec)
         return d.replace_fields(vx=d.vx + 1e-30 * ax, vy=d.vy + 1e-30 * ay,
                                 vz=d.vz + 1e-30 * az)
 
     def ph_integrate(d):
         z = torch.zeros_like(d.px)
-        px, py, pz, *_ = dense._integrate(d, z, z, z, params, vmax)
+        px, py, pz, *_ = f.integrate(d, z, z, z, params, vmax)
         return d.replace_fields(px=px, py=py, pz=pz)
 
     def ph_rebin(d):
-        args = (d, d.px, d.py, d.pz, d.vx, d.vy, d.vz, params, spec)
-        if params.use_pallas:
-            from sph_tpu_torch.ops.rebin import staged_rebin
-
-            return staged_rebin(*args)
-        return dense.rebin(*args)
+        return f.rebin(d, d.px, d.py, d.pz, d.vx, d.vy, d.vz, params, spec)
 
     def full_step(d, i, first=int(dstate.step_count)):
         # The rebin cadence from a host step count, as make_dense_step.
@@ -139,7 +126,6 @@ def step_breakdown(dstate, params, spec, n=4, sub=30) -> dict:
         return lambda d, _i: f(d)
 
     out = {}
-    d2 = ph_density(dstate)
     out["grid_build_ms"] = _timed(phase(ph_occ), dstate, sub, n)
     out["density_ms"] = _timed(phase(ph_density), dstate, sub, n)
     out["force_ms"] = _timed(phase(ph_force), d2, sub, n)

@@ -42,6 +42,7 @@ import torch
 from sph_tpu_torch.core.types import SimParams, SimState
 from sph_tpu_torch.ops.contact import contact_sweep
 from sph_tpu_torch.ops.expand import RANGE, expand_rows
+from sph_tpu_torch.ops import integrate as oi
 from sph_tpu_torch.ops.fluid import accel_sweep, density_sweep
 from sph_tpu_torch.ops.rebin import staged_rebin
 from sph_tpu_torch.physics import contact_dense as cd
@@ -163,6 +164,90 @@ def check_fluid_twins(d, params, spec, seed: int = 0) -> dict:
         "accel": check_accel(accel_inputs(d, params, spec), params, spec),
         "rebin": check_rebin(d, params, spec, seed),
     }
+
+
+# -- the step's per-slot tail (F1, F2) --------------------------------------
+
+INTEGRATE_FIELDS = ("px", "py", "pz", "vx", "vy", "vz")
+TAIL_FIELDS = ("rho", "prs", "pr2")
+
+
+def same_bits(plain, kern) -> torch.Tensor:
+    """Per slot: equal bits (−0 ≠ +0), or NaN in both."""
+    return ((_bits(plain) == _bits(kern))
+            | (plain.isnan() & kern.isnan()))
+
+
+def _bitwise(names, plain, kern) -> dict:
+    """`bitwise` over every slot of each plane (NaN as NaN), the slots
+    that differ a plane, and the largest |difference| (0 where the bits
+    agree; inf where only one side is NaN)."""
+    differ, err = {}, 0.0
+    for name, a, b in zip(names, plain, kern):
+        same = same_bits(a, b)
+        differ[name] = int((~same).sum())
+        if differ[name]:
+            gap = (a - b).abs().nan_to_num(nan=float("inf"))
+            err = max(err, float(torch.where(same, 0.0, gap).max()))
+    return {"bitwise": not any(differ.values()), "max_abs_err": err,
+            "differ": differ}
+
+
+def tail_inputs(d, params, spec):
+    """The inputs of the step's tail on state `d`, from the step's own
+    passes (kernels on the card, plain versions on the CPU): K1's raw ρ,
+    the state with ρ and p from it, and K2's accelerations."""
+    raw = density_sweep(d.px, d.py, d.pz, d.occ, params, spec)
+    rho, prs, pr2 = dense.density_tail(raw, d.occ, params)
+    d = d.replace_fields(rho=rho, prs=prs)
+    return raw, d, accel_sweep(d, pr2, params, spec)
+
+
+def stirred(d, acc, params, vmax: float, seed: int = 0, nan: bool = False):
+    """Accelerations with every 7th slot given a random kick of up to
+    2·vmax/dt per axis, so the vmax clamp and the walls fire; with `nan`,
+    three occupied slots also get a NaN acceleration, a NaN position and
+    a +inf velocity. Returns (state, (ax, ay, az))."""
+    g = torch.Generator(device=d.px.device).manual_seed(seed)
+    scale = 2.0 * vmax / params.dt
+    mask = torch.zeros(d.px.numel(), dtype=torch.bool, device=d.px.device)
+    mask[::7] = True
+    mask = mask.view(d.px.shape)
+    out = []
+    for a in acc:
+        r = torch.rand(a.shape, generator=g, device=a.device) * 2.0 - 1.0
+        out.append(torch.where(mask, a + scale * r, a))
+    if nan:
+        slots = torch.nonzero((d.occ > 0.5).reshape(-1))[:, 0]
+        picks = slots[torch.tensor([0, slots.numel() // 2, -1],
+                                   device=slots.device)].tolist()
+        px, vy = d.px.clone(), d.vy.clone()
+        out[0].view(-1)[picks[0]] = float("nan")
+        px.view(-1)[picks[1]] = float("nan")
+        vy.view(-1)[picks[2]] = float("inf")
+        d = d.replace_fields(px=px, vy=vy)
+    return d, tuple(out)
+
+
+def check_integrate(d, ax, ay, az, params, vmax: float, drag=None) -> dict:
+    """F1 against dense._integrate on the same tensors: the six moved
+    planes on every slot (`bitwise`, NaN as NaN) and the clamp counts."""
+    plain = dense._integrate(d, ax, ay, az, params, vmax, drag=drag)
+    kern = oi.integrate(d, ax, ay, az, params, vmax, drag=drag)
+    out = _bitwise(INTEGRATE_FIELDS, plain[:6], kern[:6])
+    out["n_clamped"] = int(kern[6])
+    out["plain_n_clamped"] = int(plain[6])
+    out["bitwise"] = out["bitwise"] and (out["n_clamped"]
+                                         == out["plain_n_clamped"])
+    out["nan_slots"] = sum(int(k.isnan().sum()) for k in kern[:6])
+    return out
+
+
+def check_density_tail(raw, occ, params) -> dict:
+    """F2 against dense.density_tail: ρ, p and p/ρ² on every slot
+    (`bitwise`, NaN as NaN)."""
+    return _bitwise(TAIL_FIELDS, dense.density_tail(raw, occ, params),
+                    oi.density_tail(raw, occ, params))
 
 
 # -- the colony contact path (K4, K5) --------------------------------------

@@ -15,7 +15,12 @@ on overflows at an intermediate stage, at each K it is built for. K4 (colony
 contact sweep) is held to the same tolerance on every slot and, by the
 same design, to bitwise equality with +0 on empty slots, and its floor
 modes (ops/contact_floor.py) bitwise to their plain versions; K5 (the
-contact pack's placement) is bitwise. K1, K2 and K4 are held so on the
+contact pack's placement) is bitwise. The step's per-slot tail, F2
+(density fixup + Tait EOS + p/ρ²) and F1 (`_integrate`), is bitwise on
+every slot (NaN as NaN, −0 ≠ +0) with equal clamp counts, for each
+obstacle kind, with and without the drag, in 3D and 2D, with NaN lanes,
+at sizes that are not a multiple of 4 and off 16-byte alignment. K1, K2,
+F2, F1 and K4 are held so on the
 halo-padded blocks of a sharded step too (a ring's [P + 2]-plane slabs, a 2D mesh's
 local rows). The render (plain PyTorch) is held to itself
 twice on the card bitwise and to the CPU's render of the same state within
@@ -38,6 +43,7 @@ from sph_tpu_torch.ops import contact_floor as cf
 from sph_tpu_torch.ops.contact import contact_sweep
 from sph_tpu_torch.ops.expand import expand_rows
 from sph_tpu_torch.ops.fluid import accel_sweep, band_plan, density_sweep
+from sph_tpu_torch.ops.integrate import density_tail, integrate
 from sph_tpu_torch.ops.rebin import staged_rebin
 from sph_tpu_torch.parallel import dist as pd
 from sph_tpu_torch.physics import contact_dense as cd
@@ -48,12 +54,16 @@ from sph_tpu_torch.utils.verify import (
     blob,
     check_contact,
     check_expand,
+    check_density_tail,
     check_fluid_twins,
+    check_integrate,
     compressed,
     empty_layout,
     moved_layout,
     overflow_layout,
     place_particle,
+    stirred,
+    tail_inputs,
 )
 
 torch.set_num_threads(1)
@@ -245,9 +255,124 @@ def test_main_path_launches_kernels(cuda):
     torch.cuda.synchronize()
     # 2 rebins, each a codes and a placement launch.
     assert LAUNCHES == {"density": 12, "accel": 12, "rebin": 4,
-                        "contact": 0, "expand": 0}
+                        "contact": 0, "expand": 0, "density_tail": 12,
+                        "integrate": 12}
     m = sim.metrics()
     assert m["n_particles"] == n0 and m["dropped"] == 0
+
+
+# -- the step's per-slot tail: F1 (integrate) and F2 (density_tail) --------
+
+OBSTACLES = {
+    "sphere": ("sphere", (0.35, 0.3, 0.05), 0.12),
+    "box": ("box", (0.3, 0.2, 0.05), (0.1, 0.08, 0.12)),
+    "cylinder_z": ("cylinder_z", (0.3, 0.25), 0.1),
+}
+
+
+def tail_exact(d, p, spec, acc=None, drag=None, seed=0, nan=False):
+    """F2 on K1's raw ρ and F1 on K2's accelerations (stirred: every 7th
+    slot kicked so the clamp and the walls fire) against their plain
+    versions, every slot bitwise with NaN as NaN and equal clamp counts;
+    returns F1's clamp count."""
+    raw, d2, acc0 = tail_inputs(d, p, spec)
+    if nan:
+        raw = raw.clone()
+        raw.view(-1)[torch.nonzero(d.occ.view(-1) > 0.5)[7, 0]] = \
+            float("nan")
+    r = check_density_tail(raw, d.occ, p)
+    assert r["bitwise"] and r["max_abs_err"] == 0.0, r
+    vmax = dense.rebin_vmax(p, spec)
+    d2, acc = stirred(d2, acc if acc is not None else acc0, p, vmax,
+                      seed=seed, nan=nan)
+    r = check_integrate(d2, *acc, p, vmax, drag=drag)
+    assert r["bitwise"] and r["max_abs_err"] == 0.0, r
+    return r["n_clamped"]
+
+
+def a_drag(d, cuda, strength=3000.0):
+    """A drag sphere around the fluid's mean position."""
+    from sph_tpu_torch.sph.model import FluidDrag
+
+    m = d.occ > 0.5
+    ctr = [float(f[m].mean()) for f in (d.px, d.py, d.pz)]
+    return FluidDrag.at(ctr, [c + 0.1 for c in ctr], 0.1, strength,
+                        device=cuda)
+
+
+@pytest.mark.parametrize("drag", [False, True])
+@pytest.mark.parametrize("obstacle", sorted(OBSTACLES))
+@pytest.mark.parametrize("case", sorted(SCENES))
+def test_tail_kernels_bitwise(cuda, case, obstacle, drag):
+    """Each obstacle kind, with and without the drag (and a particle mass
+    whose reciprocal is inexact), 3D and 2D."""
+    d, p, spec = stepped(cuda, case, steps=6)
+    p = p.replace(obstacles=(OBSTACLES[obstacle],),
+                  particle_mass=1.3 if drag else p.particle_mass)
+    n = tail_exact(d, p, spec, drag=a_drag(d, cuda) if drag else None)
+    assert n > 0
+
+
+def test_tail_kernels_with_every_kind_at_once_and_nan_lanes(cuda):
+    d, p, spec = stepped(cuda, "3d", steps=6)
+    p = p.replace(obstacles=tuple(OBSTACLES.values()) + p.obstacles)
+    assert tail_exact(d, p, spec, drag=a_drag(d, cuda), seed=3,
+                      nan=True) > 0
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_tail_kernels_on_sizes_not_a_multiple_of_four(cuda, offset):
+    """1,021 slots (a scalar tail after the float4 groups), and the same
+    slots one float past an aligned start (every pointer off 16 bytes: the
+    scalar pass)."""
+    d, p, spec = stepped(cuda, "3d", steps=6)
+    n = 1021
+    start = int(torch.nonzero(d.occ.view(-1) > 0.5)[0, 0]) // 4 * 4
+    start += offset
+
+    def cut(t):
+        return t.reshape(-1)[start:start + n].view(1, 1, n)
+
+    small = d.replace_fields(**{f: cut(getattr(d, f)) for f in (
+        "px", "py", "pz", "vx", "vy", "vz", "occ", "rho", "prs")})
+    assert small.px.is_contiguous()
+    assert (small.px.data_ptr() % 16 == 0) == (offset == 0)
+    raw, _, acc = tail_inputs(d, p, spec)
+    r = check_density_tail(cut(raw), small.occ, p)
+    assert r["bitwise"], r
+    vmax = dense.rebin_vmax(p, spec)
+    r = check_integrate(small, *(cut(a) for a in acc), p, vmax,
+                        drag=a_drag(d, cuda))
+    assert r["bitwise"], r
+    assert int(small.occ.sum()) > 0
+
+
+@pytest.mark.parametrize("shape,coords", MESHES)
+def test_tail_kernels_on_halo_padded_blocks(cuda, shape, coords):
+    d, p, spec = stepped(cuda, "3d")
+    slab, sspec = pd.fluid_slab(d, p, spec, shape, coords)
+    assert tail_exact(slab, p, sspec) > 0
+
+
+def test_tail_wrappers_refuse_bad_operands(cuda):
+    d, p, spec = stepped(cuda, "2d", steps=0)
+    z = torch.zeros_like(d.px)
+    vmax = dense.rebin_vmax(p, spec)
+    with pytest.raises(TypeError, match="float32"):
+        integrate(d, z.double(), z, z, p, vmax)
+    with pytest.raises(ValueError, match="shape"):
+        integrate(d, z[:, :2], z, z, p, vmax)
+    with pytest.raises(ValueError, match="CUDA"):
+        integrate(d, z.cpu(), z, z, p, vmax)
+    with pytest.raises(ValueError, match="contiguous"):
+        density_tail(z.transpose(1, 2).contiguous().transpose(1, 2),
+                     d.occ, p)
+    with pytest.raises(ValueError, match="general pow"):
+        density_tail(z, d.occ, p.replace(gamma=2.0))
+    bad = a_drag(d, cuda)
+    bad.radius = bad.radius.cpu()
+    with pytest.raises(ValueError, match="drag"):
+        integrate(d, z, z, z, p, vmax, drag=bad)
 
 
 def test_kernel_path_equals_plain_path(cuda):
@@ -745,6 +870,7 @@ def test_app_launches_the_kernels(cuda, tmp_path, capsys):
                "--out", str(tmp_path), "--device", "cuda"])
     assert rc == 0
     assert LAUNCHES["density"] == 12 and LAUNCHES["accel"] == 12
+    assert LAUNCHES["density_tail"] == LAUNCHES["integrate"] == 12
     assert LAUNCHES["rebin"] == 4
     lines = [l for l in capsys.readouterr().out.splitlines()
              if l.startswith("{")]

@@ -53,7 +53,8 @@ def test_wrappers_take_plain_route_on_cpu(case):
     for f in ("px", "py", "pz", "vx", "vy", "vz", "occ", "dropped"):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
     assert LAUNCHES == {"density": 0, "accel": 0, "rebin": 0,
-                        "contact": 0, "expand": 0}
+                        "contact": 0, "expand": 0, "density_tail": 0,
+                        "integrate": 0}
     # The live-card check runs end to end here too (trivially equal).
     r = check_fluid_twins(d, p, spec)
     assert r["rebin"]["dropped"] > 0
