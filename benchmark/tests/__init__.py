@@ -1,0 +1,1 @@
+"""CPU tests of the benchmark (see benchmark/__init__.py)."""
