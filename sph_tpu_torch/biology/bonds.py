@@ -17,6 +17,7 @@ import torch
 from sph_tpu_torch.core import quat
 from sph_tpu_torch.core.quat import norm
 from sph_tpu_torch.core.types import BondTable, GenomeDevice, SimParams, SimState
+from sph_tpu_torch.utils.profiling import span
 
 ZONE_A = 0
 ZONE_B = 1
@@ -47,7 +48,9 @@ def update_bond_zones(state: SimState, params: SimParams,
     (CAM:377-402). One host read: are there young bonds at all?"""
     b = state.bonds
     young = b.active & (state.step_count <= b.created_step + 1)
-    if not bool(young.any()):
+    with span("sph.read.young"):
+        any_young = bool(young.any())
+    if not any_young:
         return b
     return _update_young_bond_zones(state, params, genome, young)
 
@@ -100,7 +103,9 @@ def filter_bonds(state: SimState) -> BondTable:
     bond was stamped in the last two steps: one host read."""
     b = state.bonds
     dirty = torch.any(b.created_step >= state.step_count - 2)
-    if not bool(dirty):
+    with span("sph.read.dirty"):
+        dirty = bool(dirty)
+    if not dirty:
         return b
     return _filter_bonds_active(state)
 

@@ -26,6 +26,7 @@ from sph_tpu_torch.core.types import (
     SimState,
 )
 from sph_tpu_torch.physics.contact import alive_mask
+from sph_tpu_torch.utils.profiling import span
 
 
 def division_ready(state: SimState, params: SimParams, genome: GenomeDevice,
@@ -63,7 +64,9 @@ def queue_splits(state: SimState, params: SimParams, genome: GenomeDevice,
     queued = ready & (rank < allowed)
     # Timers reset for every ready cell, queued or not (cs:682).
     timer = torch.where(ready, 0.0, timer)
-    if bool(ready.any()):
+    with span("sph.read.ready"):
+        any_ready = bool(ready.any())
+    if any_ready:
         pending = _build_pending(state, params, genome, queued, rank,
                                  mode_c, S)
     else:
@@ -140,7 +143,8 @@ def process_pending_splits(state: SimState, params: SimParams,
     the counters and the queue once more."""
     S = state.pending.parent_slot.shape[0]
     N = state.capacity
-    count = int(state.pending.count)
+    with span("sph.read.pending"):
+        count = int(state.pending.count)
     if count > 0:
         state = _apply_splits(state, genome, count, N)
     return state.replace_fields(pending=PendingSplits.empty(S, state.device))
@@ -148,14 +152,15 @@ def process_pending_splits(state: SimState, params: SimParams,
 
 def _apply_splits(state: SimState, genome: GenomeDevice, count: int, N: int):
     pend = state.pending
-    active, next_uid, step = (int(v) for v in torch.stack(
-        [state.active_count, state.next_uid, state.step_count]).tolist())
-    parent_slots = pend.parent_slot.tolist()
+    with span("sph.read.splits"):
+        active, next_uid, step = (int(v) for v in torch.stack(
+            [state.active_count, state.next_uid, state.step_count]).tolist())
+        parent_slots = pend.parent_slot.tolist()
+        mode_a_host = pend.mode_a.tolist()
+        keep_a_tbl = genome.child_a_keep_adhesion.tolist()
+        keep_b_tbl = genome.child_b_keep_adhesion.tolist()
+        make_tbl = genome.parent_make_adhesion.tolist()
     n_modes = max(genome.n_modes_host - 1, 0)
-    mode_a_host = pend.mode_a.tolist()
-    keep_a_tbl = genome.child_a_keep_adhesion.tolist()
-    keep_b_tbl = genome.child_b_keep_adhesion.tolist()
-    make_tbl = genome.parent_make_adhesion.tolist()
     st = state
     overflow = st.overflow
     for k in range(count):

@@ -7,7 +7,9 @@ Eager PyTorch has no `lax.cond`: each gate of the JAX step (pending
 splits, ready cells, young bonds, dirty bonds) is a host read of its
 predicate. The plain adhesion sum also reads its longest segment: five
 reads a quiet step. The planned one reads its changed-bond count instead,
-and `run_steps` its rebuild count: six (PERF.md).
+and `run_steps` its rebuild count: six (PERF.md). Each read sits in a
+`sph.read.<what>` span and each phase of the step in its `sph.` span
+(utils.profiling.span), which a running profiler records.
 """
 
 from __future__ import annotations
@@ -33,6 +35,7 @@ from sph_tpu_torch.physics.contact import (
 )
 from sph_tpu_torch.physics.drag import apply_drag_force
 from sph_tpu_torch.physics.integrate import update_motion, update_rotation
+from sph_tpu_torch.utils.profiling import span
 
 
 def contact_forces(state: SimState, params: SimParams):
@@ -71,33 +74,42 @@ def step(state: SimState, params: SimParams, genome: GenomeDevice,
     are found every step and summed through the hybrid's side table
     (adhesion.accumulate_bond_deltas_hybrid), so it is valid on every
     step, division steps included."""
+    with span("sph.step"):
+        return _step(state, params, genome, dt, contact_fn, bond_plan)
+
+
+def _step(state, params, genome, dt, contact_fn, bond_plan):
     # 1-2. Division: apply last step's queued splits, then advance timers
     #      and queue new ones (cs:253 runs before all dispatches).
-    state = process_pending_splits(state, params, genome)
-    state = queue_splits(state, params, genome, dt=dt)
+    with span("sph.division"):
+        state = process_pending_splits(state, params, genome)
+        state = queue_splits(state, params, genome, dt=dt)
 
     # 3-4. Neighbour structure + contact forces.
-    if contact_fn is None:
-        force, torque, cell_overflow = contact_forces(state, params)
-    else:
-        force, torque, cell_overflow = contact_fn(state)
-    state = apply_contact(state, params, force, torque, dt=dt)
-    state = state.replace_fields(overflow=state.overflow + cell_overflow)
+    with span("sph.contact"):
+        if contact_fn is None:
+            force, torque, cell_overflow = contact_forces(state, params)
+        else:
+            force, torque, cell_overflow = contact_fn(state)
+        state = apply_contact(state, params, force, torque, dt=dt)
+        state = state.replace_fields(overflow=state.overflow + cell_overflow)
 
     # 5. Adhesion constraints — reads post-contact velocities.
-    state = apply_adhesion(state, params, genome, dt=dt, plan=bond_plan)
+    with span("sph.adhesion"):
+        state = apply_adhesion(state, params, genome, dt=dt, plan=bond_plan)
 
-    # 6. Interactive drag impulse.
-    state = apply_drag_force(state, params, dt=dt)
-
-    # 7-8. Motion + rotation integration.
-    state = update_motion(state, params, dt=dt)
-    state = update_rotation(state, params, dt=dt)
+    with span("sph.motion"):
+        # 6. Interactive drag impulse.
+        state = apply_drag_force(state, params, dt=dt)
+        # 7-8. Motion + rotation integration.
+        state = update_motion(state, params, dt=dt)
+        state = update_rotation(state, params, dt=dt)
 
     # 9-10. Bond zone/anchor refresh for young bonds + pruning.
-    state = state.replace_fields(bonds=update_bond_zones(state, params,
-                                                         genome))
-    state = state.replace_fields(bonds=filter_bonds(state))
+    with span("sph.bonds"):
+        state = state.replace_fields(bonds=update_bond_zones(state, params,
+                                                             genome))
+        state = state.replace_fields(bonds=filter_bonds(state))
     return state.replace_fields(step_count=state.step_count + 1)
 
 
@@ -152,7 +164,12 @@ def run_steps(state: SimState, params: SimParams, genome: GenomeDevice,
         state = step(state, params, genome,
                      dt=None if dts is None else float(dts[i]),
                      contact_fn=contact_fn, bond_plan=plan)
-        if plan is not None and (int(plan_changed_count(state.bonds, plan))
-                                 > adhesion._SIDE_CAP // 2):
+        if plan is None:
+            continue
+        with span("sph.plan.check"):
+            n_changed = plan_changed_count(state.bonds, plan)
+            with span("sph.read.plan"):
+                stale = int(n_changed) > adhesion._SIDE_CAP // 2
+        if stale:
             plan = build_bond_plan(state.bonds, state.capacity)
     return (state, plan) if return_plan else state

@@ -38,6 +38,7 @@ from sph_tpu_torch.core.types import (
     state_dataclass,
 )
 from sph_tpu_torch.physics.contact import alive_mask
+from sph_tpu_torch.utils.profiling import span
 
 
 def _axis_angle_delta(axis, angle, q):
@@ -136,7 +137,8 @@ def segment_sum_sorted(rows: torch.Tensor, seg: torch.Tensor,
     is_start[1:] = seg_s[1:] != seg_s[:-1]
     start = torch.cummax(torch.where(is_start, i, 0), dim=0).values
     rank = i - start
-    R = int(torch.where(live, rank + 1, 0).max()) if M else 0
+    with span("sph.read.segment"):
+        R = int(torch.where(live, rank + 1, 0).max()) if M else 0
     out = torch.zeros((n_rows, F), dtype=rows.dtype, device=dev)
     if R == 0:
         return out
@@ -234,6 +236,11 @@ def build_bond_plan(bonds, n_rows: int) -> BondPlan:
     """A stable sort of the 2B endpoint rows by particle id: a particle's
     A-side rows stay before its B-side rows, each in bond order — the
     relative order segment_sum adds them in."""
+    with span("sph.plan.build"):
+        return _build_bond_plan(bonds, n_rows)
+
+
+def _build_bond_plan(bonds, n_rows: int) -> BondPlan:
     PLAN_COUNTS["builds"] += 1
     B = bonds.capacity
     M = 2 * B
@@ -341,7 +348,8 @@ def accumulate_bond_deltas_hybrid(dv_a, dq_a, dv_b, dq_b, bonds,
     - full (more changed): the plain accumulate of the whole table
       (engine.step.run_steps rebuilds the plan well before that)."""
     changed = plan_changed(bonds, plan)
-    n_changed = int(changed.sum())
+    with span("sph.read.changed"):
+        n_changed = int(changed.sum())
     if n_changed == 0:
         PLAN_COUNTS["quiet"] += 1
         return accumulate_bond_deltas_planned(dv_a, dq_a, dv_b, dq_b, plan)
@@ -393,12 +401,15 @@ def bond_deltas(state: SimState, params: SimParams, genome: GenomeDevice,
     ([N, 3], [N, 4]). With a `plan` (valid for this bond table's
     capacities, possibly stale) the sum takes the hybrid planned
     accumulate."""
-    args, (seg_a, seg_b) = bond_inputs(state, params, genome, dt)
-    deltas = bond_pair_deltas(*args)
-    if plan is not None:
-        return accumulate_bond_deltas_hybrid(*deltas, state.bonds,
-                                             state.capacity, plan)
-    return accumulate_bond_deltas(*deltas, seg_a, seg_b, state.capacity)
+    with span("sph.adhesion.gather"):
+        args, (seg_a, seg_b) = bond_inputs(state, params, genome, dt)
+    with span("sph.adhesion.pairs"):
+        deltas = bond_pair_deltas(*args)
+    with span("sph.adhesion.accumulate"):
+        if plan is not None:
+            return accumulate_bond_deltas_hybrid(*deltas, state.bonds,
+                                                 state.capacity, plan)
+        return accumulate_bond_deltas(*deltas, seg_a, seg_b, state.capacity)
 
 
 def apply_adhesion(state: SimState, params: SimParams, genome: GenomeDevice,

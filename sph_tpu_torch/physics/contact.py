@@ -11,6 +11,7 @@ import torch
 
 from sph_tpu_torch.core.quat import cross, dot, norm
 from sph_tpu_torch.core.types import SimParams, SimState
+from sph_tpu_torch.utils.profiling import span
 
 
 def pair_contact(pos_i, vel_i, omega_i, r_i, pos_j, vel_j, omega_j, r_j,
@@ -68,7 +69,8 @@ def contact_forces_bruteforce(state: SimState, params: SimParams,
     executable-spec path. Dead rows get zero force and torque, which is
     what the JAX version's masked full-capacity sum gives them."""
     N = state.capacity
-    n = int(state.active_count)
+    with span("sph.read.active"):
+        n = int(state.active_count)
     dev = state.device
     force = torch.zeros((N, 3), dtype=torch.float32, device=dev)
     torque = torch.zeros((N, 3), dtype=torch.float32, device=dev)

@@ -33,6 +33,7 @@ from sph_tpu_torch.core.types import SimParams, SimState
 from sph_tpu_torch.ops.grid import cell_index
 from sph_tpu_torch.physics.contact import alive_mask
 from sph_tpu_torch.sph.dense import SENTINEL
+from sph_tpu_torch.utils.profiling import span
 
 
 @dataclass(frozen=True)
@@ -321,13 +322,17 @@ def contact_forces_dense(state: SimState, params: SimParams,
     if spec is None:
         spec = make_contact_spec(params, k=params.dense_k,
                                  cell_factor=params.dense_cell_factor)
-    fields, occ, slot_of, overflow = _pack_args(
-        state, spec, expand=params.use_pallas)
-    if params.use_pallas:
-        from sph_tpu_torch.ops.contact import contact_sweep
+    with span("sph.contact.pack"):
+        fields, occ, slot_of, overflow = _pack_args(
+            state, spec, expand=params.use_pallas)
+    with span("sph.contact.sweep"):
+        if params.use_pallas:
+            from sph_tpu_torch.ops.contact import contact_sweep
 
-        comps = contact_sweep(fields, occ, params, spec)
-    else:
-        comps = _sweep_plain(
-            fields, lambda *a: contact_pair_terms(params, *a), 6, spec)
-    return gather_back([c.reshape(-1) for c in comps], slot_of, overflow)
+            comps = contact_sweep(fields, occ, params, spec)
+        else:
+            comps = _sweep_plain(
+                fields, lambda *a: contact_pair_terms(params, *a), 6, spec)
+    with span("sph.contact.gather"):
+        return gather_back([c.reshape(-1) for c in comps], slot_of,
+                           overflow)

@@ -5,12 +5,15 @@ knob is Application.targetFrameRate, ParticleSystemController.cs:213).
 - `trace(log_dir)`: a torch.profiler scope that writes a Chrome trace
   (`trace.json`) of whatever runs inside, the card's kernels included when
   there is one.
+- `span(name)`: a named range of the program (the colony step's phases
+  and its blocking host reads, all under `sph.`) that a running profiler
+  records on the trace's clock, beside the card's kernels; with no
+  profiler recording it is a shared no-op.
 - `step_breakdown(...)`: per-phase times of the dense fluid step —
   occupancy, density pass, force pass, integrate, rebin, the whole step —
-  under the same keys as the JAX package, with achieved rates against the
-  card's peaks. Each phase goes through `dense.step_passes` as the step
-  does, so on the card K1–K3, F1 and F2 run. Times are CUDA events on the card and the
-  host clock on the CPU.
+  under the same `*_ms` keys as the JAX package. Each phase goes through
+  `dense.step_passes` as the step does, so on the card K1–K3, F1 and F2
+  run. Times are CUDA events on the card and the host clock on the CPU.
 
 The card's peaks are kept here, once, for every bound the port states.
 """
@@ -27,6 +30,19 @@ import torch
 # FLOP/s outside the tensor cores.
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """`torch.profiler.record_function(name)` while a profiler records
+    (the active steps of a schedule, or `trace`), else one shared no-op
+    context: the check costs a fraction of a microsecond, so the spans
+    stay in the step."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
 
 
 @contextlib.contextmanager
@@ -134,50 +150,4 @@ def step_breakdown(dstate, params, spec, n=4, sub=30) -> dict:
     out["rebin_amortized_ms"] = out["rebin_ms"] / max(params.rebin_every, 1)
     out["full_step_ms"] = _timed(full_step, dstate, sub, n)
     out["total_ms"] = out["full_step_ms"]
-    out = {k: round(v, 3) for k, v in out.items()}
-    out.update(_roofline(out, dstate, spec))
-    return out
-
-
-def _n_swept(spec) -> int:
-    """Partner variants a lane's Newton-halved sweep visits (half the
-    stencil; `ops.fluid.partners` counts the full one)."""
-    from sph_tpu_torch.sph.dense import sweep_groups
-
-    return sum(len(g[2]) * len(list(g[3])) for g in sweep_groups(spec))
-
-
-def _roofline(ms: dict, dstate, spec) -> dict:
-    """Analytic flop/byte counts per phase (the JAX package's per-lane
-    counts) → achieved GFLOP/s, GB/s and % of the card's peaks (the larger
-    of the two shares). As in the JAX package every lane of the layout is
-    counted, occupied or not; the sweeps and the rebin skip empty rows on
-    the card, so their rates here can pass 100% of a peak."""
-    N0, K, C = dstate.occ.shape
-    lanes = N0 * K * C
-    sw = _n_swept(spec)
-    nz = 2 if spec.stencil0 else 1
-    # (flops/lane, bytes/lane) per phase. Pair passes: 3 inputs × 3 blocks
-    # × nz reads + outputs; integrate: ~40 flops over 13 field r/w; rebin:
-    # 3 stages × (3 candidate reads + 1 write) of 7 fields; occupancy: one
-    # occ read, /64 write.
-    est = {
-        "grid_build": (1, 4 * (1 + 1 / 64)),
-        "density": (16 * sw, 4 * (3 * 3 * nz + 1 + 2 * 1)),
-        "force": (40 * sw + 2 * sw * 8, 4 * (3 * 8 * nz + 3 + 2 * 3)),
-        "integrate": (40, 4 * 13 * 2),
-        "rebin": (3 * 7 * 10, 4 * 3 * 7 * (3 + 1)),
-    }
-    out = {}
-    for phase, (fl, by) in est.items():
-        t = ms.get(f"{phase}_ms", 0.0)
-        if t <= 0:
-            continue
-        gflops = lanes * fl / (t * 1e-3) / 1e9
-        gbps = lanes * by / (t * 1e-3) / 1e9
-        out[f"{phase}_gflops"] = round(gflops, 1)
-        out[f"{phase}_gbps"] = round(gbps, 1)
-        out[f"{phase}_pct_roof"] = round(
-            100.0 * max(gflops * 1e9 / F32_FLOPS,
-                        gbps * 1e9 / HBM_BYTES_PER_S), 1)
-    return out
+    return {k: round(v, 3) for k, v in out.items()}

@@ -93,7 +93,9 @@ def test_step_breakdown_keys_match_jax():
     jspec = jax_make_dense_spec(jparams, k=4, cell_factor=1.2)
     want = jax_step_breakdown(jax_pack(jstate, jparams, jspec), jparams,
                               jspec, n=1, sub=2)
-    assert sorted(got) == sorted(want)
+    # The JAX package adds per-lane rates to its times; the port reports
+    # the times alone.
+    assert sorted(got) == sorted(k for k in want if k.endswith("_ms"))
     assert all(np.isfinite(v) and v >= 0 for v in got.values())
     assert got["total_ms"] == got["full_step_ms"] > 0
 
