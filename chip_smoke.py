@@ -227,6 +227,10 @@ KERNELS = {
                      "sph_tpu/sph/dense.py:682"),
     "integrate": ("sph_tpu_torch/csrc/integrate.cu",
                   "sph_tpu/sph/dense.py:460"),
+    # A1, the adhesion pass's per-bond rows, which XLA fuses in the JAX
+    # package: bond_spring_params and bond_pair_deltas.
+    "bond_rows": ("sph_tpu_torch/csrc/adhesion.cu",
+                  "sph_tpu/physics/adhesion.py:50"),
     # K4's floor modes: the stubs tools/probe_kernel_floor.py swaps into
     # the Pallas contact sweep.
     "floor_zero": ("sph_tpu_torch/csrc/contact_sweep.cu",
@@ -575,7 +579,8 @@ def main() -> int:
     rebins = MAIN_STEPS // sim.params.rebin_every
     want = {"density": MAIN_STEPS, "accel": MAIN_STEPS,
             "rebin": 2 * rebins, "contact": 0, "expand": 0,
-            "density_tail": MAIN_STEPS, "integrate": MAIN_STEPS}
+            "density_tail": MAIN_STEPS, "integrate": MAIN_STEPS,
+            "bond_rows": 0}
     if launches != want:
         raise AssertionError(f"launches {launches} != {want}")
     say("main", f"config[3] {MAIN_STEPS} steps ({rebins} rebins): "
@@ -808,11 +813,14 @@ def fluid_phases(sim, card) -> None:
 
 def colony_kernels(dev, card) -> dict:
     """Phase 5: build the 1M colony, hold K4 and K5 to their plain
-    versions on it (settled and compressed) and K5 at the probe scene."""
+    versions on it (settled and compressed), K5 at the probe scene, and
+    A1 (settled, and with utils.verify.bond_edge_cases)."""
     from sph_tpu_torch.engine.colony import bonded_colony
     from sph_tpu_torch.physics import contact_dense as cd
     from sph_tpu_torch.utils.verify import (
         blob,
+        bond_edge_cases,
+        check_bond_rows,
         check_contact,
         check_expand,
         compressed,
@@ -858,11 +866,19 @@ def colony_kernels(dev, card) -> dict:
                              f"rows: {expand7}")
     say("colony kernels", f"expand at a crowded scene "
         f"{list(spec7.shape())}: {json.dumps(expand7)} | {card}")
+    gd = genome.to_device(dev)
+    rows = check_bond_rows(state, params, gd)
+    rows_e = check_bond_rows(bond_edge_cases(state), params, gd)
+    for name, r in (("settled", rows), ("edge cases", rows_e)):
+        if not r["bitwise"]:
+            raise AssertionError(f"bond_rows {name}: not bitwise: {r}")
+        say("colony kernels", f"bond_rows (A1) at 1M, {name}: "
+            f"{json.dumps(r)}")
     return {"state": state, "params": params, "genome": genome,
             "spec": spec, "bonds": n_bonds, "probe": (s6, spec6),
             "checks": {"contact": contact_c if contact_c["max_abs_err"]
                        > contact["max_abs_err"] else contact,
-                       "expand": expand}}
+                       "expand": expand, "bond_rows": rows_e}}
 
 
 def colony_main(colony, card) -> dict:
@@ -895,7 +911,7 @@ def colony_main(colony, card) -> dict:
     m = sim.metrics()
     want = {"density": 0, "accel": 0, "rebin": 0,
             "contact": COLONY_STEPS, "expand": COLONY_STEPS,
-            "density_tail": 0, "integrate": 0}
+            "density_tail": 0, "integrate": 0, "bond_rows": COLONY_STEPS}
     if launches != want:
         raise AssertionError(f"colony launches {launches} != {want}")
     # The plan is built once and every step takes the quiet branch: a
@@ -923,13 +939,15 @@ def colony_main(colony, card) -> dict:
         colony["params"].replace(adhesion_plan="off"))
     if plans_off != {"quiet": 0, "hybrid": 0, "full": 0, "builds": 0}:
         raise AssertionError(f"plan used with adhesion_plan off: {plans_off}")
+    if launches_off != want:
+        raise AssertionError(f"plain colony launches {launches_off}")
     say("colony main", f"the same {COLONY_STEPS} steps with adhesion_plan "
         f"off: {sps_off:.2f} steps/s (planned {sps:.2f}), launches "
         f"{launches_off} | {card}")
     for k, (a, b) in enumerate(zip(plain, planned)):
         held_to_plain(a, b, (k + 1) * COLONY_CHUNK)
     colony["sim"] = sim
-    return {"contact": launches["contact"], "expand": launches["expand"]}
+    return {k: launches[k] for k in ("contact", "expand", "bond_rows")}
 
 
 # utils/verify.check_planned_adhesion's tolerances (rtol, atol).
@@ -1022,6 +1040,7 @@ def colony_phases(colony, card) -> None:
     synchronisations of one step, and the profiler's busy share."""
     from sph_tpu_torch.biology import bonds, division
     from sph_tpu_torch.engine.step import step
+    from sph_tpu_torch.ops.adhesion import bond_rows
     from sph_tpu_torch.ops.contact import contact_sweep
     from sph_tpu_torch.ops.expand import expand_rows
     from sph_tpu_torch.physics import contact_dense as cd
@@ -1039,8 +1058,8 @@ def colony_phases(colony, card) -> None:
     occ = packed[10].view(spec.shape())
     comps = contact_sweep(fields, occ, p, spec)
     f, t, _ = cd.gather_back([c.reshape(-1) for c in comps], slot_of, ovr)
-    adh_args, adh_segs = adh.bond_inputs(st, p, g)
-    adh_deltas = adh.bond_pair_deltas(*adh_args)
+    adh_rows = adh.bond_rows(st, p, g)
+    adh_segs = adh._segments(st.bonds, st.capacity)
     phases = {
         "pack sort (cell ids, stable sort, row gather, ranks)":
             lambda: cd._sort_with_payload(st, spec),
@@ -1049,12 +1068,14 @@ def colony_phases(colony, card) -> None:
         "gather back": lambda: cd.gather_back(
             [c.reshape(-1) for c in comps], slot_of, ovr),
         "apply contact": lambda: apply_contact(st, p, f, t),
-        "adhesion (gathers, pair math, sorted segment sum)":
+        "adhesion (A1's row table, sorted segment sum)":
             lambda: apply_adhesion(st, p, g),
-        "- of which the pair math (bond_pair_deltas)":
-            lambda: adh.bond_pair_deltas(*adh_args),
+        "- of which the row table (A1)":
+            lambda: bond_rows(st, p, g),
+        "- of which the row table's plain version (gathers, pair math)":
+            lambda: adh.bond_rows(st, p, g),
         "- of which the sorted segment sum": lambda: adh.accumulate_bond_deltas(
-            *adh_deltas, *adh_segs, st.capacity),
+            adh_rows, *adh_segs, st.capacity),
         "drag + motion + rotation": lambda: update_rotation(
             update_motion(apply_drag_force(st, p), p), p),
         "division + bond upkeep (gates)": lambda: bonds.filter_bonds(
@@ -1084,7 +1105,7 @@ def colony_phases(colony, card) -> None:
             s = step(s, p, g)
 
     say("colony phases", f"profiled 5 steps: {device_busy(five_steps, card)}")
-    planned_phases(st, p, g, adh_deltas, adh_segs, card)
+    planned_phases(st, p, g, adh_rows, adh_segs, card)
 
 
 def host_syncs(fn) -> list:
@@ -1125,7 +1146,7 @@ def drifted(bonds, n_rows: int, n: int, seed: int = 0):
     return bonds.replace_fields(slot_a=slot_a)
 
 
-def planned_phases(st, p, g, deltas, segs, card) -> None:
+def planned_phases(st, p, g, rows, segs, card) -> None:
     """The planned adhesion accumulate at the 1M colony: the plan build,
     the quiet planned accumulate, a hybrid one with 500 changed bonds (held
     to the plain sum of the drifted table), a planned step by host clock
@@ -1140,10 +1161,10 @@ def planned_phases(st, p, g, deltas, segs, card) -> None:
     n_changed = int(adh.plan_changed_count(moved, plan))
     seg_a, seg_b = adh._segments(moved, N)
     adh.reset_plan_counts()
-    got = adh.accumulate_bond_deltas_hybrid(*deltas, moved, N, plan)
+    got = adh.accumulate_bond_deltas_hybrid(rows, moved, N, plan)
     if adh.PLAN_COUNTS["hybrid"] != 1:
         raise AssertionError(f"hybrid branch not taken: {adh.PLAN_COUNTS}")
-    want = adh.accumulate_bond_deltas(*deltas, seg_a, seg_b, N)
+    want = adh.accumulate_bond_deltas(rows, seg_a, seg_b, N)
     for x, y, name in zip(got, want, ("dv", "dq")):
         np.testing.assert_allclose(x.cpu().numpy(), y.cpu().numpy(),
                                    rtol=2e-5, atol=1e-6,
@@ -1152,16 +1173,15 @@ def planned_phases(st, p, g, deltas, segs, card) -> None:
         "plan build (stable sort of the 2B endpoint rows, run ends)":
             lambda: adh.build_bond_plan(st.bonds, N),
         "planned accumulate (row gather, segmented scan, run totals)":
-            lambda: adh.accumulate_bond_deltas_planned(*deltas, plan),
+            lambda: adh.accumulate_bond_deltas_planned(rows, plan),
         "quiet hybrid accumulate (the changed count read, then planned)":
-            lambda: adh.accumulate_bond_deltas_hybrid(*deltas, st.bonds, N,
+            lambda: adh.accumulate_bond_deltas_hybrid(rows, st.bonds, N,
                                                       plan),
         f"hybrid accumulate, {n_changed} changed bonds (side table of "
         f"{adh._SIDE_CAP})":
-            lambda: adh.accumulate_bond_deltas_hybrid(*deltas, moved, N,
-                                                      plan),
+            lambda: adh.accumulate_bond_deltas_hybrid(rows, moved, N, plan),
         "plain accumulate (sorted segment sum), for comparison":
-            lambda: adh.accumulate_bond_deltas(*deltas, *segs, N),
+            lambda: adh.accumulate_bond_deltas(rows, *segs, N),
     }
     for name, fn in phases.items():
         say("colony phases", f"{name}: {cuda_ms(fn, 5):.4f} ms")
@@ -1190,8 +1210,8 @@ def planned_phases(st, p, g, deltas, segs, card) -> None:
                   for t in vars(plan).values()) / 1e6
     peaks = [peak_mb(fn) for fn in (
         planned_step, plain_step,
-        lambda: adh.accumulate_bond_deltas_planned(*deltas, plan),
-        lambda: adh.accumulate_bond_deltas(*deltas, *segs, N))]
+        lambda: adh.accumulate_bond_deltas_planned(rows, plan),
+        lambda: adh.accumulate_bond_deltas(rows, *segs, N))]
     say("colony phases", f"peak device memory: one step planned "
         f"{peaks[0]:.1f} MB, plain {peaks[1]:.1f} MB; the accumulate alone "
         f"planned {peaks[2]:.1f} MB, plain {peaks[3]:.1f} MB ({base:.1f} MB "
@@ -1227,11 +1247,9 @@ def bondplan_phase(dev, card) -> list:
         if not torch.equal(getattr(cuda_plan, f.name).cpu(),
                            getattr(cpu_plan, f.name)):
             raise AssertionError(f"bond plan {f.name}: card != CPU")
-    args, _ = adh.bond_inputs(st, p, g.to_device("cpu"))
-    deltas = adh.bond_pair_deltas(*args)
-    want = adh.accumulate_bond_deltas_planned(*deltas, cpu_plan)
-    got = adh.accumulate_bond_deltas_planned(
-        *[d.to(dev) for d in deltas], cuda_plan)
+    rows = adh.bond_rows(st, p, g.to_device("cpu"))
+    want = adh.accumulate_bond_deltas_planned(rows, cpu_plan)
+    got = adh.accumulate_bond_deltas_planned(rows.to(dev), cuda_plan)
     for x, y, name in zip(got, want, ("dv", "dq")):
         if not torch.equal(x.cpu().view(torch.int32),
                            y.view(torch.int32)):
@@ -1260,14 +1278,14 @@ def bondplan_phase(dev, card) -> list:
                            * 1e3)
             row["ms_plain" if mode == "off" else "ms_plan"] = best
         row["plan_wins"] = row["ms_plan"] < row["ms_plain"]
-        args, segs = adh.bond_inputs(st, p, gd)
-        deltas = adh.bond_pair_deltas(*args)
+        rows_t = adh.bond_rows(st, p, gd)
+        segs = adh._segments(st.bonds, st.capacity)
         plan = adh.build_bond_plan(st.bonds, st.capacity)
         row["accumulate_ms_plain"] = cuda_ms(
-            lambda: adh.accumulate_bond_deltas(*deltas, *segs, st.capacity),
+            lambda: adh.accumulate_bond_deltas(rows_t, *segs, st.capacity),
             10)
         row["accumulate_ms_plan"] = cuda_ms(
-            lambda: adh.accumulate_bond_deltas_planned(*deltas, plan), 10)
+            lambda: adh.accumulate_bond_deltas_planned(rows_t, plan), 10)
         say("bond plan", json.dumps(row))
         rows.append(row)
     say("bond plan", f"crossover: ms a step (best of {SWEEP_ROUNDS} runs of "
@@ -1281,9 +1299,11 @@ def bondplan_phase(dev, card) -> list:
 
 
 def assert_no_launches(where: str) -> None:
+    """No kernel launched but A1, which every colony step on the card
+    launches (the adhesion pass)."""
     from sph_tpu_torch.ops import LAUNCHES
 
-    if any(LAUNCHES.values()):
+    if any(v for k, v in LAUNCHES.items() if k != "bond_rows"):
         raise AssertionError(f"{where}: kernels launched {dict(LAUNCHES)}")
 
 
@@ -1749,7 +1769,8 @@ def viewer_phase(colony, card) -> None:
     launches = dict(LAUNCHES)
     per = VIEW_SUBSTEPS * VIEW_FRAMES
     if launches != {"density": 0, "accel": 0, "rebin": 0, "contact": per,
-                    "expand": per, "density_tail": 0, "integrate": 0}:
+                    "expand": per, "density_tail": 0, "integrate": 0,
+                    "bond_rows": per}:
         raise AssertionError(f"viewer launches {launches}, want {per} "
                              f"contact and expand")
     if not gap1 < gap0:
@@ -1967,8 +1988,8 @@ def expand_pair(state, spec):
 
 
 def colony_time_pairs(colony, card) -> dict:
-    """(kernel, plain, library call, bound) of K4 and K5 at the 1M colony
-    after its main run. Also times, on their own lines, K4 on the
+    """(kernel, plain, library call, bound) of K4, K5 and A1 at the 1M
+    colony after its main run. Also times, on their own lines, K4 on the
     compressed copy and K5 at the probe's scene."""
     from sph_tpu_torch.physics import contact_dense as cd
     from sph_tpu_torch.utils.verify import compressed
@@ -2001,7 +2022,24 @@ def colony_time_pairs(colony, card) -> dict:
     say("times", f"expand at 1M: host enqueue {host_ms(expand[0]):.4f} ms a "
         f"call; device {one_kernel('expand', expand[0])[0]:.4f} ms, one "
         f"kernel a call | {card}")
-    return {"contact": contact, "expand": expand}
+    rows = bond_rows_pair(st, p, colony["sim"].genome_dev)
+    say("times", f"bond_rows at 1M: host enqueue {host_ms(rows[0]):.4f} ms "
+        f"a call; device {one_kernel('bond_rows', rows[0])[0]:.4f} ms, one "
+        f"kernel a call | {card}")
+    return {"contact": contact, "expand": expand, "bond_rows": rows}
+
+
+def bond_rows_pair(st, p, gd):
+    """(kernel, plain, library call, bound) of A1 on a colony state: each
+    bond's own 53 bytes, its two cells' 88 and its two 28-byte rows, and
+    the pad rows."""
+    from sph_tpu_torch.ops.adhesion import bond_rows
+    from sph_tpu_torch.physics import adhesion as adh
+
+    B = st.bonds.capacity
+    pad = adh.padded_rows(B) - 2 * B
+    return (lambda: bond_rows(st, p, gd), lambda: adh.bond_rows(st, p, gd),
+            None, bound(B * (53 + 88 + 56) + pad * 28, 0))
 
 
 # -- 14. kernel floor: K4 run one stage at a time ---------------------------
@@ -2338,7 +2376,7 @@ BENCH_RUNGS = {
         ("fluid", 240, 60, 6),
     "3D dam-break 4M single-chip + 8-way decomposition dryrun":
         ("fluid", 45, 15, 6),
-    "cell colony 10k (contact+adhesion, grid)": None,
+    "cell colony 10k (contact+adhesion, grid)": ("grid cells", 240, 120, 0),
     "cell colony 10k (contact+adhesion, dense)": ("cells", 240, 120, 0),
     "cell colony 100k (contact+adhesion, dense)": ("cells", 240, 120, 0),
     "cell colony 1M (contact+adhesion, dense)": ("cells", 40, 20, 0),
@@ -2350,13 +2388,16 @@ BENCH_TIMEOUT = 600
 
 def bench_launches(rung) -> dict:
     want = dict.fromkeys(("density", "accel", "rebin", "contact",
-                          "expand", "density_tail", "integrate"), 0)
+                          "expand", "density_tail", "integrate",
+                          "bond_rows"), 0)
     if rung is None:
         return want
     kind, steps, sub, rebin_every = rung
     total = sub * (1 + max(1, steps // sub))
     if kind == "cells":
-        want.update(contact=total, expand=total)
+        want.update(contact=total, expand=total, bond_rows=total)
+    elif kind == "grid cells":
+        want.update(bond_rows=total)
     else:
         rebins = sum(i % rebin_every == rebin_every - 1
                      for i in range(total))
@@ -2780,7 +2821,7 @@ def shard_phase(colony, dev, card) -> None:
     want = {"density": SHARD_STEPS, "accel": SHARD_STEPS,
             "rebin": 2 * (SHARD_STEPS // CONFIG4["rebin_every"]),
             "contact": 0, "expand": 0, "density_tail": SHARD_STEPS,
-            "integrate": SHARD_STEPS}
+            "integrate": SHARD_STEPS, "bond_rows": 0}
     if launches != want:
         raise AssertionError(f"config[4] launches {launches} != {want}")
     say("shard", f"config[4] one device, {SHARD_STEPS} steps: {sps:.2f} "
@@ -2862,7 +2903,7 @@ def shard_phase(colony, dev, card) -> None:
     exact_same("nccl config[3]", r["same"])
     want = {"density": NCCL_STEPS, "accel": NCCL_STEPS, "rebin": 0,
             "contact": 0, "expand": 0, "density_tail": NCCL_STEPS,
-            "integrate": NCCL_STEPS}
+            "integrate": NCCL_STEPS, "bond_rows": 0}
     if r["backend"] != "nccl" or r["launches"] != want:
         raise AssertionError(f"nccl world: {r['backend']} {r['launches']}")
     say("shard", f"config[3] on a one-rank nccl world, {NCCL_STEPS} steps: "
@@ -2890,7 +2931,8 @@ def shard_report(ranks, card) -> None:
             exact_same(f"config[4] {name} rank {i}", r["same"])
             want = {"density": SHARD_STEPS, "accel": SHARD_STEPS,
                     "rebin": 0, "contact": 0, "expand": 0,
-                    "density_tail": SHARD_STEPS, "integrate": SHARD_STEPS}
+                    "density_tail": SHARD_STEPS, "integrate": SHARD_STEPS,
+                    "bond_rows": 0}
             if r["launches"] != want:
                 raise AssertionError(f"config[4] {name} rank {i} launches "
                                      f"{r['launches']} != {want}")
@@ -2950,7 +2992,7 @@ def shard_report(ranks, card) -> None:
                                      f"{rs[0]['differ']}")
             want = {"density": 0, "accel": 0, "rebin": 0,
                     "contact": steps, "expand": steps, "density_tail": 0,
-                    "integrate": 0}
+                    "integrate": 0, "bond_rows": steps}
             for i, r in enumerate(rs):
                 if r["launches"] != want:
                     raise AssertionError(f"{case} {name} rank {i} launches "

@@ -23,7 +23,7 @@ from pathlib import Path
 import torch
 
 SOURCES = ("fluid_sweep.cu", "rebin.cu", "contact_sweep.cu",
-           "expand_rows.cu", "integrate.cu")
+           "expand_rows.cu", "integrate.cu", "adhesion.cu")
 HEADERS = ("persistent.cuh",)   # included by the sources; in the hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -70,6 +70,9 @@ _ARGTYPES = {
                                                  ctypes.POINTER(_P), _I, _P],
     # raw, occ, rho, prs, pr2, n, consts[5] (host), device, stream
     "sph_density_tail": [_P] * 5 + [_I, ctypes.POINTER(_F), _I, _P],
+    # ptrs[16] (host), out, n, b, rows, n_table, anchors_on, dt, device,
+    # stream
+    "sph_bond_rows": [ctypes.POINTER(_P), _P] + [_I] * 5 + [_F, _I, _P],
 }
 
 

@@ -18,6 +18,12 @@ FIXED order, with no atomics, so the sum is the same on every run
   for bit. Bonds that changed since the plan's snapshot ride a small side
   table (the hybrid), so a stale plan is valid on every step.
 
+Both read one [Mp, 7] row table of the per-bond deltas, `bond_rows`: row i
+< B is bond i's [Δv_A | Δq_A], row B + i its [Δv_B | Δq_B], and the rows up
+to Mp (2B padded to a multiple of _SEG_W) are zero. On the card it is
+kernel A1 (ops/adhesion.py, csrc/adhesion.cu), bitwise to the plain
+version here.
+
 Replicated quirks (DESIGN.md §4): spring parameters come from genome mode
 `uid_A % n_modes` (CellAdhesionManager.cs:537); anchor stiffness =
 orientation_constraint_strength × 10 (CAM:559); the orientation constraint
@@ -121,6 +127,35 @@ def bond_pair_deltas(b, valid, rest, stiff, damp, anchor_stiff,
     return dv_a, dq_a, dv_b, dq_b
 
 
+def padded_rows(n_bonds: int) -> int:
+    """Mp: the 2B endpoint rows padded to a multiple of _SEG_W."""
+    return -(-2 * n_bonds // _SEG_W) * _SEG_W
+
+
+def bond_rows(state: SimState, params: SimParams, genome: GenomeDevice,
+              dt=None) -> torch.Tensor:
+    """The [Mp, 7] endpoint row table: each bond's endpoint rows gathered
+    from the cells at its slots (clamped to the cells), its spring
+    parameters, and bond_pair_deltas' rows [Δv_A | Δq_A] (rows 0..B−1),
+    [Δv_B | Δq_B] (rows B..2B−1), zero pad rows. The plain version of
+    kernel A1 (ops/adhesion.py `bond_rows`)."""
+    b = state.bonds
+    N = state.capacity
+    dt = params.dt if dt is None else dt
+    idx_a = torch.clamp(b.slot_a, 0, N - 1).long()
+    idx_b = torch.clamp(b.slot_b, 0, N - 1).long()
+    tbl = torch.cat([state.pos, state.vel, state.rot,
+                     state.mass[:, None]], dim=1)            # [N, 11]
+    ga, gb = tbl[idx_a], tbl[idx_b]
+    dv_a, dq_a, dv_b, dq_b = bond_pair_deltas(
+        b, _valid(b), *bond_spring_params(b, genome),
+        ga[:, 0:3], ga[:, 3:6], ga[:, 6:10], ga[:, 10],
+        gb[:, 0:3], gb[:, 3:6], gb[:, 6:10], gb[:, 10], params, dt)
+    rows = torch.cat([torch.cat([dv_a, dq_a], dim=1),
+                      torch.cat([dv_b, dq_b], dim=1)])        # [2B, 7]
+    return F.pad(rows, (0, 0, 0, padded_rows(b.capacity) - rows.shape[0]))
+
+
 def segment_sum_sorted(rows: torch.Tensor, seg: torch.Tensor,
                        n_rows: int) -> torch.Tensor:
     """Σ rows per segment id in [0, n_rows) (ids ≥ n_rows are dropped), in
@@ -153,13 +188,13 @@ def segment_sum_sorted(rows: torch.Tensor, seg: torch.Tensor,
     return out
 
 
-def accumulate_bond_deltas(dv_a, dq_a, dv_b, dq_b, seg_a, seg_b, n_rows):
-    """ONE segmented sum of the [Δv|Δq] rows of both endpoints by particle
-    (ids ≥ n_rows are the drop bucket). Returns (Δv [n, 3], Δq [n, 4])."""
+def accumulate_bond_deltas(rows, seg_a, seg_b, n_rows):
+    """ONE segmented sum of the first 2B rows of a row table (bond_rows'
+    layout, B = len(seg_a)) by particle: row i goes to seg_a[i], row B + i
+    to seg_b[i] (ids ≥ n_rows are the drop bucket). Returns (Δv [n, 3],
+    Δq [n, 4])."""
     idx_all = torch.cat([seg_a, seg_b])
-    rows = torch.cat([torch.cat([dv_a, dq_a], dim=1),
-                      torch.cat([dv_b, dq_b], dim=1)])        # [2B, 7]
-    acc = segment_sum_sorted(rows, idx_all, n_rows)
+    acc = segment_sum_sorted(rows[:idx_all.shape[0]], idx_all, n_rows)
     return acc[:, :3], acc[:, 3:]
 
 
@@ -168,7 +203,7 @@ def accumulate_bond_deltas(dv_a, dq_a, dv_b, dq_b, seg_a, seg_b, n_rows):
 # The endpoint rows are permuted into particle order ONCE per bond-table
 # change; each step is then one row gather, a segmented scan and one gather
 # of the run totals. A plan with stale validity stays correct:
-# bond_pair_deltas zeroes every component of an invalid bond, so a bond
+# bond_rows zeroes every component of an invalid bond, so a bond
 # pruned after the plan was built adds exact zeros to its stale run. Slot
 # rewrites and new bonds (only process_pending_splits makes them) ride the
 # hybrid's side table.
@@ -242,9 +277,8 @@ def build_bond_plan(bonds, n_rows: int) -> BondPlan:
 
 def _build_bond_plan(bonds, n_rows: int) -> BondPlan:
     PLAN_COUNTS["builds"] += 1
-    B = bonds.capacity
-    M = 2 * B
-    Mp = -(-M // _SEG_W) * _SEG_W
+    M = 2 * bonds.capacity
+    Mp = padded_rows(bonds.capacity)
     dev = bonds.active.device
     seg_a, seg_b = _segments(bonds, n_rows)
     seg = torch.cat([seg_a, seg_b, torch.full((Mp - M,), n_rows,
@@ -311,40 +345,32 @@ def _blocked_segscan(rs: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
     return v.reshape(M, C)
 
 
-def accumulate_bond_deltas_planned(dv_a, dq_a, dv_b, dq_b, plan: BondPlan,
-                                   zero_bond=None):
-    """The planned counterpart of accumulate_bond_deltas: the same [2B, 7]
-    row stream through the plan's frozen order and the segmented scan.
+def accumulate_bond_deltas_planned(rows, plan: BondPlan, zero_bond=None):
+    """The planned counterpart of accumulate_bond_deltas: the [Mp, 7] row
+    table through the plan's frozen order and the segmented scan.
 
-    zero_bond [B] (optional): bonds whose rows are zeroed in the frozen
-    stream (they changed since the snapshot and are summed through the
-    side table instead)."""
+    zero_bond [B] (optional): bonds whose two rows are zeroed in the
+    frozen stream (they changed since the snapshot and are summed through
+    the side table instead)."""
     if zero_bond is not None:
-        z = zero_bond[:, None]
-        dv_a = torch.where(z, 0.0, dv_a)
-        dq_a = torch.where(z, 0.0, dq_a)
-        dv_b = torch.where(z, 0.0, dv_b)
-        dq_b = torch.where(z, 0.0, dq_b)
-    rows = torch.cat([torch.cat([dv_a, dq_a], dim=1),
-                      torch.cat([dv_b, dq_b], dim=1)])
-    Mp = plan.perm.shape[0]
-    rows = F.pad(rows, (0, 0, 0, Mp - rows.shape[0]))
+        pad = zero_bond.new_zeros(rows.shape[0] - 2 * zero_bond.shape[0])
+        z = torch.cat([zero_bond, zero_bond, pad])
+        rows = torch.where(z[:, None], 0.0, rows)
     cs = _blocked_segscan(rows[plan.perm], plan.flags)
     acc = torch.where(plan.has[:, None], cs[plan.last], 0.0)
     return acc[:, :3], acc[:, 3:]
 
 
-def accumulate_bond_deltas_hybrid(dv_a, dq_a, dv_b, dq_b, bonds,
-                                  n_rows: int, plan: BondPlan):
+def accumulate_bond_deltas_hybrid(rows, bonds, n_rows: int, plan: BondPlan):
     """The planned accumulate under a plan that may be STALE, in the JAX
     package's three branches, chosen by one host read of the changed
     count:
 
     - quiet (no bond changed): the planned accumulate alone;
-    - hybrid (1 to _SIDE_CAP changed): the changed bonds are zeroed in the
-      frozen stream and compacted — a cumsum of the changed flags and a
-      searchsorted, no scatter — into a _SIDE_CAP-row table summed with
-      the plain accumulate;
+    - hybrid (1 to _SIDE_CAP changed): the changed bonds' rows are zeroed
+      in the frozen stream and compacted — a cumsum of the changed flags
+      and a searchsorted, no scatter — into a side table of _SIDE_CAP
+      bonds summed with the plain accumulate;
     - full (more changed): the plain accumulate of the whole table
       (engine.step.run_steps rebuilds the plan well before that)."""
     changed = plan_changed(bonds, plan)
@@ -352,15 +378,13 @@ def accumulate_bond_deltas_hybrid(dv_a, dq_a, dv_b, dq_b, bonds,
         n_changed = int(changed.sum())
     if n_changed == 0:
         PLAN_COUNTS["quiet"] += 1
-        return accumulate_bond_deltas_planned(dv_a, dq_a, dv_b, dq_b, plan)
+        return accumulate_bond_deltas_planned(rows, plan)
     seg_a, seg_b = _segments(bonds, n_rows)
     if n_changed > _SIDE_CAP:
         PLAN_COUNTS["full"] += 1
-        return accumulate_bond_deltas(dv_a, dq_a, dv_b, dq_b, seg_a, seg_b,
-                                      n_rows)
+        return accumulate_bond_deltas(rows, seg_a, seg_b, n_rows)
     PLAN_COUNTS["hybrid"] += 1
-    dvp, dqp = accumulate_bond_deltas_planned(dv_a, dq_a, dv_b, dq_b, plan,
-                                              zero_bond=changed)
+    dvp, dqp = accumulate_bond_deltas_planned(rows, plan, zero_bond=changed)
     dev = changed.device
     r = torch.cumsum(changed.to(torch.int32), 0, dtype=torch.int32)
     sel = torch.searchsorted(
@@ -369,47 +393,30 @@ def accumulate_bond_deltas_hybrid(dv_a, dq_a, dv_b, dq_b, bonds,
     live = torch.arange(_SIDE_CAP, device=dev) < n_changed
     drop = torch.full_like(seg_a[sel], n_rows)
     # seg_a/seg_b already drop invalid bonds.
+    side = rows[torch.cat([sel, sel + changed.shape[0]])]   # [2·cap, 7]
     dv_s, dq_s = accumulate_bond_deltas(
-        dv_a[sel], dq_a[sel], dv_b[sel], dq_b[sel],
-        torch.where(live, seg_a[sel], drop),
+        side, torch.where(live, seg_a[sel], drop),
         torch.where(live, seg_b[sel], drop), n_rows)
     return dvp + dv_s, dqp + dq_s
-
-
-def bond_inputs(state: SimState, params: SimParams, genome: GenomeDevice,
-                dt=None):
-    """(bond_pair_deltas' arguments, (seg_a, seg_b)): the per-bond spring
-    parameters and ONE wide-row gather per endpoint; the segment ids are
-    the endpoint slots, N (the drop bucket) for invalid bonds."""
-    b = state.bonds
-    N = state.capacity
-    dt = params.dt if dt is None else dt
-    idx_a = torch.clamp(b.slot_a, 0, N - 1).long()
-    idx_b = torch.clamp(b.slot_b, 0, N - 1).long()
-    tbl = torch.cat([state.pos, state.vel, state.rot,
-                     state.mass[:, None]], dim=1)            # [N, 11]
-    ga, gb = tbl[idx_a], tbl[idx_b]
-    args = (b, _valid(b), *bond_spring_params(b, genome),
-            ga[:, 0:3], ga[:, 3:6], ga[:, 6:10], ga[:, 10],
-            gb[:, 0:3], gb[:, 3:6], gb[:, 6:10], gb[:, 10], params, dt)
-    return args, _segments(b, N)
 
 
 def bond_deltas(state: SimState, params: SimParams, genome: GenomeDevice,
                 dt=None, plan: BondPlan | None = None):
     """Per-bond velocity and rotation deltas summed per particle:
-    ([N, 3], [N, 4]). With a `plan` (valid for this bond table's
-    capacities, possibly stale) the sum takes the hybrid planned
-    accumulate."""
-    with span("sph.adhesion.gather"):
-        args, (seg_a, seg_b) = bond_inputs(state, params, genome, dt)
+    ([N, 3], [N, 4]). The row table comes from kernel A1 on the card and
+    from the plain bond_rows on the CPU. With a `plan` (valid for this
+    bond table's capacities, possibly stale) the sum takes the hybrid
+    planned accumulate."""
+    from sph_tpu_torch.ops.adhesion import bond_rows as rows_of
+
     with span("sph.adhesion.pairs"):
-        deltas = bond_pair_deltas(*args)
+        rows = rows_of(state, params, genome, dt)
     with span("sph.adhesion.accumulate"):
         if plan is not None:
-            return accumulate_bond_deltas_hybrid(*deltas, state.bonds,
+            return accumulate_bond_deltas_hybrid(rows, state.bonds,
                                                  state.capacity, plan)
-        return accumulate_bond_deltas(*deltas, seg_a, seg_b, state.capacity)
+        return accumulate_bond_deltas(
+            rows, *_segments(state.bonds, state.capacity), state.capacity)
 
 
 def apply_adhesion(state: SimState, params: SimParams, genome: GenomeDevice,

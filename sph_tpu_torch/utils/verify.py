@@ -14,7 +14,9 @@ payload fields (with −0 == +0) and on `dropped`. The colony contact sweep
 finite fields (csrc/contact_sweep.cu states what its skip hides from
 non-finite ones), and reports `bitwise` and `empty_zero` as K1/K2 do; the
 contact pack's placement (K5) is bitwise on all 11 planes, −0 included.
-`expand_lookup` is K5's row lookup (with `expand_search`) and
+The adhesion pass's per-bond rows (A1) are bitwise on every row of the
+table, NaN as NaN and −0 ≠ +0 (`check_bond_rows`; `bond_edge_cases` loads
+every constraint and plants the edge cases). `expand_lookup` is K5's row lookup (with `expand_search`) and
 `rebin_codes` / `rebin_walk` are K3's two passes, written out in plain
 PyTorch for the CPU tests;
 `empty_layout`, `place_particle`, `moved_layout` and `overflow_layout`
@@ -40,11 +42,13 @@ import numpy as np
 import torch
 
 from sph_tpu_torch.core.types import SimParams, SimState
+from sph_tpu_torch.ops import adhesion as oa
 from sph_tpu_torch.ops.contact import contact_sweep
 from sph_tpu_torch.ops.expand import RANGE, expand_rows
 from sph_tpu_torch.ops import integrate as oi
 from sph_tpu_torch.ops.fluid import accel_sweep, density_sweep
 from sph_tpu_torch.ops.rebin import staged_rebin
+from sph_tpu_torch.physics import adhesion as adh
 from sph_tpu_torch.physics import contact_dense as cd
 from sph_tpu_torch.sph import dense
 from sph_tpu_torch.sph.model import eos_pressure
@@ -248,6 +252,57 @@ def check_density_tail(raw, occ, params) -> dict:
     (`bitwise`, NaN as NaN)."""
     return _bitwise(TAIL_FIELDS, dense.density_tail(raw, occ, params),
                     oi.density_tail(raw, occ, params))
+
+
+# -- the adhesion pass's per-bond rows (A1) ---------------------------------
+
+BOND_ROW_COLUMNS = ("dv_x", "dv_y", "dv_z", "dq_x", "dq_y", "dq_z", "dq_w")
+
+
+def check_bond_rows(state, params, genome, dt=None) -> dict:
+    """A1 against the plain adhesion.bond_rows on the same state: every
+    row of the [Mp, 7] table (`bitwise`, NaN as NaN), and the rows with a
+    nonzero delta (`loaded`), which show that the constraints fired."""
+    plain = adh.bond_rows(state, params, genome, dt)
+    kern = oa.bond_rows(state, params, genome, dt)
+    out = _bitwise(BOND_ROW_COLUMNS, plain.unbind(1), kern.unbind(1))
+    out["rows"] = int(kern.shape[0])
+    out["loaded"] = {"dv": int((kern[:, :3] != 0).any(1).sum()),
+                     "dq": int((kern[:, 3:] != 0).any(1).sum())}
+    return out
+
+
+def bond_edge_cases(state, seed: int = 0, nan: bool = True):
+    """The state with every constraint loaded — velocities kicked and
+    rotations turned, so springs, anchor swings and the orientation
+    correction fire — and the edge cases planted among its active bonds:
+    slot_a −1 on every 11th, slot_b −1 on every 13th, every 17th
+    inactive, every 19th with both endpoints on one cell; with `nan`, one
+    endpoint's position, another's velocity and a third's rotation NaN."""
+    dev = state.pos.device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    vel = state.vel + 0.5 * torch.randn(state.vel.shape, generator=g,
+                                        device=dev)
+    rot = state.rot + 0.2 * torch.randn(state.rot.shape, generator=g,
+                                        device=dev)
+    rot = rot / rot.norm(dim=1, keepdim=True)
+    b = state.bonds
+    live = torch.nonzero(b.active)[:, 0]
+    slot_a, slot_b = b.slot_a.clone(), b.slot_b.clone()
+    active = b.active.clone()
+    slot_a[live[::11]] = -1
+    slot_b[live[::13]] = -1
+    active[live[::17]] = False
+    slot_b[live[5::19]] = slot_a[live[5::19]]
+    pos = state.pos.clone()
+    if nan:
+        ends = slot_a[live[1:4]].long()
+        pos[ends[0]] = float("nan")
+        vel[ends[1], 1] = float("nan")
+        rot[ends[2], 2] = float("nan")
+    return state.replace_fields(
+        pos=pos, vel=vel, rot=rot,
+        bonds=b.replace_fields(slot_a=slot_a, slot_b=slot_b, active=active))
 
 
 # -- the colony contact path (K4, K5) --------------------------------------

@@ -69,7 +69,8 @@ def test_rung_matches_jax(jbench, name):
     assert got.get("backend") == want.get("backend")
     # On the CPU the wrappers run their plain versions: nothing launched.
     assert set(got["launches"]) == {"density", "accel", "rebin", "contact",
-                                    "expand", "density_tail", "integrate"}
+                                    "expand", "density_tail", "integrate",
+                                    "bond_rows"}
     assert not any(got["launches"].values())
     assert got["steps_per_sec"] > 0
 

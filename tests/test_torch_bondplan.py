@@ -82,6 +82,15 @@ def random_deltas(rng, valid):
                      0.0).astype(np.float32) for w in (3, 4, 3, 4)]
 
 
+def row_table(d):
+    """The port's [Mp, 7] row table (adhesion.bond_rows' layout) of the
+    four deltas: [dv_a | dq_a], then [dv_b | dq_b], then zero rows."""
+    dv_a, dq_a, dv_b, dq_b = map(torch.from_numpy, d)
+    rows = torch.cat([torch.cat([dv_a, dq_a], 1), torch.cat([dv_b, dq_b], 1)])
+    pad = tadh.padded_rows(dv_a.shape[0]) - rows.shape[0]
+    return torch.cat([rows, torch.zeros((pad, 7))])
+
+
 # -- the plan -----------------------------------------------------------------
 
 
@@ -187,13 +196,11 @@ def test_planned_accumulate_equals_jax():
     carried = bond_plan_from_numpy(
         {f: np.asarray(getattr(jp, f)) for f in PLAN_FIELDS}, device="cpu")
     for plan in (tp, carried):
-        got = tadh.accumulate_bond_deltas_planned(
-            *map(torch.from_numpy, d), plan)
+        got = tadh.accumulate_bond_deltas_planned(row_table(d), plan)
         for g, w, name in zip(got, want, ("dv", "dq")):
             assert_bitwise(g.numpy(), w, err_msg=name)
     seg_a, seg_b = tadh._segments(tb, N)
-    plain = tadh.accumulate_bond_deltas(*map(torch.from_numpy, d), seg_a,
-                                        seg_b, N)
+    plain = tadh.accumulate_bond_deltas(row_table(d), seg_a, seg_b, N)
     for g, p in zip(got, plain):
         np.testing.assert_allclose(g.numpy(), p.numpy(), rtol=2e-5,
                                    atol=1e-6)
@@ -237,12 +244,10 @@ def test_hybrid_accumulate_with_a_stale_plan_equals_jax(branch, n_rewrite,
     want = jax.jit(lambda *r: jadh.accumulate_bond_deltas_hybrid(
         *r, jb, N, jp))(*map(jnp.asarray, d))
     tadh.reset_plan_counts()
-    got = tadh.accumulate_bond_deltas_hybrid(*map(torch.from_numpy, d), tb,
-                                             N, tp)
+    got = tadh.accumulate_bond_deltas_hybrid(row_table(d), tb, N, tp)
     assert tadh.PLAN_COUNTS[branch] == 1
     seg_a, seg_b = tadh._segments(tb, N)
-    plain = tadh.accumulate_bond_deltas(*map(torch.from_numpy, d), seg_a,
-                                        seg_b, N)
+    plain = tadh.accumulate_bond_deltas(row_table(d), seg_a, seg_b, N)
     for g, w, p, name in zip(got, want, plain, ("dv", "dq")):
         assert_bitwise(g.numpy(), w, err_msg=name)
         np.testing.assert_allclose(g.numpy(), p.numpy(), rtol=2e-5,

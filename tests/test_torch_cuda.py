@@ -19,7 +19,11 @@ contact pack's placement) is bitwise. The step's per-slot tail, F2
 (density fixup + Tait EOS + p/ρ²) and F1 (`_integrate`), is bitwise on
 every slot (NaN as NaN, −0 ≠ +0) with equal clamp counts, for each
 obstacle kind, with and without the drag, in 3D and 2D, with NaN lanes,
-at sizes that are not a multiple of 4 and off 16-byte alignment. K1, K2,
+at sizes that are not a multiple of 4 and off 16-byte alignment. A1 (the
+adhesion pass's per-bond rows) is bitwise on every row of its table, with
+slots of −1, inactive bonds, coincident and NaN endpoints, the anchor
+constraints off and a bond count off its tile, and the accumulates it feeds
+end bitwise where the eager rows end. K1, K2,
 F2, F1 and K4 are held so on the
 halo-padded blocks of a sharded step too (a ring's [P + 2]-plane slabs, a 2D mesh's
 local rows). The render (plain PyTorch) is held to itself
@@ -39,6 +43,7 @@ from sph_tpu_torch.engine.fluid import FluidSimulation
 from sph_tpu_torch.engine.simulation import Simulation
 from sph_tpu_torch.ops import FLOOR_LAUNCHES, LAUNCHES, reset_launches
 from sph_tpu_torch.ops import contact as oc
+from sph_tpu_torch.ops.adhesion import bond_rows
 from sph_tpu_torch.ops import contact_floor as cf
 from sph_tpu_torch.ops.contact import contact_sweep
 from sph_tpu_torch.ops.expand import expand_rows
@@ -46,12 +51,15 @@ from sph_tpu_torch.ops.fluid import accel_sweep, band_plan, density_sweep
 from sph_tpu_torch.ops.integrate import density_tail, integrate
 from sph_tpu_torch.ops.rebin import staged_rebin
 from sph_tpu_torch.parallel import dist as pd
+from sph_tpu_torch.physics import adhesion as adh
 from sph_tpu_torch.physics import contact_dense as cd
 from sph_tpu_torch.sph import dense
 from sph_tpu_torch.sph.scenes import dam_break_2d, dam_break_3d
 from sph_tpu_torch.utils.verify import (
     accel_inputs,
     blob,
+    bond_edge_cases,
+    check_bond_rows,
     check_contact,
     check_expand,
     check_density_tail,
@@ -256,7 +264,7 @@ def test_main_path_launches_kernels(cuda):
     # 2 rebins, each a codes and a placement launch.
     assert LAUNCHES == {"density": 12, "accel": 12, "rebin": 4,
                         "contact": 0, "expand": 0, "density_tail": 12,
-                        "integrate": 12}
+                        "integrate": 12, "bond_rows": 0}
     m = sim.metrics()
     assert m["n_particles"] == n0 and m["dropped"] == 0
 
@@ -781,6 +789,7 @@ def test_colony_main_path_launches_kernels(cuda):
     sim.step(10)
     torch.cuda.synchronize()
     assert LAUNCHES["contact"] == 10 and LAUNCHES["expand"] == 10
+    assert LAUNCHES["bond_rows"] == 10
     m = sim.metrics()
     assert m["active_particles"] == 20000 and m["overflow"] == 0
     assert m["bond_count"] <= n_bonds
@@ -812,6 +821,90 @@ def test_colony_wrappers_refuse_bad_operands(cuda):
         expand_rows(rows, key.long(), cd.PACK_FILLS, spec)
     with pytest.raises(ValueError, match="fills"):
         expand_rows(rows, key, cd.PACK_FILLS[:5], spec)
+
+
+# -- the adhesion pass's per-bond rows: A1 (bond_rows) ---------------------
+
+
+def adhesion_colony(cuda, case="settled"):
+    """A 4,096-cell colony for A1, as `case`: as built; with
+    utils.verify.bond_edge_cases (slots of −1, inactive bonds, coincident
+    endpoints, NaN endpoints, every constraint loaded); the same without
+    NaN ("loaded"), also with the anchor constraints off; or with 8,229
+    bond rows (not a multiple of the kernel's 256-bond tile) and the edge
+    cases. Returns (state, params, device genome)."""
+    kw = {"max_bonds": 8229} if case == "odd bond count" else {}
+    state, params, genome = bonded_colony(4096, device=cuda, **COLONY, **kw)
+    if case in ("edge cases", "odd bond count"):
+        state = bond_edge_cases(state)
+    elif case in ("loaded", "anchors off"):
+        state = bond_edge_cases(state, nan=False)
+    if case == "anchors off":
+        params = params.replace(enable_anchor_constraints=False)
+    return state, params, genome.to_device(cuda)
+
+
+@pytest.mark.parametrize("case", ["settled", "edge cases", "anchors off",
+                                  "odd bond count"])
+def test_bond_rows_kernel_bitwise(cuda, case):
+    state, params, gd = adhesion_colony(cuda, case)
+    r = check_bond_rows(state, params, gd)
+    assert r["bitwise"] and r["max_abs_err"] == 0.0, r
+    assert r["rows"] == adh.padded_rows(state.bonds.capacity)
+    assert r["loaded"]["dv"] > 0
+    assert (r["loaded"]["dq"] > 0) == (case != "anchors off")
+    r = check_bond_rows(state, params, gd, dt=0.37 * params.dt)
+    assert r["bitwise"], r
+
+
+def test_bond_rows_wrapper_refuses_bad_operands(cuda):
+    state, params, gd = adhesion_colony(cuda)
+    b = state.bonds
+    cases = [
+        (TypeError, "float32", dict(mass=state.mass.double())),
+        (ValueError, "CUDA", dict(rot=state.rot.cpu())),
+        (ValueError, "contiguous",
+         dict(pos=state.pos.t().contiguous().t())),
+        (ValueError, "int32", dict(bonds=b.replace_fields(
+            slot_a=b.slot_a.long()))),
+        (ValueError, "shape", dict(bonds=b.replace_fields(
+            rel_orientation=b.rel_orientation[:, :3].contiguous()))),
+    ]
+    for error, match, fields in cases:
+        with pytest.raises(error, match=match):
+            bond_rows(state.replace_fields(**fields), params, gd)
+
+
+@pytest.mark.parametrize("branch, n_rewrite", [
+    ("plain", 0), ("quiet", 0), ("hybrid", 60), ("full", 2200)])
+def test_adhesion_branches_equal_eager_path(cuda, branch, n_rewrite):
+    """bond_deltas through A1 against the same accumulate fed the plain
+    bond_rows on the card, with no plan and in each branch of a plan made
+    stale by rewritten endpoints: the same Δv and Δq, bitwise."""
+    state, params, gd = adhesion_colony(cuda, "loaded")
+    n = state.capacity
+    plan = None if branch == "plain" else adh.build_bond_plan(state.bonds, n)
+    b = state.bonds
+    live = torch.nonzero(b.active)[:, 0]
+    g = torch.Generator(device=cuda).manual_seed(5)
+    pick = live[torch.randperm(live.numel(), generator=g,
+                               device=cuda)[:n_rewrite]]
+    slot_a = b.slot_a.clone()
+    slot_a[pick] = torch.randint(0, n, (n_rewrite,), generator=g,
+                                 device=cuda, dtype=slot_a.dtype)
+    state = state.replace_fields(bonds=b.replace_fields(slot_a=slot_a))
+    adh.reset_plan_counts()
+    got = adh.bond_deltas(state, params, gd, plan=plan)
+    rows = adh.bond_rows(state, params, gd)
+    if plan is None:
+        want = adh.accumulate_bond_deltas(
+            rows, *adh._segments(state.bonds, n), n)
+    else:
+        assert adh.PLAN_COUNTS[branch] == 1
+        want = adh.accumulate_bond_deltas_hybrid(rows, state.bonds, n, plan)
+    for x, y in zip(got, want):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    assert float(got[1].abs().max()) > 0
 
 
 # -- render and app (plain PyTorch on the card; the app launches K1–K5) ----

@@ -28,7 +28,7 @@ torch.set_num_threads(2)
 STEPS = 4
 PHASES = ("sph.division", "sph.contact", "sph.contact.pack",
           "sph.contact.sweep", "sph.contact.gather", "sph.adhesion",
-          "sph.adhesion.gather", "sph.adhesion.pairs",
+          "sph.adhesion.pairs",
           "sph.adhesion.accumulate", "sph.motion", "sph.bonds")
 # Each span's parent, by name.
 PARENT = {
@@ -37,7 +37,6 @@ PARENT = {
     "sph.bonds": "sph.step",
     "sph.contact.pack": "sph.contact", "sph.contact.sweep": "sph.contact",
     "sph.contact.gather": "sph.contact",
-    "sph.adhesion.gather": "sph.adhesion",
     "sph.adhesion.pairs": "sph.adhesion",
     "sph.adhesion.accumulate": "sph.adhesion",
     "sph.read.pending": "sph.division", "sph.read.ready": "sph.division",
