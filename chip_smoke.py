@@ -8,11 +8,13 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
 2. build     — builds the hand-written kernels from `sph_tpu_torch/csrc/`
                (one nvcc per source, all at once).
 3. kernels   — the fluid kernels against their plain PyTorch versions at
-               config[3] shapes (a 1,005,312-particle state stepped 30
-               steps) and at a small 2D spec: density and accel bitwise on
+               config[3] shapes (a 1,005,312-particle state at the port's
+               config[3] layout, [154, 16, 7680], stepped 30 steps) and
+               at a small 2D spec: density and accel bitwise on
                occupied slots and +0 on empty ones (and within rtol 1e-5 /
                atol 1e-6·max|x|), with their band plans; the rebin bitwise
-               with equal `dropped` > 0 under a crowding nudge, and
+               (positions, velocities, ρ, p) with equal `dropped` > 0
+               under a crowding nudge, and
                bitwise with equal `dropped` on the config[3] state with a
                NaN, a +inf and a −inf coordinate (NaN as NaN); the step's
                tail, F2 (density fixup + Tait EOS + p/ρ²) and F1
@@ -22,7 +24,7 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
                clamp and the walls fire, with a drag; at config[3] also
                with a sphere and a box beside the cylinder, an inexact
                1/mass and NaN lanes.
-4. main      — config[3] through FluidSimulation for 60 steps = 10 rebins,
+4. main      — config[3] through FluidSimulation for 60 steps = 12 rebins,
                launch counters reset just before: count conserved, dropped
                == 0, positions finite and in bounds, every sweep and both
                passes of every rebin (codes, placement) launched through
@@ -187,10 +189,12 @@ import time
 import numpy as np
 import torch
 
+from sph_tpu_torch.sph.scenes import CONFIG3_LAYOUT
 from sph_tpu_torch.utils.profiling import F32_FLOPS, HBM_BYTES_PER_S
 
-CONFIG3 = dict(n_target=1_000_000, cell_factor=1.38, dense_k=8,
-               rebin_every=6)
+# config[3] at the port's layout for it (16 slots a cell of 1.3 h, a rebin
+# every 5 steps): [154, 16, 7680].
+CONFIG3 = dict(n_target=1_000_000, **CONFIG3_LAYOUT)
 N_CONFIG3 = 1_005_312
 MAIN_STEPS = 60
 # bench.py's largest colony rung (`_bench_cells`, bench.py:151-157, 323).
@@ -481,7 +485,7 @@ def nonfinite_rebin(d, p, spec) -> dict:
     args = (fields["px"], fields["py"], fields["pz"], d.vx, d.vy, d.vz, p,
             spec)
     a, b = dense.rebin(d, *args), staged_rebin(d, *args)
-    for f in ("px", "py", "pz", "vx", "vy", "vz", "occ"):
+    for f in ("px", "py", "pz", "vx", "vy", "vz", "rho", "prs", "occ"):
         x, y = getattr(a, f), getattr(b, f)
         same = ((x.view(torch.int32) == y.view(torch.int32))
                 | (x.isnan() & y.isnan()) | ((x == 0) & (y == 0)))
@@ -638,13 +642,13 @@ def main() -> int:
     pairs = {
         **sweep_time_pairs(d, p, spec, n_pairs, n_near),
         **tail_time_pairs(d_tail, raw, acc, p, spec),
-        # occupancy in, 7 planes out; 6 payload fields of occupied slots.
+        # occupancy in, 9 planes out; 8 payload fields of occupied slots.
         "rebin": (
             lambda: staged_rebin(d, d.px, d.py, d.pz, d.vx, d.vy, d.vz,
                                  p, spec),
             lambda: dense.rebin(d, d.px, d.py, d.pz, d.vx, d.vy, d.vz,
                                 p, spec),
-            None, bound(8 * plane + 6 * 4 * n_occ, 0)),
+            None, bound(10 * plane + 8 * 4 * n_occ, 0)),
         **colony_time_pairs(colony, card),
     }
     say("times", f"config[3] {list(d.px.shape)}: {n_pairs} occupied slot "
@@ -2363,9 +2367,9 @@ def verify_phase(card) -> None:
 # -- 19. bench: python -m sph_tpu_torch.bench --all --cells --breakdown -------
 
 # Each rung's steps and the launches they ask for: (steps, substeps or
-# chunk, rebin_every) at bench.py's settings (`_bench_dense` 240/60/6,
-# `_bench_2d_dense` 480/120/3, config[4] 45/15/6, `_bench_cells` 240/120
-# and 40/20 at 1M); a fluid rung launches K1 and K2 once a step and K3
+# chunk, rebin_every) at bench.py's settings (`_bench_dense` 240/60/6 and
+# 240/60/5 at config[3], `_bench_2d_dense` 480/120/3, config[4] 45/15/6,
+# `_bench_cells` 240/120 and 40/20 at 1M); a fluid rung launches K1 and K2 once a step and K3
 # twice a rebin, a dense colony K4 and K5 once a step, over one warm and
 # steps // substeps timed calls.
 BENCH_RUNGS = {
@@ -2373,7 +2377,7 @@ BENCH_RUNGS = {
     "2D splash/pour 32k (dense grid + Pallas)": ("fluid", 480, 120, 3),
     "3D dam-break 256k (dense grid + Pallas)": ("fluid", 240, 60, 6),
     "3D dam-break + SDF obstacle 1M (dense grid + Pallas)":
-        ("fluid", 240, 60, 6),
+        ("fluid", 240, 60, CONFIG3_LAYOUT["rebin_every"]),
     "3D dam-break 4M single-chip + 8-way decomposition dryrun":
         ("fluid", 45, 15, 6),
     "cell colony 10k (contact+adhesion, grid)": ("grid cells", 240, 120, 0),

@@ -1,5 +1,7 @@
 """Benchmark harness of the port: the counterpart of the repository's
-`bench.py`, with its flags, rungs, settings and JSON line.
+`bench.py`, with its flags, rungs, settings and JSON line; its config[3]
+rung runs the port's config[3] layout (`scenes.CONFIG3_LAYOUT`: 16 slots,
+not the JAX bench's 8, at which the rebin drops particles).
 
     python -m sph_tpu_torch.bench                 # config[3] on the card
     python -m sph_tpu_torch.bench --all --cells --breakdown
@@ -37,6 +39,7 @@ import traceback
 import torch
 
 from sph_tpu_torch.ops import LAUNCHES, reset_launches
+from sph_tpu_torch.sph.scenes import CONFIG3_LAYOUT
 
 _T0 = time.monotonic()
 UNIT = "particle-steps/sec"
@@ -105,15 +108,16 @@ def _time_dense(state, params, spec, steps: int, substeps: int,
 
 def _bench_dense(n_target: int, steps: int = 240, substeps: int = 60,
                  rebin_every: int = 6, obstacles=(),
-                 cell_factor: float = 1.25, device="cuda"):
+                 cell_factor: float = 1.25, dense_k: int = 8,
+                 device="cuda"):
     """Config[2]-[4]: a 3D dam break on the dense grid through K1-K3."""
     from sph_tpu_torch.sph.dense import make_dense_spec
     from sph_tpu_torch.sph.scenes import dam_break_3d
 
     state, params = dam_break_3d(n_target=n_target, obstacles=obstacles)
-    params = params.replace(cell_factor=cell_factor, dense_k=8,
+    params = params.replace(cell_factor=cell_factor, dense_k=dense_k,
                             rebin_every=rebin_every, use_pallas=True)
-    spec = make_dense_spec(params, k=8, cell_factor=cell_factor)
+    spec = make_dense_spec(params, k=dense_k, cell_factor=cell_factor)
     return _time_dense(state, params, spec, steps, substeps,
                        torch.device(device))
 
@@ -234,7 +238,7 @@ CONFIGS = {
         lambda device: _bench_dense(262144, device=device)),
     3: ("3D dam-break + SDF obstacle 1M (dense grid + Pallas)",
         lambda device: _bench_dense(1_000_000, obstacles=OBSTACLE,
-                                    cell_factor=1.38, device=device)),
+                                    **CONFIG3_LAYOUT, device=device)),
     4: ("3D dam-break 4M single-chip + 8-way decomposition dryrun",
         _bench_4m_multichip),
 }
@@ -250,7 +254,7 @@ BREAKDOWN = {
     "phase_breakdown_256k": dict(n_target=262144, obstacles=(),
                                  cell_factor=1.25),
     "phase_breakdown_1m": dict(n_target=1_000_000, obstacles=OBSTACLE,
-                               cell_factor=1.38),
+                               **CONFIG3_LAYOUT),
 }
 
 
@@ -374,10 +378,11 @@ def main(argv=None) -> int:
         for key, kw in BREAKDOWN.items():
             st, prm = dam_break_3d(n_target=kw["n_target"],
                                    obstacles=kw["obstacles"])
-            cf = kw["cell_factor"]
-            prm = prm.replace(cell_factor=cf, dense_k=8, rebin_every=6,
+            cf, k = kw["cell_factor"], kw.get("dense_k", 8)
+            prm = prm.replace(cell_factor=cf, dense_k=k,
+                              rebin_every=kw.get("rebin_every", 6),
                               use_pallas=True)
-            spc = make_dense_spec(prm, k=8, cell_factor=cf)
+            spc = make_dense_spec(prm, k=k, cell_factor=cf)
             detail[key] = step_breakdown(pack(st, prm, spc, device=device),
                                          prm, spc)
 

@@ -87,15 +87,18 @@
 // not: the pressure terms cancel to ~1% of their size.)
 //
 // What bounds it on the H100: the least traffic is the occupancy plane
-// and the output planes (2 or 4 × 35.6 MB at config[3]); the walk is
-// ~215 screens per occupied slot (3 shared loads, ~10 operations each),
-// issue-bound, plus the full terms of the ~1 partner in 15 inside h. No
+// and the output planes (2 or 4 × 35.6 MB at config[3] with K = 8); the
+// walk is 27·K − 1 screens per occupied slot (215 at K = 8, 431 at K =
+// 16; 3 shared loads, ~10 operations each), issue-bound, plus the full
+// terms of the partners inside h (~1 in 15 at K = 8). No
 // FMA may be formed, so each screen costs 9 floating-point instructions
 // where 7 would do.
 //
-// ptxas (sm_90a, -O3): 62–64 registers per sweep kernel (two blocks of
-// 512 threads per SM cap it at 64); the 3D (K = 8) K2 kernel spills 92
-// bytes; the gate kernels take 31–32.
+// ptxas (sm_90a, -O3): 62–64 registers per sweep kernel at K ≤ 8 (two
+// blocks of 512 threads per SM cap it at 64); the 3D (K = 8) K2 kernel
+// spills 92 bytes; the gate kernels take 31–32. At K = 16 (one block an
+// SM, 431 partners, 14 mark words) 120–128 registers; the 3D K2 kernel
+// spills 116 bytes.
 
 #include <cuda_runtime.h>
 
@@ -510,10 +513,17 @@ struct Layout {
   }
 };
 
+// Blocks an SM the sweep is built for: two at K ≤ 8 (64 registers a
+// thread); one at K = 16, whose one-row band alone needs more than half an
+// SM's shared memory (ops/fluid.py `band_plan`), so a thread may take 128
+// registers — K2's pass-1 marks are 14 words there.
+template <int K>
+constexpr int kMinBlocks = K > 8 ? 1 : 2;
+
 // Launch 2, persistent: each block takes listed bands until the list runs
 // out (work[1] counts the bands taken).
 template <class Sweep, int K, int S0>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kMinBlocks<K>)
     band_sweep_kernel(Sweep sw, const float* __restrict__ px,
                       const float* __restrict__ py,
                       const float* __restrict__ pz, Geom g, int band_rows,
@@ -663,7 +673,8 @@ int launch_ks(const Sweep& sw, const float* px, const float* py,
 }
 
 // The kernels are built for the repository's scenes: K = 8 with a plane
-// stencil (3D), K = 4 without (2D), and the two other pairings; every
+// stencil (3D), K = 4 without (2D), K = 16 (config[3], whose cells are
+// sought by more than 8 particles at a rebin), and the other pairings; every
 // stencil has rows (S1 = 1). Anything else is refused.
 template <class Sweep>
 int launch(const Sweep& sw, const float* px, const float* py,
@@ -676,6 +687,12 @@ int launch(const Sweep& sw, const float* px, const float* py,
     return cudaErrorInvalidValue;
   const int key = k * 2 + (stencil0 ? 1 : 0);
   switch (key) {
+    case 16 * 2 + 1:
+      return launch_ks<Sweep, 16, 1>(sw, px, py, pz, g, band_rows,
+                                     smem_bytes, work, st);
+    case 16 * 2:
+      return launch_ks<Sweep, 16, 0>(sw, px, py, pz, g, band_rows,
+                                     smem_bytes, work, st);
     case 8 * 2 + 1:
       return launch_ks<Sweep, 8, 1>(sw, px, py, pz, g, band_rows,
                                     smem_bytes, work, st);

@@ -6,8 +6,10 @@
 // sentinel cleanup `rebin_pallas` runs after them.
 //
 // What it computes: bitwise the plain `rebin` of sph_tpu_torch/sph/dense.py
-// (itself bitwise the JAX twin), ±0 aside — the plain version's masked sums
-// turn −0 into +0 where the kernel copies bits. The staged rebin moves each
+// (on positions, velocities and occupancy bitwise the JAX twin, which leaves
+// ρ and p in the slots they were in; here they move with their particle),
+// ±0 aside — the plain version's masked sums turn −0 into +0 where the
+// kernel copies bits. The staged rebin moves each
 // particle at most one cell per stage: stage 2 gathers, into every cell, the
 // ≤ 3K occupied candidates of itself and its in-row neighbours x−1, x, x+1
 // (shift-major: neighbour, then slot) whose bin coordinate on that axis,
@@ -15,7 +17,8 @@
 // is the cell's own, keeps the first K and counts the rest in `dropped`, as
 // it counts own-cell particles whose coordinate is more than one cell away;
 // stage 1 then does the same over rows, stage 0 over planes. Empty slots of
-// the result hold sentinel positions, zero velocity and occupancy.
+// the result hold sentinel positions, zero velocity, pressure and
+// occupancy, and the rest density.
 //
 // Why one pass can do it: positions do not change between the stages, which
 // only copy, so each particle's move per axis — −1, 0, +1 or "far" — can be
@@ -49,7 +52,8 @@
 //     reads the occupancy plane and the positions of occupied slots and
 //     writes one byte per slot — 0 if empty, else 0x40 | ez<<4 | ey<<2 | ex,
 //     each e = delta + 1 or 3 for far — as one K-byte word per cell
-//     ([Z, C] words), so an empty cell is one zero word. It also copies the
+//     ([Z, C] words of 32, 64 or 128 bits), so an empty cell is one zero
+//     word. It also copies the
 //     state's `dropped` into the fresh count the placement adds to.
 //  2. Placement (`rebin_place_kernel`, one thread per final cell, 256
 //     consecutive fused cells of one plane a block): the block stages its
@@ -60,22 +64,28 @@
 //     each stage wants; when no counter would pass K inside the word, the
 //     counters advance by population counts and only the slots that land
 //     here are visited; otherwise the word is walked slot by slot. The
-//     source of each placed slot is one byte (neighbour · 8 + slot) of a
-//     64-bit register. Then the thread writes its K slots of all 7 planes
-//     once, slot by slot, so a warp's stores are 128-byte runs: the 6
-//     payload fields copied from the source slot, occupancy 1, and the
-//     sentinel / 0 / 0 fill in the rest. No array or struct member is
+//     source of each placed slot (neighbour and slot) is 8 bits (K ≤ 8) or
+//     16 bits (K = 16) of 64-bit registers (`Sources`). Then the thread
+//     writes its K slots of all 9 planes
+//     once, slot by slot, so a warp's stores are 128-byte runs: the 8
+//     payload fields (position, velocity, ρ, p) copied from the source
+//     slot, occupancy 1, and the sentinel / 0 / ρ0 / 0 / 0 fill in the
+//     rest. No array or struct member is
 //     indexed at run time, so nothing lives on the stack. `dropped` is
 //     summed with one integer atomicAdd per thread that dropped anything:
 //     integer addition is order-free, so the count is deterministic.
+//     The walk also counts, before each stage's truncation, how many
+//     particles sought this cell at that stage (the `wants` of the plain
+//     `_compact_stage`); the largest over the stages goes to a running
+//     `demand` peak by one atomicMax a warp (max is order-free too).
 //
 // Numerics: no FMA can form (subtract, then divide with __fdiv_rn), and the
 // quotient is clamped to [lo, hi] before the conversion: a C cast of an
 // out-of-range float (sentinel lanes give ~1e9) is undefined, and for
 // integer bounds clamp-then-truncate equals truncate-then-clip.
 //
-// What bounds it on the H100: memory traffic. The 7 output planes (7·4·Z·K·C
-// bytes, 249 MB at config[3]'s [145, 8, 7680]) are written once and the
+// What bounds it on the H100: memory traffic. The 9 output planes (9·4·Z·K·C
+// bytes, 681 MB at config[3]'s [154, 16, 7680]) are written once and the
 // occupancy plane read once; the positions and payload of occupied slots
 // are read once each by the codes pass and the placement. The code words
 // (Z·C·K bytes, 8.9 MB) stay in L2 between the launches.
@@ -92,9 +102,12 @@ constexpr float kSentinel = 1.0e9f;
 constexpr unsigned kOccupied = 0x40u;
 constexpr unsigned kFar = 3u;
 
-// One K-byte code word per cell.
+// One K-byte code word per cell: 32, 64 or 128 bits.
+using u128 = unsigned __int128;
 template <int K>
-using Word = typename std::conditional<K == 8, uint64_t, uint32_t>::type;
+using Word = typename std::conditional<
+    K == 16, u128,
+    typename std::conditional<K == 8, uint64_t, uint32_t>::type>::type;
 
 __device__ __forceinline__ int lowest_set_byte(uint32_t w) {
   return (__ffs(static_cast<int>(w)) - 1) >> 3;
@@ -102,16 +115,34 @@ __device__ __forceinline__ int lowest_set_byte(uint32_t w) {
 __device__ __forceinline__ int lowest_set_byte(uint64_t w) {
   return (__ffsll(static_cast<long long>(w)) - 1) >> 3;
 }
+__device__ __forceinline__ int lowest_set_byte(u128 w) {
+  const uint64_t lo = static_cast<uint64_t>(w);
+  return lo ? lowest_set_byte(lo)
+            : 8 + lowest_set_byte(static_cast<uint64_t>(w >> 64));
+}
 
 __device__ __forceinline__ int popc(uint32_t w) { return __popc(w); }
 __device__ __forceinline__ int popc(uint64_t w) { return __popcll(w); }
+__device__ __forceinline__ int popc(u128 w) {
+  return __popcll(static_cast<uint64_t>(w)) +
+         __popcll(static_cast<uint64_t>(w >> 64));
+}
+
+// 0x01 in every byte of W.
+template <typename W>
+__device__ __forceinline__ W byte_ones() {
+  W ones = 0;
+#pragma unroll
+  for (int i = 0; i < static_cast<int>(sizeof(W)); ++i) ones = ones << 8 | 1u;
+  return ones;
+}
 
 // Byte-parallel tests on a code word (each byte ≤ 0x7f): 0x80 in every
 // byte whose bits `mask` equal `want`, 0 elsewhere — exact, with no carry
 // between bytes.
 template <typename W>
 __device__ __forceinline__ W match(W w, unsigned mask, unsigned want) {
-  const W ones = ~W(0) / 0xffu;  // 0x01 in every byte
+  const W ones = byte_ones<W>();
   const W low7 = ones * 0x7fu;
   const W y = (w & (ones * mask)) ^ (ones * want);
   return ~(((y & low7) + low7) | y | low7);
@@ -171,6 +202,8 @@ struct Payload {
   const float* vx;
   const float* vy;
   const float* vz;
+  const float* rho;
+  const float* prs;
 };
 
 struct Planes {
@@ -180,7 +213,10 @@ struct Planes {
   float* vx;
   float* vy;
   float* vz;
+  float* rho;
+  float* prs;
   float* occ;
+  float rest;  // ρ of an empty slot, as the density pass leaves it
 };
 
 __device__ __forceinline__ void write_fill(const Planes& out, int o) {
@@ -190,14 +226,48 @@ __device__ __forceinline__ void write_fill(const Planes& out, int o) {
   out.vx[o] = 0.0f;
   out.vy[o] = 0.0f;
   out.vz[o] = 0.0f;
+  out.rho[o] = out.rest;
+  out.prs[o] = 0.0f;
   out.occ[o] = 0.0f;
 }
+
+// The source of each placed slot, (neighbour << kSlotBits | slot), in
+// kBits bits of up to four 64-bit registers (one at K ≤ 8). put() runs
+// with the slot counter, get() with a compile-time slot; the registers are
+// named, not an array, so none is indexed at run time.
+template <int K>
+struct Sources {
+  static constexpr int kSlotBits = K > 8 ? 4 : 3;
+  static constexpr int kBits = K > 8 ? 16 : 8;   // 27 neighbours · K slots
+  uint64_t w0 = 0, w1 = 0, w2 = 0, w3 = 0;
+
+  __device__ __forceinline__ void put(int r, int nb, int slot) {
+    const int bit = r * kBits;
+    const uint64_t v = static_cast<uint64_t>(nb << kSlotBits | slot)
+                       << (bit & 63);
+    if (K * kBits <= 64 || bit < 64) {
+      w0 |= v;
+    } else if (bit < 128) {
+      w1 |= v;
+    } else if (bit < 192) {
+      w2 |= v;
+    } else {
+      w3 |= v;
+    }
+  }
+  __device__ __forceinline__ int get(int s) const {
+    const int bit = s * kBits;
+    const uint64_t w = bit < 64 ? w0 : bit < 128 ? w1 : bit < 192 ? w2 : w3;
+    return static_cast<int>(w >> (bit & 63)) & ((1 << kBits) - 1);
+  }
+};
 
 template <int K, bool kPlanes>
 __global__ void __launch_bounds__(kThreads)
     rebin_place_kernel(Payload in, Planes out,
                        const Word<K>* __restrict__ codes,
-                       int* __restrict__ dropped, int n0, int c, int x) {
+                       int* __restrict__ dropped, int* __restrict__ demand,
+                       int n0, int c, int x) {
   using W = Word<K>;
   extern __shared__ __align__(16) unsigned char smem[];
   W* halo = reinterpret_cast<W*>(smem);
@@ -227,9 +297,11 @@ __global__ void __launch_bounds__(kThreads)
     return;
   }
 
-  // The walk: planes a, rows b, in-row c, then source slot.
-  uint64_t srcs = 0;  // byte s: (neighbour · 8 + slot) of output slot s
-  int r0 = 0, drops = 0;
+  // The walk: planes a, rows b, in-row c, then source slot. d2, d1, d0
+  // count what each stage's cell here was sought by before its truncation
+  // (stage 2 at a = b = 0, stage 1 at a = 0, stage 0 over the whole walk).
+  Sources<K> srcs;
+  int r0 = 0, drops = 0, d2 = 0, d1 = 0, d0 = 0;
 #pragma unroll
   for (int a = kPlanes ? -1 : 0; a <= (kPlanes ? 1 : 0); ++a) {
     int r1 = 0;
@@ -259,11 +331,13 @@ __global__ void __launch_bounds__(kThreads)
           if (kPlanes && a == 0) {
             drops += popc(m1 & match(w, 0x70u, 0x70u));  // far planes
           }
+          if (a == 0 && b == 0) d2 += popc(m2);
+          if (a == 0) d1 += popc(m1);
+          if (kPlanes) d0 += popc(m0);
           r2 += popc(m2);
           r1 += popc(m1);
           for (W m = m0; m; m &= m - 1) {
-            srcs |= static_cast<uint64_t>(nb * 8 + lowest_set_byte(m))
-                    << (8 * r0);
+            srcs.put(r0, nb, lowest_set_byte(m));
             ++r0;
           }
           continue;
@@ -276,6 +350,7 @@ __global__ void __launch_bounds__(kThreads)
           const unsigned ex = code & 3u;
           if (a == 0 && b == 0 && dc == 0 && ex == kFar) ++drops;
           if (ex != static_cast<unsigned>(1 - dc)) continue;
+          if (a == 0 && b == 0) ++d2;
           if (r2 >= K) {  // stage 2 overflows cell (z+a, r+b, x)
             if (a == 0 && b == 0) ++drops;
             continue;
@@ -284,6 +359,7 @@ __global__ void __launch_bounds__(kThreads)
           const unsigned ey = (code >> 2) & 3u;
           if (a == 0 && b == 0 && ey == kFar) ++drops;
           if (ey != static_cast<unsigned>(1 - b)) continue;
+          if (a == 0) ++d1;
           if (r1 >= K) {  // stage 1 overflows cell (z+a, r, x)
             if (a == 0) ++drops;
             continue;
@@ -293,12 +369,13 @@ __global__ void __launch_bounds__(kThreads)
             const unsigned ez = (code >> 4) & 3u;
             if (a == 0 && ez == kFar) ++drops;
             if (ez != static_cast<unsigned>(1 - a)) continue;
+            ++d0;
             if (r0 >= K) {  // stage 0 overflows this cell
               ++drops;
               continue;
             }
           }
-          srcs |= static_cast<uint64_t>(nb * 8 + k) << (8 * r0);
+          srcs.put(r0, nb, k);
           ++r0;
         }
       }
@@ -310,27 +387,36 @@ __global__ void __launch_bounds__(kThreads)
   for (int s = 0; s < K; ++s) {
     const int o = base + s * c;
     if (s < r0) {
-      const int src = static_cast<int>(srcs >> (8 * s)) & 0xff;
-      const int nb = src >> 3;
+      const int src = srcs.get(s);
+      const int nb = src >> Sources<K>::kSlotBits;
       const int a = nb / 9 - 1;
       const int b = (nb / 3) % 3 - 1;
       const int dc = nb % 3 - 1;
-      const int j = base + (a * K + (src & 7)) * c + b * x + dc;
+      const int j = base + (a * K + (src & (K - 1))) * c + b * x + dc;
       const float px = __ldg(in.px + j), py = __ldg(in.py + j);
       const float pz = __ldg(in.pz + j), vx = __ldg(in.vx + j);
       const float vy = __ldg(in.vy + j), vz = __ldg(in.vz + j);
+      const float rho = __ldg(in.rho + j), prs = __ldg(in.prs + j);
       out.px[o] = px;
       out.py[o] = py;
       out.pz[o] = pz;
       out.vx[o] = vx;
       out.vy[o] = vy;
       out.vz[o] = vz;
+      out.rho[o] = rho;
+      out.prs[o] = prs;
       out.occ[o] = 1.0f;
     } else {
       write_fill(out, o);
     }
   }
   if (drops) atomicAdd(dropped, drops);
+  // The demand peak: one atomicMax a converged group of lanes.
+  int peak = max(d0, max(d1, d2));
+  const unsigned lanes = __activemask();
+  peak = __reduce_max_sync(lanes, peak);
+  if ((threadIdx.x & 31) == __ffs(lanes) - 1 && peak > 0)
+    atomicMax(demand, peak);
 }
 
 int halo_bytes(int k, bool planes, int x) {
@@ -352,7 +438,8 @@ int launch_codes(const float* p0, const float* p1, const float* p2,
 
 template <int K, bool kPlanes>
 int launch_place(const Payload& in, const Planes& out, const void* codes,
-                 int* dropped, int n0, int c, int x, cudaStream_t s) {
+                 int* dropped, int* demand, int n0, int c, int x,
+                 cudaStream_t s) {
   const int smem = halo_bytes(K, kPlanes, x);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -362,16 +449,21 @@ int launch_place(const Payload& in, const Planes& out, const void* codes,
   }
   const dim3 grid((c + kThreads - 1) / kThreads, n0);
   rebin_place_kernel<K, kPlanes><<<grid, kThreads, smem, s>>>(
-      in, out, static_cast<const Word<K>*>(codes), dropped, n0, c, x);
+      in, out, static_cast<const Word<K>*>(codes), dropped, demand, n0, c,
+      x);
   return static_cast<int>(cudaGetLastError());
 }
 
-// Instantiates F<K, planes>(args...) for K ∈ {4, 8} and both flags.
-#define SPH_REBIN_DISPATCH(F, k, planes, ...)                   \
-  ((k) == 8 ? ((planes) ? F<8, true>(__VA_ARGS__)                \
-                        : F<8, false>(__VA_ARGS__))              \
-            : ((planes) ? F<4, true>(__VA_ARGS__)                \
-                        : F<4, false>(__VA_ARGS__)))
+// Instantiates F<K, planes>(args...) for K ∈ {4, 8, 16} and both flags.
+#define SPH_REBIN_DISPATCH(F, k, planes, ...)                     \
+  ((k) == 16 ? ((planes) ? F<16, true>(__VA_ARGS__)                \
+                         : F<16, false>(__VA_ARGS__))              \
+   : (k) == 8 ? ((planes) ? F<8, true>(__VA_ARGS__)                \
+                          : F<8, false>(__VA_ARGS__))              \
+              : ((planes) ? F<4, true>(__VA_ARGS__)                \
+                          : F<4, false>(__VA_ARGS__)))
+
+bool built_for(int k) { return k == 4 || k == 8 || k == 16; }
 
 Axis axis(float origin, int n) {
   const int lo = n - 1 < 1 ? n - 1 : 1;
@@ -385,7 +477,7 @@ Axis axis(float origin, int n) {
 // `stream` and returns a cudaError_t value (0 on success); nothing is
 // synchronised. Layout [n0, k, c] f32 with rows of x cells (c = n1·x);
 // `planes` says whether the plane stage runs (the spec's stencil0); k must
-// be 4 or 8.
+// be 4, 8 or 16.
 
 // Pass 1: p0, p1, p2 are the position fields of layout axes 0, 1, 2 (the
 // spec's axis_map) with their origins; `codes` receives n0·c words of k
@@ -397,7 +489,7 @@ extern "C" int sph_rebin_codes(const float* p0, const float* p1,
                                int k, int c, int x, int planes, float origin0,
                                float origin1, float origin2, float cell,
                                void* stream) {
-  if ((k != 4 && k != 8) || x < 1 || c % x != 0) {
+  if (!built_for(k) || x < 1 || c % x != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return SPH_REBIN_DISPATCH(launch_codes, k, planes, p0, p1, p2, occ, codes,
@@ -406,17 +498,22 @@ extern "C" int sph_rebin_codes(const float* p0, const float* p1,
                             static_cast<cudaStream_t>(stream));
 }
 
-// Pass 2: `in` holds 6 device pointers (px, py, pz, vx, vy, vz), `out` 7
-// (the same and occ), all fresh; `dropped` is pass 1's count, added to.
+// Pass 2: `in` holds 8 device pointers (px, py, pz, vx, vy, vz, rho, prs),
+// `out` 9 (the same and occ), all fresh; `rest` is the ρ an empty slot
+// gets; `dropped` is pass 1's count, added to; the int `demand` is raised
+// (atomicMax) to the most particles that sought one cell at any stage of
+// this rebin.
 extern "C" int sph_rebin_place(const float* const* in, float* const* out,
-                               const void* codes, int* dropped, int n0, int k,
-                               int c, int x, int planes, void* stream) {
-  if ((k != 4 && k != 8) || x < 1 || c % x != 0) {
+                               const void* codes, int* dropped, int* demand,
+                               int n0, int k, int c, int x, int planes,
+                               float rest, void* stream) {
+  if (!built_for(k) || x < 1 || c % x != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const Payload pin{in[0], in[1], in[2], in[3], in[4], in[5]};
-  const Planes pout{out[0], out[1], out[2], out[3], out[4], out[5], out[6]};
+  const Payload pin{in[0], in[1], in[2], in[3], in[4], in[5], in[6], in[7]};
+  const Planes pout{out[0], out[1], out[2], out[3], out[4],
+                    out[5], out[6], out[7], out[8], rest};
   return SPH_REBIN_DISPATCH(launch_place, k, planes, pin, pout, codes,
-                            dropped, n0, c, x,
+                            dropped, demand, n0, c, x,
                             static_cast<cudaStream_t>(stream));
 }

@@ -171,6 +171,19 @@ class FluidSimulation:
         m = mask.cpu().numpy()
         return tuple(a.cpu().numpy()[m] for a in (pos, vel, rho, prs))
 
+    def counters(self) -> dict:
+        """The step's device counters as 0-dim int32 tensors on the
+        simulation's device, returned without waiting for it: the state's
+        `dropped` (particles the rebin could not place) and `clamped`
+        (lanes the speed limit held), and `rebin_peak`, the most particles
+        that sought one cell at a rebin on this device since
+        `ops.reset_rebin_peak()` (`ops.rebin_peak`)."""
+        from sph_tpu_torch.ops import rebin_peak
+
+        return {"dropped": self.dstate.dropped,
+                "clamped": self.dstate.clamped,
+                "rebin_peak": rebin_peak(self.device)}
+
     def metrics(self) -> dict:
         pos, vel, rho, _ = self.particles()
         ke = float(

@@ -12,9 +12,33 @@ that no step launches, apart, so that a step's counts stay comparable."""
 LAUNCHES = {"density": 0, "accel": 0, "rebin": 0, "contact": 0,
             "expand": 0, "density_tail": 0, "integrate": 0, "bond_rows": 0}
 FLOOR_LAUNCHES = {"zero": 0, "pads": 0, "screen": 0}
+# Per device, a 0-dim int32 tensor there: the most particles that sought
+# one cell at any stage of a rebin since the last reset (K3 raises it with
+# an atomicMax, the plain rebin with torch.maximum). It stays on the
+# device, beside the state's `dropped` and `clamped`, and is not part of
+# the state, so checkpoints keep the JAX package's format.
+REBIN_PEAK = {}
 
 
 def reset_launches() -> None:
     for counts in (LAUNCHES, FLOOR_LAUNCHES):
         for name in counts:
             counts[name] = 0
+
+
+def rebin_peak(device):
+    """The rebin demand peak of `device` (made at 0 on first use)."""
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    if device not in REBIN_PEAK:
+        REBIN_PEAK[device] = torch.zeros((), dtype=torch.int32,
+                                         device=device)
+    return REBIN_PEAK[device]
+
+
+def reset_rebin_peak() -> None:
+    for peak in REBIN_PEAK.values():
+        peak.zero_()

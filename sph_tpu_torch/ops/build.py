@@ -45,9 +45,10 @@ _ARGTYPES = {
     # p0, p1, p2, occ, codes, dropped_in, dropped, n0, k, c, x, planes,
     # origin0..2, cell, stream
     "sph_rebin_codes": [_P] * 7 + [_I] * 5 + [_F] * 4 + [_P],
-    # in[6], out[7], codes, dropped, n0, k, c, x, planes, stream
-    "sph_rebin_place": [ctypes.POINTER(_P)] * 2 + [_P] * 2 + [_I] * 5
-    + [_P],
+    # in[8], out[9], codes, dropped, demand, n0, k, c, x, planes, rest,
+    # stream
+    "sph_rebin_place": [ctypes.POINTER(_P)] * 2 + [_P] * 3 + [_I] * 5
+    + [_F, _P],
     # fields[10], occ, outs[6], cursor, Z, Y, L, K, band_rows,
     # smem_bytes, eps, slip_eps, repulsion, torque_factor, mult, device,
     # stream

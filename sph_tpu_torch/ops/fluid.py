@@ -36,8 +36,14 @@ MAX_BAND_ROWS = 8
 THREADS = 512                   # kThreads in csrc/fluid_sweep.cu
 PAD = 4                         # kPad: floats staged past each band end
 LOADS = 4                       # kLoads: occupancy loads per thread
-SLOT_COUNTS = (4, 8)            # the K the kernels are built for
+SLOT_COUNTS = (4, 8, 16)        # the K the kernels are built for
 R2_CUT_MARGIN = 2.0 ** -16      # K2's r² pre-screen margin over h²
+
+
+def blocks_per_sm(k: int) -> int:
+    """kMinBlocks in csrc/fluid_sweep.cu: the resident sweep blocks an SM
+    the build is made for (two up to K = 8, one at K = 16)."""
+    return 1 if k > 8 else 2
 
 
 def partners(spec: dense.DenseSpec) -> int:
@@ -72,10 +78,10 @@ def _plan(spec: dense.DenseSpec, rows: int) -> BandPlan:
 
 @functools.lru_cache(maxsize=None)
 def band_plan(spec: dense.DenseSpec) -> BandPlan:
-    """The most rows per band (up to MAX_BAND_ROWS) that keep two sweep
-    blocks resident on an SM; one row if even that needs more; raises when
-    one row does not fit in a block's shared memory, or the kernels are
-    not built for the spec."""
+    """The most rows per band (up to MAX_BAND_ROWS) that keep the build's
+    sweep blocks resident on an SM (two up to K = 8, one at K = 16); one
+    row if even that needs more; raises when one row does not fit in a
+    block's shared memory, or the kernels are not built for the spec."""
     if spec.k not in SLOT_COUNTS or not spec.stencil1:
         raise ValueError(f"the sweep kernels are built for K in "
                          f"{SLOT_COUNTS} with a row stencil, not K={spec.k}"
@@ -84,7 +90,8 @@ def band_plan(spec: dense.DenseSpec) -> BandPlan:
         raise ValueError(f"row length {spec.X} is not a multiple of {PAD}: "
                          f"the staging copies need 16-byte runs")
     plans = [_plan(spec, r) for r in range(1, min(MAX_BAND_ROWS, spec.n1) + 1)]
-    fits = [p for p in plans if p.smem_bytes <= SMEM_TARGET]
+    target = SMEM_TARGET if blocks_per_sm(spec.k) == 2 else SMEM_LIMIT
+    fits = [p for p in plans if p.smem_bytes <= target]
     plan = fits[-1] if fits else plans[0]
     if plan.smem_bytes > SMEM_LIMIT:
         raise ValueError(

@@ -4,9 +4,10 @@ launches and the sentinel cleanup after them.
 
 A CPU tensor goes to the plain `sph_tpu_torch.sph.dense.rebin`; any other
 tensor launches the kernel's two passes (move codes, then placement) or
-raises. Bitwise equal to the plain version given identical inputs (±0
-aside: the plain version's masked sums give +0 where the kernel copies
-−0), `dropped` included.
+raises. Each particle's ρ and p move with it. Bitwise equal to the plain
+version given identical inputs (±0 aside: the plain version's masked sums
+give +0 where the kernel copies −0), `dropped` included; both raise the device's demand peak
+(`ops.rebin_peak`) to the same value.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ import ctypes
 
 import torch
 
-from sph_tpu_torch.ops import LAUNCHES
+from sph_tpu_torch.ops import LAUNCHES, rebin_peak
 from sph_tpu_torch.ops.build import (
     check_launch,
     check_operands,
@@ -25,8 +26,8 @@ from sph_tpu_torch.ops.build import (
 from sph_tpu_torch.ops.fluid import SMEM_LIMIT
 from sph_tpu_torch.sph import dense
 
-NF = 7  # payload: px, py, pz, vx, vy, vz, occ
-KS = (4, 8)         # the slot counts the kernel is built for
+NF = 9  # out: px, py, pz, vx, vy, vz, rho, prs, occ
+KS = (4, 8, 16)     # the slot counts the kernel is built for
 THREADS = 256       # fused cells per placement block (csrc/rebin.cu)
 
 
@@ -57,7 +58,7 @@ def staged_rebin(d, px, py, pz, vx, vy, vz, params, spec):
         return dense.rebin(d, px, py, pz, vx, vy, vz, params, spec)
     check_spec(spec)
     dev = px.device
-    fields = [px, py, pz, vx, vy, vz, d.occ]
+    fields = [px, py, pz, vx, vy, vz, d.rho, d.prs, d.occ]
     check_operands("rebin", fields, (spec.n0, spec.k, spec.C), dev)
     if (d.dropped.device != dev or d.dropped.dtype != torch.int32
             or d.dropped.numel() != 1):
@@ -80,12 +81,13 @@ def staged_rebin(d, px, py, pz, vx, vy, vz, params, spec):
         check_launch("rebin codes", rc)
         LAUNCHES["rebin"] += 1
         rc = lib.sph_rebin_place(
-            (ctypes.c_void_p * 6)(*(f.data_ptr() for f in fields[:6])),
+            (ctypes.c_void_p * 8)(*(f.data_ptr() for f in fields[:8])),
             (ctypes.c_void_p * NF)(*(o.data_ptr() for o in outs)),
-            codes.data_ptr(), dropped.data_ptr(), spec.n0, spec.k, spec.C,
-            spec.X, planes, stream)
+            codes.data_ptr(), dropped.data_ptr(), rebin_peak(dev).data_ptr(),
+            spec.n0, spec.k, spec.C, spec.X, planes,
+            float(params.rest_density), stream)
         check_launch("rebin placement", rc)
         LAUNCHES["rebin"] += 1
-    pxn, pyn, pzn, vxn, vyn, vzn, occn = outs
+    pxn, pyn, pzn, vxn, vyn, vzn, rhon, prsn, occn = outs
     return d.replace_fields(px=pxn, py=pyn, pz=pzn, vx=vxn, vy=vyn, vz=vzn,
-                            occ=occn, dropped=dropped)
+                            rho=rhon, prs=prsn, occ=occn, dropped=dropped)

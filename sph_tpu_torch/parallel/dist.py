@@ -396,15 +396,17 @@ def _local_step(d: DenseFluidState, params: SPHParams, spec: DenseSpec,
     drops = torch.zeros_like(d.dropped)
     if rebin_now:
         # Rebin the padded block: emigrants into halo planes land in the
-        # neighbour's interior through its copy of this block's edge.
-        pad = slab.pad(dict(**moved, occ=d.occ))
-        out = dense.rebin(d.replace_fields(occ=pad["occ"]),
+        # neighbour's interior through its copy of this block's edge, with
+        # their owner's ρ and p.
+        pad = slab.pad(dict(**moved, occ=d.occ, rho=d.rho, prs=d.prs))
+        out = dense.rebin(d.replace_fields(occ=pad["occ"], rho=pad["rho"],
+                                           prs=pad["prs"]),
                           *(pad[f] for f in MOVED), params, spec,
                           dim0_offset=slab.dim0_offset,
                           dim1_offset=slab.dim1_offset)
         drops = out.dropped - d.dropped
         d = d.replace_fields(**{f: slab.interior(getattr(out, f))
-                                for f in (*MOVED, "occ")})
+                                for f in (*MOVED, "occ", "rho", "prs")})
     else:
         d = d.replace_fields(**moved)
     # Alarm counters, summed over the mesh: clamps are counted on the

@@ -34,6 +34,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from sph_tpu_torch.ops import rebin_peak
 from sph_tpu_torch.ops.grid import cell_index
 from sph_tpu_torch.sph import kernels as KN
 from sph_tpu_torch.sph.model import (
@@ -42,6 +43,7 @@ from sph_tpu_torch.sph.model import (
     eos_pressure,
     obstacle_accel,
 )
+from sph_tpu_torch.utils.profiling import span
 
 SENTINEL = 1.0e9
 
@@ -512,7 +514,8 @@ def _compact_stage(fields, occ, own_coord, target_fn, axis_roll,
     coordinate along the axis equals the cell's. Compacts the ≤3K wanting
     candidates into K slots (deterministic shift-major order).
 
-    fields: [Z, K, C, F]; returns (fields, occ, dropped)."""
+    fields: [Z, K, C, F]; returns (fields, occ, dropped, demand), demand
+    the most candidates that wanted one cell."""
     K = occ.shape[1]
 
     cand_blocks, want_blocks = [], []
@@ -526,6 +529,7 @@ def _compact_stage(fields, occ, own_coord, target_fn, axis_roll,
     wants = torch.cat(want_blocks, dim=1)     # [Z, 3K, C]
 
     rank = torch.cumsum(wants.to(torch.int32), dim=1) - 1
+    demand = rank[:, -1].max() + 1
     keep = wants & (rank < K)
     dropped = torch.sum(wants & ~keep)
     # A particle whose target is > 1 cell away along this axis is claimed by
@@ -544,7 +548,8 @@ def _compact_stage(fields, occ, own_coord, target_fn, axis_roll,
         mk = keep & (rank == k)                       # [Z, 3K, C]
         outs.append(torch.sum(torch.where(mk[..., None], cand, 0.0), dim=1))
         occ_outs.append(torch.sum(mk.to(torch.float32), dim=1))
-    return torch.stack(outs, dim=1), torch.stack(occ_outs, dim=1), dropped
+    return (torch.stack(outs, dim=1), torch.stack(occ_outs, dim=1), dropped,
+            demand)
 
 
 def bin_coord(p, origin_w: float, cell: float, n_cells: int):
@@ -581,7 +586,11 @@ def rebin(d: DenseFluidState, px, py, pz, vx, vy, vz, params: SPHParams,
     """Move particles to their new home cells, one axis at a time — the
     plain version of kernel K3 (ops.rebin.staged_rebin). Per-rebin drift is
     ≤ 1 cell (the vmax clamp), so each axis stage is a ≤3K→K masked
-    compaction. Overflow is counted, never silent.
+    compaction. Each particle's ρ and p (`d.rho`, `d.prs`, this step's)
+    move with it, so the state's ρ stays the particles' after a rebin.
+    Overflow is counted, never silent, and the most particles
+    that sought one cell at any stage raise the device's demand peak
+    (`ops.rebin_peak`), as K3 does.
 
     The cell coordinates compared with the targets are global: a sharded
     step rebins a halo-padded slab whose plane 0 is global plane
@@ -602,7 +611,7 @@ def rebin(d: DenseFluidState, px, py, pz, vx, vy, vz, params: SPHParams,
 
         return fn
 
-    fields = torch.stack([px, py, pz, vx, vy, vz], dim=-1)
+    fields = torch.stack([px, py, pz, vx, vy, vz, d.rho, d.prs], dim=-1)
     occ = d.occ
     iota_c = torch.arange(C, dtype=torch.int32, device=dev).reshape(1, 1, C)
     own = {
@@ -622,20 +631,25 @@ def rebin(d: DenseFluidState, px, py, pz, vx, vy, vz, params: SPHParams,
 
     rolls = {2: roll_c(1), 1: roll_c(X), 0: roll_planes}
     dropped = torch.zeros((), dtype=torch.int64, device=dev)
+    peak = rebin_peak(dev)
     for stage in rebin_stages(spec):
-        fields, occ, drp = _compact_stage(
+        fields, occ, drp, demand = _compact_stage(
             fields, occ, own[stage], coord_fn(spec.axis_map[stage]),
             rolls[stage], spec,
         )
         dropped = dropped + drp
-    return finish_rebin(d, list(fields.unbind(-1)) + [occ], dropped)
+        peak.copy_(torch.maximum(peak, demand.to(torch.int32)))
+    return finish_rebin(d, list(fields.unbind(-1)) + [occ], dropped,
+                        params.rest_density)
 
 
-def finish_rebin(d: DenseFluidState, fields, dropped) -> DenseFluidState:
+def finish_rebin(d: DenseFluidState, fields, dropped,
+                 rest_density: float) -> DenseFluidState:
     """Sentinel cleanup after the last stage: empty slots get sentinel
-    positions, zero velocities and occ 0; `dropped` is added to the
-    state's counter. fields: [px, py, pz, vx, vy, vz, occ]."""
-    pxn, pyn, pzn, vxn, vyn, vzn, occn = fields
+    positions, zero velocities and pressure, ρ0 and occ 0, as the density
+    pass leaves empty lanes; `dropped` is added to the state's counter.
+    fields: [px, py, pz, vx, vy, vz, rho, prs, occ]."""
+    pxn, pyn, pzn, vxn, vyn, vzn, rhon, prsn, occn = fields
     empty = occn < 0.5
     return d.replace_fields(
         px=torch.where(empty, SENTINEL, pxn),
@@ -644,6 +658,8 @@ def finish_rebin(d: DenseFluidState, fields, dropped) -> DenseFluidState:
         vx=torch.where(empty, 0.0, vxn),
         vy=torch.where(empty, 0.0, vyn),
         vz=torch.where(empty, 0.0, vzn),
+        rho=torch.where(empty, rest_density, rhon),
+        prs=torch.where(empty, 0.0, prsn),
         occ=torch.where(empty, 0.0, 1.0),
         dropped=d.dropped + dropped.to(torch.int32),
     )
@@ -685,26 +701,34 @@ def dense_step(d: DenseFluidState, params: SPHParams, spec: DenseSpec,
                drag=None, rebin_now: bool | None = None) -> DenseFluidState:
     """One WCSPH step on the dense layout: density → EOS → forces →
     integrate (incl. optional interactive drag) → rebin when `rebin_now`.
+    The step runs in a `sph.step` span and each phase in a `sph.fluid.`
+    span (utils.profiling.span).
 
     rebin_now: the host's cadence decision (`is_rebin_step` of the step
     index); None reads `d.step_count`, which waits for the device."""
     if rebin_now is None:
         rebin_now = is_rebin_step(int(d.step_count), params)
     f = step_passes(params)
-    rho, prs, pr2 = f.tail(f.density(d.px, d.py, d.pz, d.occ, params, spec),
-                           d.occ, params)
-    d = d.replace_fields(rho=rho, prs=prs)
-    ax, ay, az = f.accel(d, pr2, params, spec)
-    px, py, pz, vx, vy, vz, n_clamped = f.integrate(
-        d, ax, ay, az, params, rebin_vmax(params, spec), drag=drag
-    )
-    if rebin_now:
-        d = f.rebin(d, px, py, pz, vx, vy, vz, params, spec)
-    else:
-        d = d.replace_fields(px=px, py=py, pz=pz, vx=vx, vy=vy, vz=vz)
-    return d.replace_fields(
-        step_count=d.step_count + 1, clamped=d.clamped + n_clamped
-    )
+    with span("sph.step"):
+        with span("sph.fluid.density"):
+            rho, prs, pr2 = f.tail(
+                f.density(d.px, d.py, d.pz, d.occ, params, spec), d.occ,
+                params)
+        d = d.replace_fields(rho=rho, prs=prs)
+        with span("sph.fluid.accel"):
+            ax, ay, az = f.accel(d, pr2, params, spec)
+        with span("sph.fluid.integrate"):
+            px, py, pz, vx, vy, vz, n_clamped = f.integrate(
+                d, ax, ay, az, params, rebin_vmax(params, spec), drag=drag
+            )
+        if rebin_now:
+            with span("sph.fluid.rebin"):
+                d = f.rebin(d, px, py, pz, vx, vy, vz, params, spec)
+        else:
+            d = d.replace_fields(px=px, py=py, pz=pz, vx=vx, vy=vy, vz=vz)
+        return d.replace_fields(
+            step_count=d.step_count + 1, clamped=d.clamped + n_clamped
+        )
 
 
 def _check_rebin_cadence(params: SPHParams, spec: DenseSpec):

@@ -84,10 +84,19 @@ def dam_break_3d(n_target: int = 262144, obstacles=(), **overrides):
     return _state(pts, params), params
 
 
+# Config[3]'s dense layout: 16 slots a cell of 1.3 h, a rebin every 5
+# steps, the fastest layout measured whose rebin never sought more than 14
+# slots of a cell over whole 3,000-step episodes; at 8 slots, cell 1.38 h
+# and a rebin every 6 steps the rebin dropped ~9% of the column (PERF.md
+# §4).
+CONFIG3_LAYOUT = dict(dense_k=16, cell_factor=1.3, rebin_every=5)
+
+
 def dam_break_3d_obstacle(n_target: int = 1_000_000, **overrides):
-    """Config[3]: 1M-particle dam break hitting a cylindrical pillar."""
+    """Config[3]: 1M-particle dam break hitting a cylindrical pillar, at
+    CONFIG3_LAYOUT unless `overrides` name other layout keys."""
     return dam_break_3d(
         n_target,
         obstacles=(("cylinder_z", (1.2, 0.15), 0.12),),
-        **overrides,
+        **{**CONFIG3_LAYOUT, **overrides},
     )

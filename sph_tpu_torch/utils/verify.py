@@ -56,7 +56,7 @@ from sph_tpu_torch.sph.model import eos_pressure
 RTOL = 1e-5
 ATOL_REL = 1e-6
 
-REBIN_FIELDS = ("occ", "px", "py", "pz", "vx", "vy", "vz")
+REBIN_FIELDS = ("occ", "px", "py", "pz", "vx", "vy", "vz", "rho", "prs")
 
 
 def _close_on_occupied(name: str, plain, kern, occ) -> dict:
@@ -476,8 +476,8 @@ def rebin_walk(d, px, py, pz, vx, vy, vz, params, spec):
     (planes a, rows b, in-row c, by fused index, empty outside the array),
     then each source slot, with the three counters r2 / r1 / r0 and the
     drop owners the kernel's note sets out, and takes the payload of each
-    placed slot by copy. A drop-in for `dense.rebin`; never on the main
-    path."""
+    placed slot (position, velocity, ρ, p) by copy. A drop-in for
+    `dense.rebin`; never on the main path."""
     Z, K, C = px.shape
     X = spec.X
     dev = px.device
@@ -535,7 +535,9 @@ def rebin_walk(d, px, py, pz, vx, vy, vz, params, spec):
     return d.replace_fields(
         px=gather(px, dense.SENTINEL), py=gather(py, dense.SENTINEL),
         pz=gather(pz, dense.SENTINEL), vx=gather(vx, 0.0),
-        vy=gather(vy, 0.0), vz=gather(vz, 0.0), occ=placed.to(torch.float32),
+        vy=gather(vy, 0.0), vz=gather(vz, 0.0),
+        rho=gather(d.rho, params.rest_density), prs=gather(d.prs, 0.0),
+        occ=placed.to(torch.float32),
         dropped=d.dropped + drops.to(torch.int32))
 
 

@@ -41,7 +41,13 @@ from sph_tpu_torch.core.types import state_to_numpy
 from sph_tpu_torch.engine.colony import bonded_colony
 from sph_tpu_torch.engine.fluid import FluidSimulation
 from sph_tpu_torch.engine.simulation import Simulation
-from sph_tpu_torch.ops import FLOOR_LAUNCHES, LAUNCHES, reset_launches
+from sph_tpu_torch.ops import (
+    FLOOR_LAUNCHES,
+    LAUNCHES,
+    rebin_peak,
+    reset_launches,
+    reset_rebin_peak,
+)
 from sph_tpu_torch.ops import contact as oc
 from sph_tpu_torch.ops.adhesion import bond_rows
 from sph_tpu_torch.ops import contact_floor as cf
@@ -134,6 +140,53 @@ def test_kernels_match_plain(cuda, case):
         assert r[name]["bitwise"] and r[name]["empty_zero"], r[name]
         assert r[name]["max_abs_err"] == 0.0
     assert sweeps_exact(d, accel_inputs(d, p, spec), p, spec) == 0
+
+
+# config[3] at 16 slots a cell: the bench's cell and cadence (1.38 h, a
+# rebin every 6 steps) and the port's config[3] layout (1.3 h, every 5
+# steps), which the benchmark cell runs.
+CONFIG3_K16 = {"1.38": ((1.38, 6), (145, 16, 7680, 80)),
+               "1.3": ((1.3, 5), (154, 16, 7680, 80))}
+
+
+@pytest.fixture(scope="module", params=sorted(CONFIG3_K16))
+def config3_k16(request):
+    """config[3] stepped 12 steps on the card at K = 16 and a layout of
+    CONFIG3_K16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    (cf, every), shape = CONFIG3_K16[request.param]
+    sim = FluidSimulation.from_scene(
+        "dam_break_3d_obstacle", n_target=1_000_000, substeps=6,
+        device=torch.device("cuda", 0), dense_k=16, cell_factor=cf,
+        rebin_every=every)
+    sim.run(12)
+    assert int(sim.dstate.dropped) == 0
+    spec = sim.spec
+    assert (spec.n0, spec.k, spec.C, spec.X) == shape
+    return sim.dstate, sim.params, spec
+
+
+def test_fluid_kernels_bitwise_at_k16_config3(config3_k16):
+    """K1 and K2 bitwise on occupied slots and +0 on empty ones, K3 bitwise
+    with equal `dropped` > 0 (under the crowding nudge) and equal demand
+    peaks, at config[3]'s shapes with 16 slots a cell."""
+    d, p, spec = config3_k16
+    r = check_fluid_twins(d, p, spec, seed=3)
+    assert r["rebin"]["dropped"] > 0
+    for name in ("density", "accel"):
+        assert r[name]["bitwise"] and r[name]["empty_zero"], r[name]
+        assert r[name]["max_abs_err"] == 0.0
+    assert sweeps_exact(d, accel_inputs(d, p, spec), p, spec) == 0
+    assert rebin_equal(d, p, spec) == (0, 0)
+
+
+def test_tail_kernels_bitwise_at_k16_config3(config3_k16):
+    """F2 and F1 bitwise on every slot of [145, 16, 7680], with the clamp
+    and the walls firing, with and without the drag."""
+    d, p, spec = config3_k16
+    assert tail_exact(d, p, spec) > 0
+    assert tail_exact(d, p, spec, drag=a_drag(d, d.px.device), seed=1) > 0
 
 
 # Where a cell's slots run out (or are added): positions at the sentinel,
@@ -415,16 +468,30 @@ def layout_state(lay, cuda):
 
 
 def rebin_equal(d, p, spec):
-    """K3 against dense.rebin on d's own fields: equal values on all 7
-    fields (−0 == +0); returns (plain dropped, kernel dropped)."""
+    """K3 against dense.rebin on d's own positions and velocities, each
+    occupied slot's ρ and p tagged by its index: equal values on all 9
+    fields (−0 == +0) and equal demand peaks; returns (plain dropped,
+    kernel dropped)."""
+    tag = torch.arange(d.px.numel(), device=d.px.device).view(d.px.shape)
+    occ = d.occ > 0.5
+    d = d.replace_fields(
+        rho=torch.where(occ, 900.0 + (tag % 4099).float() * 0.125,
+                        p.rest_density),
+        prs=torch.where(occ, (tag % 8191).float() * 3.0, 0.0))
     args = (d.px, d.py, d.pz, d.vx, d.vy, d.vz, p, spec)
-    a, b = dense.rebin(d, *args), staged_rebin(d, *args)
-    for f in ("px", "py", "pz", "vx", "vy", "vz", "occ"):
+    reset_rebin_peak()
+    a = dense.rebin(d, *args)
+    peak_a = int(rebin_peak(d.px.device))
+    reset_rebin_peak()
+    b = staged_rebin(d, *args)
+    assert int(rebin_peak(d.px.device)) == peak_a > 0
+    for f in ("px", "py", "pz", "vx", "vy", "vz", "rho", "prs", "occ"):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
     return int(a.dropped), int(b.dropped)
 
 
-@pytest.mark.parametrize("name", ["3d8", "3d4", "2d4", "2d8"])
+@pytest.mark.parametrize("name", ["3d8", "3d4", "2d4", "2d8", "3d16",
+                                  "2d16"])
 def test_rebin_kernel_on_far_moves_and_intermediate_overflow(cuda, name):
     """K3 at each K and stage set it is built for, on random layouts with
     moves of up to two cells (far codes, crowded cells, slots left empty
@@ -442,8 +509,29 @@ def test_rebin_kernel_on_far_moves_and_intermediate_overflow(cuda, name):
 def test_rebin_kernel_on_an_empty_layout(cuda):
     """No particle at all: every block skips its walk and writes the fill."""
     p, spec = small_spec("3d8")
-    assert rebin_equal(layout_state(empty_layout(spec), cuda), p,
-                       spec) == (0, 0)
+    d = layout_state(empty_layout(spec), cuda)
+    args = (d.px, d.py, d.pz, d.vx, d.vy, d.vz, p, spec)
+    reset_rebin_peak()
+    a, b = dense.rebin(d, *args), staged_rebin(d, *args)
+    for f in ("px", "py", "pz", "vx", "vy", "vz", "occ"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert int(a.dropped) == int(b.dropped) == 0
+    assert int(rebin_peak(cuda)) == 0
+
+
+@pytest.mark.parametrize("name", ["3d8", "3d16"])
+def test_rebin_kernel_demand_peak_on_a_planted_overfull_cell(cuda, name):
+    """K + 3 particles of the plane below bound for one cell: the kernel's
+    peak reads K + 3 and `dropped` 3, as the plain rebin's."""
+    p, spec = small_spec(name)
+    lay = empty_layout(spec)
+    rng = np.random.default_rng(1)
+    z, r, x = spec.n0 // 2, spec.n1 // 2, spec.n2 // 2
+    for i in range(spec.k + 3):
+        src = (z - 1, r, x) if i < spec.k else (z, r + 1, x)
+        place_particle(lay, spec, i % spec.k, src, (z, r, x), rng)
+    assert rebin_equal(layout_state(lay, cuda), p, spec) == (3, 3)
+    assert int(rebin_peak(cuda)) == spec.k + 3
 
 
 def test_rebin_kernel_keeps_nan_and_inf_positions(cuda):
@@ -964,7 +1052,7 @@ def test_app_launches_the_kernels(cuda, tmp_path, capsys):
     assert rc == 0
     assert LAUNCHES["density"] == 12 and LAUNCHES["accel"] == 12
     assert LAUNCHES["density_tail"] == LAUNCHES["integrate"] == 12
-    assert LAUNCHES["rebin"] == 4
+    assert LAUNCHES["rebin"] == 4        # config[3]: a rebin every 5 steps
     lines = [l for l in capsys.readouterr().out.splitlines()
              if l.startswith("{")]
     assert len(lines) == 2 and '"dropped": 0' in lines[-1]

@@ -580,16 +580,32 @@ def test_rebin_offsets_match_jax_on_a_padded_slab(cases):
     args = [moved["px"], moved["py"], moved["pz"], t.vx.numpy(),
             t.vy.numpy(), t.vz.numpy()]
     occ = t.occ.numpy()
+    # Each slot's ρ and p tagged by its index, so a misplaced one shows.
+    tag = np.arange(occ.size, dtype=np.float32).reshape(occ.shape)
+    rho = np.where(occ > 0.5, 900.0 + tag % 4099 * 0.125,
+                   c.tp.rest_density).astype(np.float32)
+    prs = np.where(occ > 0.5, tag % 8191 * 3.0, 0.0).astype(np.float32)
     jd = j.replace_fields(occ=jnp.asarray(block(occ)))
     jo = jdense.rebin(jd, *(jnp.asarray(block(a)) for a in args), c.jp,
                       c.jspec, dim0_offset=3, dim1_offset=r0)
-    td = dataclasses.replace(t, occ=torch.from_numpy(block(occ)))
+    td = dataclasses.replace(t, occ=torch.from_numpy(block(occ)),
+                             rho=torch.from_numpy(block(rho)),
+                             prs=torch.from_numpy(block(prs)))
     to = tdense.rebin(td, *(torch.from_numpy(block(a)) for a in args), c.tp,
                       c.tspec, dim0_offset=3, dim1_offset=r0)
     for f in ("px", "py", "pz", "vx", "vy", "vz", "occ"):
         np.testing.assert_array_equal(getattr(to, f).numpy(),
                                       np.asarray(getattr(jo, f)), err_msg=f)
     assert int(to.dropped) == int(jo.dropped)
+    # ρ and p move with their particles: where JAX's rebin, which leaves
+    # them in place, moves velocity planes that carry them.
+    jc = jdense.rebin(jd, *(jnp.asarray(block(a))
+                            for a in args[:3] + [rho, prs, args[5]]),
+                      c.jp, c.jspec, dim0_offset=3, dim1_offset=r0)
+    np.testing.assert_array_equal(
+        to.rho.numpy(), np.where(np.asarray(jc.occ) > 0.5,
+                                 np.asarray(jc.vx), c.tp.rest_density))
+    np.testing.assert_array_equal(to.prs.numpy(), np.asarray(jc.vy))
     # Some particle left the block's interior, or the offsets were moot.
     assert not np.array_equal(to.occ.numpy(), block(occ))
     # Offsets 0 on the whole layout: bitwise the default call.

@@ -191,7 +191,8 @@ def test_step_goes_through_the_tail_wrappers_on_cpu():
     plain route here) and equals the step without it bitwise."""
     from sph_tpu_torch.sph.scenes import dam_break_3d_obstacle
 
-    st, p = dam_break_3d_obstacle(n_target=2000, cell_factor=1.38)
+    st, p = dam_break_3d_obstacle(n_target=2000, cell_factor=1.38,
+                                  dense_k=8, rebin_every=6)
     spec = tdense.make_dense_spec(p, k=p.dense_k, cell_factor=p.cell_factor)
     d = tdense.pack(st, p, spec, device="cpu")
     drag = tmodel.FluidDrag.at((0.6, 0.3, 0.3), (0.7, 0.5, 0.3), 0.2,

@@ -29,7 +29,8 @@ def small_state(scene, kw):
 
 
 CASES = {
-    "3d": (dam_break_3d_obstacle, dict(n_target=3000, cell_factor=1.38)),
+    "3d": (dam_break_3d_obstacle, dict(n_target=3000, cell_factor=1.38,
+                                       dense_k=8, rebin_every=6)),
     "2d": (dam_break_2d, dict(n_target=300, dense_k=4, cell_factor=1.2,
                               rebin_every=3)),
 }

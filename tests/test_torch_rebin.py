@@ -35,7 +35,8 @@ torch.set_num_threads(1)
 FIELDS = ("px", "py", "pz", "vx", "vy", "vz", "occ")
 
 SCENES = {
-    "3d": (dam_break_3d_obstacle, dict(n_target=3000, cell_factor=1.38)),
+    "3d": (dam_break_3d_obstacle, dict(n_target=3000, cell_factor=1.38,
+                                       dense_k=8, rebin_every=6)),
     "2d": (dam_break_2d, dict(n_target=300, dense_k=4, cell_factor=1.2,
                               rebin_every=3)),
 }

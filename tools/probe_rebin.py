@@ -2,7 +2,7 @@
 config[3] (chip_smoke.py's CONFIG3) stepped 30 steps through
 FluidSimulation, then one rebin through `ops.rebin.staged_rebin` on the
 state's integrated fields (the main path's input) and on the crowding
-nudge, each checked against the plain `dense.rebin` (equal values on all 7
+nudge, each checked against the plain `dense.rebin` (equal values on all 9
 fields, −0 == +0, equal `dropped`), timed with CUDA events and split by
 launch under torch.profiler.
 
@@ -82,7 +82,8 @@ def main() -> int:
 
         a, b = plain(), run()
         same = all(torch.equal(getattr(a, f), getattr(b, f))
-                   for f in ("px", "py", "pz", "vx", "vy", "vz", "occ"))
+                   for f in ("px", "py", "pz", "vx", "vy", "vz", "rho",
+                             "prs", "occ"))
         drop = (int(a.dropped - d.dropped), int(b.dropped - d.dropped))
         t = [cuda_ms(run, args.reps) for _ in range(2)]
         torch.cuda.synchronize()
