@@ -44,13 +44,17 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
                centre (contacts must occur), with its band plan and listed
                bands; the pack's placement (K5) bitwise at 1M, at the
                expand probe's scene (n=400, k=4, spawn 10) and at a crowded
-               scene whose cells overflow, with dead rows.
+               scene whose cells overflow, with dead rows; A1 bitwise on
+               the settled colony and with bond edge cases; A2 bitwise
+               (NaN payloads too) on A1's rows of both through the
+               colony's plan and with a hybrid zero_bond mask.
 7. colony main — 40 steps of the 1M colony through
                Simulation(scan_chunk=20).step, two chunks through
                run_steps with the adhesion BondPlan carried (1,818,624 bond
                rows, past use_bond_plan's threshold), counters reset just
-               before: 40 contact and 40 expand launches, the plan built
-               once and the quiet planned branch taken on all 40 steps,
+               before: 40 contact, 40 expand, 40 A1 and 40 A2 launches,
+               the plan built once and the quiet planned branch taken on
+               all 40 steps,
                count conserved, overflow 0, bonds not grown, positions
                finite; then the same 40 steps with adhesion_plan "off",
                held to the planned run after each chunk: bond table and
@@ -64,17 +68,19 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
 9. colony phases — where the time of a 1M step goes (CUDA events per
                phase), the host synchronisations of one step, and the
                device's busy share under torch.profiler; then the planned
-               adhesion: the plan build, the planned accumulate, a quiet
-               and a hybrid one (500 changed bonds, held to the plain sum),
+               adhesion: the plan build, the planned accumulate through A2
+               and eager, a quiet and a hybrid one (500 changed bonds, held
+               to the plain sum),
                a planned and a plain step by host clock, the host reads of
                a quiet planned step, and the peak memory of each step and
                each accumulate.
-9b. bond plan — the plan and the planned sums of a 4,096-cell colony
-               built on the card, bitwise those built on the CPU; then
+9b. bond plan — the plan and the planned sums (eager and through A2) of
+               a 4,096-cell colony built on the card, bitwise those built
+               on the CPU; then
                tools/probe_bondplan.py's crossover sweep (10,000 to
                320,000 cells): ms a step plain and planned (host clock),
-               and ms of each accumulate alone (CUDA events), with each
-               bond capacity.
+               and ms of each accumulate alone (CUDA events; the planned
+               one eager and through A2), with each bond capacity.
 10. grid     — the sort+gather grid path, which launches no kernel (the
                launch counters stay 0 across it): config[0]
                (dam_break_2d, 4,096 particles) through make_sph_step, 2 ×
@@ -119,7 +125,9 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
                also on the compressed copy, K5 also at the probe's
                scene (K6), with K5's and K6's host enqueue ms a call;
                K4 and K5 (1M and the probe's scene) must launch one
-               device kernel a call (torch.profiler's count).
+               device kernel a call (torch.profiler's count); A2 at 1M
+               with its device time by kernel (two launches a call) and
+               its bound by 32-byte sectors beside the one by bytes.
 14. kernel floor — K4 run one stage at a time (ops/contact_floor.py: the
                stubs of tools/probe_kernel_floor.py as stage modes of
                csrc/contact_sweep.cu) at the 1M colony after its main run
@@ -235,6 +243,10 @@ KERNELS = {
     # package: bond_spring_params and bond_pair_deltas.
     "bond_rows": ("sph_tpu_torch/csrc/adhesion.cu",
                   "sph_tpu/physics/adhesion.py:50"),
+    # A2, the planned accumulate, which XLA fuses in the JAX package: the
+    # row gather, _blocked_segscan and the run-total gather.
+    "bond_scan": ("sph_tpu_torch/csrc/adhesion.cu",
+                  "sph_tpu/physics/adhesion.py:273"),
     # K4's floor modes: the stubs tools/probe_kernel_floor.py swaps into
     # the Pallas contact sweep.
     "floor_zero": ("sph_tpu_torch/csrc/contact_sweep.cu",
@@ -584,7 +596,7 @@ def main() -> int:
     want = {"density": MAIN_STEPS, "accel": MAIN_STEPS,
             "rebin": 2 * rebins, "contact": 0, "expand": 0,
             "density_tail": MAIN_STEPS, "integrate": MAIN_STEPS,
-            "bond_rows": 0}
+            "bond_rows": 0, "bond_scan": 0}
     if launches != want:
         raise AssertionError(f"launches {launches} != {want}")
     say("main", f"config[3] {MAIN_STEPS} steps ({rebins} rebins): "
@@ -817,14 +829,19 @@ def fluid_phases(sim, card) -> None:
 
 def colony_kernels(dev, card) -> dict:
     """Phase 5: build the 1M colony, hold K4 and K5 to their plain
-    versions on it (settled and compressed), K5 at the probe scene, and
-    A1 (settled, and with utils.verify.bond_edge_cases)."""
+    versions on it (settled and compressed), K5 at the probe scene, A1
+    (settled, and with utils.verify.bond_edge_cases), and A2 on A1's rows
+    of both through the colony's plan, and with the hybrid's zero_bond
+    mask of 500 drifted bonds."""
     from sph_tpu_torch.engine.colony import bonded_colony
+    from sph_tpu_torch.ops import adhesion as oa
+    from sph_tpu_torch.physics import adhesion as adh
     from sph_tpu_torch.physics import contact_dense as cd
     from sph_tpu_torch.utils.verify import (
         blob,
         bond_edge_cases,
         check_bond_rows,
+        check_bond_scan,
         check_contact,
         check_expand,
         compressed,
@@ -878,11 +895,27 @@ def colony_kernels(dev, card) -> dict:
             raise AssertionError(f"bond_rows {name}: not bitwise: {r}")
         say("colony kernels", f"bond_rows (A1) at 1M, {name}: "
             f"{json.dumps(r)}")
+    plan = adh.build_bond_plan(state.bonds, state.capacity)
+    table = oa.bond_rows(state, params, gd)
+    moved = adh.plan_changed(drifted(state.bonds, state.capacity, 500),
+                             plan)
+    scans = {
+        "settled": check_bond_scan(table, plan),
+        "edge cases": check_bond_scan(
+            oa.bond_rows(bond_edge_cases(state), params, gd), plan),
+        "hybrid, 500 drifted": check_bond_scan(table, plan, moved),
+    }
+    for name, r in scans.items():
+        if not (r["bitwise"] and r["same_bits"]):
+            raise AssertionError(f"bond_scan {name}: not bitwise: {r}")
+        say("colony kernels", f"bond_scan (A2) at 1M, {name}: "
+            f"{json.dumps(r)}")
     return {"state": state, "params": params, "genome": genome,
             "spec": spec, "bonds": n_bonds, "probe": (s6, spec6),
             "checks": {"contact": contact_c if contact_c["max_abs_err"]
                        > contact["max_abs_err"] else contact,
-                       "expand": expand, "bond_rows": rows_e}}
+                       "expand": expand, "bond_rows": rows_e,
+                       "bond_scan": scans["edge cases"]}}
 
 
 def colony_main(colony, card) -> dict:
@@ -915,7 +948,8 @@ def colony_main(colony, card) -> dict:
     m = sim.metrics()
     want = {"density": 0, "accel": 0, "rebin": 0,
             "contact": COLONY_STEPS, "expand": COLONY_STEPS,
-            "density_tail": 0, "integrate": 0, "bond_rows": COLONY_STEPS}
+            "density_tail": 0, "integrate": 0, "bond_rows": COLONY_STEPS,
+            "bond_scan": COLONY_STEPS}
     if launches != want:
         raise AssertionError(f"colony launches {launches} != {want}")
     # The plan is built once and every step takes the quiet branch: a
@@ -943,7 +977,7 @@ def colony_main(colony, card) -> dict:
         colony["params"].replace(adhesion_plan="off"))
     if plans_off != {"quiet": 0, "hybrid": 0, "full": 0, "builds": 0}:
         raise AssertionError(f"plan used with adhesion_plan off: {plans_off}")
-    if launches_off != want:
+    if launches_off != {**want, "bond_scan": 0}:
         raise AssertionError(f"plain colony launches {launches_off}")
     say("colony main", f"the same {COLONY_STEPS} steps with adhesion_plan "
         f"off: {sps_off:.2f} steps/s (planned {sps:.2f}), launches "
@@ -951,7 +985,8 @@ def colony_main(colony, card) -> dict:
     for k, (a, b) in enumerate(zip(plain, planned)):
         held_to_plain(a, b, (k + 1) * COLONY_CHUNK)
     colony["sim"] = sim
-    return {k: launches[k] for k in ("contact", "expand", "bond_rows")}
+    return {k: launches[k] for k in ("contact", "expand", "bond_rows",
+                                      "bond_scan")}
 
 
 # utils/verify.check_planned_adhesion's tolerances (rtol, atol).
@@ -1157,6 +1192,7 @@ def planned_phases(st, p, g, rows, segs, card) -> None:
     against a plain one, the host reads of a quiet planned step, and peak
     memory of each step."""
     from sph_tpu_torch.engine.step import run_steps, step
+    from sph_tpu_torch.ops.adhesion import bond_scan
     from sph_tpu_torch.physics import adhesion as adh
 
     N = st.capacity
@@ -1176,7 +1212,9 @@ def planned_phases(st, p, g, rows, segs, card) -> None:
     phases = {
         "plan build (stable sort of the 2B endpoint rows, run ends)":
             lambda: adh.build_bond_plan(st.bonds, N),
-        "planned accumulate (row gather, segmented scan, run totals)":
+        "planned accumulate, A2 (row gather, segmented scan, run totals)":
+            lambda: bond_scan(rows, plan),
+        "planned accumulate, eager (the plain version of A2)":
             lambda: adh.accumulate_bond_deltas_planned(rows, plan),
         "quiet hybrid accumulate (the changed count read, then planned)":
             lambda: adh.accumulate_bond_deltas_hybrid(rows, st.bonds, N,
@@ -1214,7 +1252,7 @@ def planned_phases(st, p, g, rows, segs, card) -> None:
                   for t in vars(plan).values()) / 1e6
     peaks = [peak_mb(fn) for fn in (
         planned_step, plain_step,
-        lambda: adh.accumulate_bond_deltas_planned(rows, plan),
+        lambda: bond_scan(rows, plan),
         lambda: adh.accumulate_bond_deltas(rows, *segs, N))]
     say("colony phases", f"peak device memory: one step planned "
         f"{peaks[0]:.1f} MB, plain {peaks[1]:.1f} MB; the accumulate alone "
@@ -1239,6 +1277,7 @@ def bondplan_phase(dev, card) -> list:
 
     from sph_tpu_torch.engine.colony import bonded_colony
     from sph_tpu_torch.engine.step import run_steps, use_bond_plan
+    from sph_tpu_torch.ops.adhesion import bond_scan
     from sph_tpu_torch.physics import adhesion as adh
 
     st, p, g = bonded_colony(PLAN_CHECK_N, device="cpu", **COLONY_KW)
@@ -1253,14 +1292,18 @@ def bondplan_phase(dev, card) -> list:
             raise AssertionError(f"bond plan {f.name}: card != CPU")
     rows = adh.bond_rows(st, p, g.to_device("cpu"))
     want = adh.accumulate_bond_deltas_planned(rows, cpu_plan)
-    got = adh.accumulate_bond_deltas_planned(rows.to(dev), cuda_plan)
-    for x, y, name in zip(got, want, ("dv", "dq")):
-        if not torch.equal(x.cpu().view(torch.int32),
-                           y.view(torch.int32)):
-            raise AssertionError(f"planned {name}: card != CPU")
+    for how, got in (
+            ("eager", adh.accumulate_bond_deltas_planned(rows.to(dev),
+                                                         cuda_plan)),
+            ("A2", bond_scan(rows.to(dev), cuda_plan))):
+        for x, y, name in zip(got, want, ("dv", "dq")):
+            if not torch.equal(x.cpu().view(torch.int32),
+                               y.view(torch.int32)):
+                raise AssertionError(f"planned {name} ({how}): card != CPU")
     say("bond plan", f"{PLAN_CHECK_N}-cell colony: the plan "
         f"({cpu_plan.perm.numel()} sorted rows) and the planned sums built "
-        f"on the card are bitwise those built on the CPU")
+        f"on the card, eager and through A2, are bitwise those built on "
+        f"the CPU")
 
     rows = []
     for n in SWEEP_SIZES:
@@ -1290,12 +1333,14 @@ def bondplan_phase(dev, card) -> list:
             10)
         row["accumulate_ms_plan"] = cuda_ms(
             lambda: adh.accumulate_bond_deltas_planned(rows_t, plan), 10)
+        row["accumulate_ms_a2"] = cuda_ms(lambda: bond_scan(rows_t, plan),
+                                          10)
         say("bond plan", json.dumps(row))
         rows.append(row)
     say("bond plan", f"crossover: ms a step (best of {SWEEP_ROUNDS} runs of "
         f"{SWEEP_STEPS} steps, host clock ending in a synchronise, the plan "
-        f"built once a run), ms of an accumulate (CUDA events, 10 calls) "
-        f"| {card}")
+        f"built once a run), ms of an accumulate (CUDA events, 10 calls; "
+        f"the planned one eager and through A2) | {card}")
     return rows
 
 
@@ -1304,7 +1349,8 @@ def bondplan_phase(dev, card) -> list:
 
 def assert_no_launches(where: str) -> None:
     """No kernel launched but A1, which every colony step on the card
-    launches (the adhesion pass)."""
+    launches (the adhesion pass); none of these colonies plans, so A2
+    stays at 0."""
     from sph_tpu_torch.ops import LAUNCHES
 
     if any(v for k, v in LAUNCHES.items() if k != "bond_rows"):
@@ -1774,7 +1820,7 @@ def viewer_phase(colony, card) -> None:
     per = VIEW_SUBSTEPS * VIEW_FRAMES
     if launches != {"density": 0, "accel": 0, "rebin": 0, "contact": per,
                     "expand": per, "density_tail": 0, "integrate": 0,
-                    "bond_rows": per}:
+                    "bond_rows": per, "bond_scan": 0}:
         raise AssertionError(f"viewer launches {launches}, want {per} "
                              f"contact and expand")
     if not gap1 < gap0:
@@ -2030,7 +2076,14 @@ def colony_time_pairs(colony, card) -> dict:
     say("times", f"bond_rows at 1M: host enqueue {host_ms(rows[0]):.4f} ms "
         f"a call; device {one_kernel('bond_rows', rows[0])[0]:.4f} ms, one "
         f"kernel a call | {card}")
-    return {"contact": contact, "expand": expand, "bond_rows": rows}
+    scan = bond_scan_pair(rows[0](), colony["sim"].state.bonds,
+                          st.capacity)
+    say("times", f"bond_scan at 1M: host enqueue {host_ms(scan[0]):.4f} ms "
+        f"a call (eager {host_ms(scan[1]):.4f}); device ms a launch by "
+        f"kernel {json.dumps(device_ms(scan[0]))}; by 32-byte sectors "
+        f"{scan[4]:.4f} ms | {card}")
+    return {"contact": contact, "expand": expand, "bond_rows": rows,
+            "bond_scan": scan[:4]}
 
 
 def bond_rows_pair(st, p, gd):
@@ -2044,6 +2097,25 @@ def bond_rows_pair(st, p, gd):
     pad = adh.padded_rows(B) - 2 * B
     return (lambda: bond_rows(st, p, gd), lambda: adh.bond_rows(st, p, gd),
             None, bound(B * (53 + 88 + 56) + pad * 28, 0))
+
+
+def bond_scan_pair(rows, bonds, n: int):
+    """(kernel, plain, library call, bound, sector bound ms) of A2 on a
+    row table and its bonds' plan: perm and flags, the gathered rows, last
+    and has, the [n, 7] result; by sectors each gathered row counts the
+    32-byte sectors it spans."""
+    from sph_tpu_torch.ops.adhesion import bond_scan
+    from sph_tpu_torch.physics import adhesion as adh
+
+    plan = adh.build_bond_plan(bonds, n)
+    mp = rows.shape[0]
+    fixed = mp * (8 + 1) + n * (8 + 1 + 28)
+    start = plan.perm * 28
+    sectors = int(((start + 27) // 32 - start // 32 + 1).sum())
+    return (lambda: bond_scan(rows, plan),
+            lambda: adh.accumulate_bond_deltas_planned(rows, plan), None,
+            bound(fixed + mp * 28, 0),
+            (fixed + sectors * 32) / HBM_BYTES_PER_S * 1e3)
 
 
 # -- 14. kernel floor: K4 run one stage at a time ---------------------------
@@ -2380,10 +2452,12 @@ BENCH_RUNGS = {
         ("fluid", 240, 60, CONFIG3_LAYOUT["rebin_every"]),
     "3D dam-break 4M single-chip + 8-way decomposition dryrun":
         ("fluid", 45, 15, 6),
+    # Colonies from 163,840 bond rows (100k: 180,224) plan their adhesion.
     "cell colony 10k (contact+adhesion, grid)": ("grid cells", 240, 120, 0),
     "cell colony 10k (contact+adhesion, dense)": ("cells", 240, 120, 0),
-    "cell colony 100k (contact+adhesion, dense)": ("cells", 240, 120, 0),
-    "cell colony 1M (contact+adhesion, dense)": ("cells", 40, 20, 0),
+    "cell colony 100k (contact+adhesion, dense)":
+        ("planned cells", 240, 120, 0),
+    "cell colony 1M (contact+adhesion, dense)": ("planned cells", 40, 20, 0),
 }
 BENCH_CONFIG3 = "3D dam-break + SDF obstacle 1M (dense grid + Pallas)"
 BENCH_CONFIG4 = "3D dam-break 4M single-chip + 8-way decomposition dryrun"
@@ -2393,13 +2467,15 @@ BENCH_TIMEOUT = 600
 def bench_launches(rung) -> dict:
     want = dict.fromkeys(("density", "accel", "rebin", "contact",
                           "expand", "density_tail", "integrate",
-                          "bond_rows"), 0)
+                          "bond_rows", "bond_scan"), 0)
     if rung is None:
         return want
     kind, steps, sub, rebin_every = rung
     total = sub * (1 + max(1, steps // sub))
-    if kind == "cells":
+    if kind in ("cells", "planned cells"):
         want.update(contact=total, expand=total, bond_rows=total)
+        if kind == "planned cells":
+            want.update(bond_scan=total)
     elif kind == "grid cells":
         want.update(bond_rows=total)
     else:
@@ -2825,7 +2901,7 @@ def shard_phase(colony, dev, card) -> None:
     want = {"density": SHARD_STEPS, "accel": SHARD_STEPS,
             "rebin": 2 * (SHARD_STEPS // CONFIG4["rebin_every"]),
             "contact": 0, "expand": 0, "density_tail": SHARD_STEPS,
-            "integrate": SHARD_STEPS, "bond_rows": 0}
+            "integrate": SHARD_STEPS, "bond_rows": 0, "bond_scan": 0}
     if launches != want:
         raise AssertionError(f"config[4] launches {launches} != {want}")
     say("shard", f"config[4] one device, {SHARD_STEPS} steps: {sps:.2f} "
@@ -2907,7 +2983,7 @@ def shard_phase(colony, dev, card) -> None:
     exact_same("nccl config[3]", r["same"])
     want = {"density": NCCL_STEPS, "accel": NCCL_STEPS, "rebin": 0,
             "contact": 0, "expand": 0, "density_tail": NCCL_STEPS,
-            "integrate": NCCL_STEPS, "bond_rows": 0}
+            "integrate": NCCL_STEPS, "bond_rows": 0, "bond_scan": 0}
     if r["backend"] != "nccl" or r["launches"] != want:
         raise AssertionError(f"nccl world: {r['backend']} {r['launches']}")
     say("shard", f"config[3] on a one-rank nccl world, {NCCL_STEPS} steps: "
@@ -2936,7 +3012,7 @@ def shard_report(ranks, card) -> None:
             want = {"density": SHARD_STEPS, "accel": SHARD_STEPS,
                     "rebin": 0, "contact": 0, "expand": 0,
                     "density_tail": SHARD_STEPS, "integrate": SHARD_STEPS,
-                    "bond_rows": 0}
+                    "bond_rows": 0, "bond_scan": 0}
             if r["launches"] != want:
                 raise AssertionError(f"config[4] {name} rank {i} launches "
                                      f"{r['launches']} != {want}")
@@ -2996,7 +3072,7 @@ def shard_report(ranks, card) -> None:
                                      f"{rs[0]['differ']}")
             want = {"density": 0, "accel": 0, "rebin": 0,
                     "contact": steps, "expand": steps, "density_tail": 0,
-                    "integrate": 0, "bond_rows": steps}
+                    "integrate": 0, "bond_rows": steps, "bond_scan": 0}
             for i, r in enumerate(rs):
                 if r["launches"] != want:
                     raise AssertionError(f"{case} {name} rank {i} launches "

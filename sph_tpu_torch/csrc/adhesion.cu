@@ -1,4 +1,6 @@
-// The adhesion pass's per-bond work for Hopper (sm_90a): A1.
+// The adhesion pass's per-bond work for Hopper (sm_90a): A1, the per-bond
+// rows, and A2, the planned accumulate of those rows per particle (its
+// note is below A1's code).
 //
 // Replaces no Pallas kernel: the JAX package computes the per-bond deltas
 // (sph_tpu/physics/adhesion.py `bond_spring_params` and
@@ -299,6 +301,206 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0;
 }
 
+// -- A2: the planned accumulate ----------------------------------------------
+//
+// Replaces no Pallas kernel either: XLA fuses the JAX package's
+// `_blocked_segscan` and the gathers around it (sph_tpu/physics/
+// adhesion.py `accumulate_bond_deltas_planned`) inside its jitted step; the
+// port ran them as ~170 eager launches. Given the [Mp, 7] row table, a bond
+// plan (perm, flags, last, has) and an optional zero_bond mask [b], A2
+// gives each particle's [Δv | Δq], bitwise what sph_tpu_torch/physics/
+// adhesion.py `accumulate_bond_deltas_planned` gives with eager PyTorch:
+// the same tree of adds as `_blocked_segscan`, level by level, every add
+// one `__fadd_rn` (no multiply, so nothing to contract), the +0 that
+// `F.pad` shifts in and the leading +0 of the block prefixes added as the
+// plain code adds them (−0 + +0 is +0), a select where it selects, so a
+// NaN row spreads as it does there. Two launches:
+//
+//  1. `scan_blocks_kernel`, one block of kSegW threads a scan block of
+//     kSegW rows (`_SEG_W`), a thread a row: the row rows[perm[j]], zero
+//     where its bond is in zero_bond (row i < b is bond i's, row b + i
+//     too, the rest no bond's), and flags[j]; the in-block Hillis-Steele
+//     in shared memory, d = 1, 2, ..., kSegW/2: v = f ? v : v + v[j − d]
+//     (+0 before the block), f = f | f[j − d]. The block's total (its last
+//     row) goes to the totals, [7][mb] by component, and the in-block
+//     value and flag of every row that ends a run (the next flag set, or
+//     the last row) to v_in / f_in: `last` points only at such rows.
+//  2. `scan_finish_kernel`. Its first kRow blocks to run (a ticket from
+//     the stream's cursor) each scan one component of the mb block totals
+//     by the same levels, between two buffers in device memory (any mb),
+//     and count themselves ready. Every other block takes kFinish
+//     particles, reads what needs no prefix, waits for the kRow ready
+//     counts (blocks that wait hold tickets after the scanning ones, which
+//     are running, so the wait ends), then gives each particle has ?
+//     (f_in[j] ? v_in[j] : v_in[j] + pre) : +0, with j = last, pre the
+//     scanned total of the block before j's (+0 for the first); staged in
+//     shared memory and stored as one run of whole lines a block. The last
+//     block to finish leaves the cursor zeroed.
+//
+// What bounds it on the H100: memory traffic. At the 1M colony (Mp =
+// 3,637,248 rows, mb = 7,104, n = 1,048,576) the row gather reads 102 MB
+// (204 MB as whole 32-byte sectors: a 28-byte row spans two sectors
+// three times in four), perm 29 MB, flags 4 MB, last and has 9 MB, and
+// the [n, 7] result writes 29 MB: ~173 MB, 0.05 ms at 3.35 TB/s, ~0.09 ms
+// by sectors. The run ends (~1M rows of 28 B) go out and come back once.
+// The in-block levels cost 9 barriers a block; the totals' ~13 levels
+// run in 7 blocks, in L2, while the other blocks load their particles.
+
+constexpr int kSegW = 512;     // _SEG_W: rows a scan block
+constexpr int kFinish = 1024;  // threads (particles) a finishing block
+
+__global__ void __launch_bounds__(kSegW)
+    scan_blocks_kernel(const float* __restrict__ rows,
+                       const long long* __restrict__ perm,
+                       const uint8_t* __restrict__ flags,
+                       const uint8_t* __restrict__ zero_bond, int b, int mp,
+                       int mb, float* __restrict__ v_in,
+                       uint8_t* __restrict__ f_in, float* __restrict__ tv,
+                       uint8_t* __restrict__ tf) {
+  __shared__ float sv[2][kRow][kSegW];
+  __shared__ uint8_t sf[2][kSegW];
+  const int t = threadIdx.x;
+  const int j = blockIdx.x * kSegW + t;
+  const int p = static_cast<int>(perm[j]);
+  bool zero = false;
+  if (zero_bond != nullptr && p < 2 * b) {
+    zero = zero_bond[p < b ? p : p - b] != 0;
+  }
+  float v[kRow];
+#pragma unroll
+  for (int k = 0; k < kRow; ++k) {
+    v[k] = zero ? 0.f : __ldg(rows + p * kRow + k);
+  }
+  bool f = flags[j] != 0;
+  int cur = 0;
+#pragma unroll
+  for (int d = 1; d < kSegW; d *= 2) {
+#pragma unroll
+    for (int k = 0; k < kRow; ++k) sv[cur][k][t] = v[k];
+    sf[cur][t] = f;
+    __syncthreads();
+    // The level reads the old values: the pad's (+0, false) before the
+    // block.
+    const bool in = t >= d;
+    const bool fs = in && sf[cur][t - d] != 0;
+#pragma unroll
+    for (int k = 0; k < kRow; ++k) {
+      const float s = in ? sv[cur][k][t - d] : 0.f;
+      v[k] = f ? v[k] : __fadd_rn(v[k], s);
+    }
+    f = f || fs;
+    cur ^= 1;  // the next level writes the other buffer: one barrier
+  }
+  if (t == kSegW - 1) {
+#pragma unroll
+    for (int k = 0; k < kRow; ++k) tv[k * mb + blockIdx.x] = v[k];
+    tf[blockIdx.x] = f;
+  }
+  if (j == mp - 1 || flags[j + 1] != 0) {
+#pragma unroll
+    for (int k = 0; k < kRow; ++k) v_in[j * kRow + k] = v[k];
+    f_in[j] = f;
+  }
+}
+
+// The scan of component k's block totals by one block: level by level,
+// from the totals (tv[0][k], flags tf[0]) between two buffers of its own
+// (tv[0][k] and tv[1][k]; flags tf[1 + 2k] and tf[2 + 2k], never tf[0],
+// which every component reads). After `levels` levels the scanned totals
+// are in tv[levels % 2][k].
+__device__ void scan_totals(float* tv, uint8_t* tf, int k, int mb,
+                            int levels) {
+  float* v_buf[2] = {tv + k * mb, tv + (kRow + k) * mb};
+  uint8_t* f_buf[2] = {tf + (1 + 2 * k) * mb, tf + (2 + 2 * k) * mb};
+  const uint8_t* f_src = tf;
+  int src = 0;
+  for (int level = 0, d = 1; level < levels; ++level, d *= 2) {
+    const float* v = v_buf[src];
+    float* v_dst = v_buf[1 - src];
+    uint8_t* f_dst = f_buf[src];
+    for (int i = threadIdx.x; i < mb; i += kFinish) {
+      const bool in = i >= d;
+      const bool f = f_src[i] != 0;
+      const float s = in ? v[i - d] : 0.f;
+      v_dst[i] = f ? v[i] : __fadd_rn(v[i], s);
+      f_dst[i] = f || (in && f_src[i - d] != 0);
+    }
+    __syncthreads();  // the level's writes, seen by the block's next level
+    f_src = f_dst;
+    src = 1 - src;
+  }
+}
+
+__global__ void __launch_bounds__(kFinish)
+    scan_finish_kernel(const float* __restrict__ v_in,
+                       const uint8_t* __restrict__ f_in, float* tv,
+                       uint8_t* tf, const long long* __restrict__ last,
+                       const uint8_t* __restrict__ has, int n, int mb,
+                       int roles, int* cursor, float* __restrict__ out) {
+  __shared__ float stage[kFinish * kRow];
+  __shared__ int ticket;
+  if (threadIdx.x == 0) ticket = atomicAdd(cursor, 1);
+  __syncthreads();
+  int levels = 0;
+  while ((1 << levels) < mb) ++levels;
+  if (ticket < roles) {
+    scan_totals(tv, tf, ticket, mb, levels);
+    __threadfence();  // every thread's scanned totals before the ready count
+    __syncthreads();
+    if (threadIdx.x == 0 &&
+        atomicAdd(cursor + 1, 1) == static_cast<int>(gridDim.x) - 1) {
+      cursor[0] = 0;
+      cursor[1] = 0;
+    }
+    return;
+  }
+  const int first = (ticket - roles) * kFinish;
+  const int i = first + threadIdx.x;
+  float r[kRow];
+  int blk = 0;
+  bool add = false;
+#pragma unroll
+  for (int k = 0; k < kRow; ++k) r[k] = 0.f;
+  if (i < n && has[i] != 0) {
+    const int j = static_cast<int>(last[i]);
+    blk = j / kSegW;
+    add = f_in[j] == 0;
+#pragma unroll
+    for (int k = 0; k < kRow; ++k) r[k] = v_in[j * kRow + k];
+  }
+  if (threadIdx.x == 0) {
+    while (*reinterpret_cast<volatile int*>(cursor + 1) < roles) {
+      __nanosleep(128);
+    }
+    __threadfence();
+  }
+  __syncthreads();
+  if (add) {
+    // The scanned totals sit in the buffer the last level wrote; read
+    // them from L2, where the scanning blocks left them.
+    const float* pre = tv + ((levels & 1) ? kRow * mb : 0);
+#pragma unroll
+    for (int k = 0; k < kRow; ++k) {
+      const float p = blk == 0 ? 0.f : __ldcg(pre + k * mb + blk - 1);
+      r[k] = __fadd_rn(r[k], p);
+    }
+  }
+  if (i < n) {
+#pragma unroll
+    for (int k = 0; k < kRow; ++k) stage[threadIdx.x * kRow + k] = r[k];
+  }
+  __syncthreads();
+  const int count = min(kFinish, n - first) * kRow;
+  for (int e = threadIdx.x; e < count; e += kFinish) {
+    out[first * kRow + e] = stage[e];
+  }
+  if (threadIdx.x == 0 &&
+      atomicAdd(cursor + 1, 1) == static_cast<int>(gridDim.x) - 1) {
+    cursor[0] = 0;
+    cursor[1] = 0;
+  }
+}
+
 }  // namespace
 
 // A1. `ptrs` (host, 16 device pointers): pos, vel, rot, mass, slot_a,
@@ -343,5 +545,38 @@ extern "C" int sph_bond_rows(const void* const* ptrs, float* out, int n,
   bond_rows_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       in, out, n, b, rows, n_table, anchors_on, dt,
       aligned16(in.rot) ? 1 : 0, aligned16(in.rel) ? 1 : 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A2. rows [mp, 7]; perm [mp] and last [n] int64; flags [mp] and has [n]
+// bool; zero_bond [b] bool or null (2b ≤ mp); out [n, 7]. Scratch, all
+// fresh: v_in [mp, 7], f_in [mp], tv [2][7][mb] and tf [15][mb] (mb = mp
+// / 512). `cursor`: two int32 zeros of the stream, left zeroed. mp a
+// multiple of 512, at least 512, mp·7 and n·7 < 2^31.
+extern "C" int sph_bond_scan(const float* rows, const long long* perm,
+                             const uint8_t* flags, const long long* last,
+                             const uint8_t* has, const uint8_t* zero_bond,
+                             int b, float* out, float* v_in, uint8_t* f_in,
+                             float* tv, uint8_t* tf, int* cursor, int mp,
+                             int n, void* stream) {
+  if (mp < kSegW || mp % kSegW != 0 || n < 0 || b < 0 || b > mp / 2 ||
+      static_cast<long long>(mp) * kRow >= (1ll << 31) ||
+      static_cast<long long>(n) * kRow >= (1ll << 31)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int mb = mp / kSegW;
+  scan_blocks_kernel<<<mb, kSegW, 0, s>>>(rows, perm, flags, zero_bond, b,
+                                          mp, mb, v_in, f_in, tv, tf);
+  const cudaError_t rc = cudaGetLastError();
+  if (rc != cudaSuccess) return static_cast<int>(rc);
+  // One block a component scans the totals where there are two or more.
+  const int roles = mb > 1 ? kRow : 0;
+  const int grid = roles + (n + kFinish - 1) / kFinish;
+  if (grid > 0) {
+    scan_finish_kernel<<<grid, kFinish, 0, s>>>(v_in, f_in, tv, tf, last,
+                                                has, n, mb, roles, cursor,
+                                                out);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,17 +1,24 @@
-"""Wrapper of the adhesion pass's per-bond kernel A1, `csrc/adhesion.cu`
-`bond_rows_kernel`: the endpoint gather, the spring parameters, the
-spring, anchor-swing and relative-orientation deltas of every bond, and
-the [Mp, 7] row table the accumulates read. The JAX package has no Pallas
-kernel here: XLA fuses `bond_spring_params` and `bond_pair_deltas`
-(sph_tpu/physics/adhesion.py) inside its jitted step.
+"""Wrappers of the adhesion pass's kernels, `csrc/adhesion.cu`. The JAX
+package has no Pallas kernel here: XLA fuses this code inside its jitted
+step.
+
+- A1 `bond_rows`: the endpoint gather, the spring parameters, the spring,
+  anchor-swing and relative-orientation deltas of every bond, and the
+  [Mp, 7] row table the accumulates read (`bond_spring_params` and
+  `bond_pair_deltas`, sph_tpu/physics/adhesion.py). dt reaches the kernel
+  as f32, as torch rounds a Python float that meets an f32 tensor; the
+  kernel reads the genome's mode count on the device.
+- A2 `bond_scan`: the planned accumulate of that table, the row gather in
+  the plan's order, the segmented scan in `_blocked_segscan`'s tree and
+  each particle's run total (`accumulate_bond_deltas_planned`), in two
+  launches of one call.
 
 A CPU tensor goes to the plain version (sph_tpu_torch.physics.adhesion
-`bond_rows`); a CUDA tensor launches the kernel, once a call, or raises —
-there is no fallback. The table is fresh (torch.empty: the kernel writes
-every row, the pad rows too); the kernel launches on PyTorch's current
-stream and is not synchronised, and reads the genome's mode count on the
-device, so a call makes no host read. dt reaches the kernel as f32, as
-torch rounds a Python float that meets an f32 tensor.
+`bond_rows`, `accumulate_bond_deltas_planned`); a CUDA tensor launches the
+kernel, or raises — there is no fallback. Outputs and scratch are fresh
+(torch.empty: the kernels write every element read); the kernels launch on
+PyTorch's current stream and are not synchronised, and a call makes no
+host read.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ from sph_tpu_torch.ops.build import (
     library,
     stream_of,
 )
+from sph_tpu_torch.ops.contact import launch_on_cursor
 from sph_tpu_torch.physics import adhesion
 
 
@@ -84,3 +92,59 @@ def bond_rows(state, params, genome, dt=None) -> torch.Tensor:
     check_launch("bond_rows", rc)
     LAUNCHES["bond_rows"] += 1
     return out
+
+
+def bond_scan(rows, plan, zero_bond=None):
+    """Drop-in for sph_tpu_torch.physics.adhesion.
+    accumulate_bond_deltas_planned: (Δv [n, 3], Δq [n, 4]) of the [Mp, 7]
+    row table through the plan's frozen order, with the rows of the bonds
+    in `zero_bond` [B] (optional) zeroed. The plan's `last` must point at
+    rows that end a run, as every BondPlan's does. On the card, two
+    launches on the stream's cursor (ops.contact.launch_on_cursor)."""
+    if rows.device.type == "cpu":
+        return adhesion.accumulate_bond_deltas_planned(rows, plan, zero_bond)
+    name = "bond_scan"
+    dev = rows.device
+    w = adhesion._SEG_W
+    mp, n = rows.shape[0] if rows.dim() else 0, plan.last.shape[0]
+    if rows.dtype != torch.float32:
+        raise TypeError(f"{name}: expected float32 rows, got {rows.dtype}")
+    if rows.dim() != 2 or rows.shape[1] != 7 or mp < w or mp % w:
+        raise ValueError(f"{name}: expected rows of shape [Mp, 7], Mp a "
+                         f"positive multiple of {w}, got "
+                         f"{tuple(rows.shape)}")
+    # Before the layouts, so that a stride-0 view can show the refusal.
+    if max(mp, n) * 7 >= 2 ** 31:
+        raise ValueError(f"{name}: {max(mp, n)} rows overflow the kernel's "
+                         f"32-bit indexing")
+    zb = () if zero_bond is None else (zero_bond,)
+    check_device(name, (rows, plan.perm, plan.flags, plan.last, plan.has,
+                        *zb), dev)
+    check_layout(name, (rows,), (mp, 7))
+    _int_operands(name, (plan.perm,), (mp,), torch.int64)
+    _int_operands(name, (plan.flags,), (mp,), torch.bool)
+    _int_operands(name, (plan.last,), (n,), torch.int64)
+    _int_operands(name, (plan.has,), (n,), torch.bool)
+    b = zero_bond.shape[0] if zero_bond is not None and zero_bond.dim() else 0
+    _int_operands(name, zb, (b,), torch.bool)
+    if 2 * b > mp:
+        raise ValueError(f"{name}: zero_bond of {b} bonds for {mp} rows")
+    mb = mp // w
+    out = torch.empty((n, 7), dtype=torch.float32, device=dev)
+    v_in = torch.empty((mp, 7), dtype=torch.float32, device=dev)
+    f_in = torch.empty((mp,), dtype=torch.uint8, device=dev)
+    # The block totals and their scan's buffers: values [2][7][mb]; flags
+    # [1 + 2·7][mb], the totals' own, then two a component.
+    tv = torch.empty((2, 7, mb), dtype=torch.float32, device=dev)
+    tf = torch.empty((15, mb), dtype=torch.uint8, device=dev)
+    stream = stream_of(dev)
+    with torch.cuda.device(dev):
+        launch_on_cursor(name, dev, stream, lambda cursor: (
+            library().lib.sph_bond_scan(
+                rows.data_ptr(), plan.perm.data_ptr(), plan.flags.data_ptr(),
+                plan.last.data_ptr(), plan.has.data_ptr(),
+                None if zero_bond is None else zero_bond.data_ptr(), b,
+                out.data_ptr(), v_in.data_ptr(), f_in.data_ptr(),
+                tv.data_ptr(), tf.data_ptr(), cursor, mp, n, stream)))
+    LAUNCHES[name] += 1
+    return out[:, :3], out[:, 3:]

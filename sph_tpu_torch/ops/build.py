@@ -74,6 +74,9 @@ _ARGTYPES = {
     # ptrs[16] (host), out, n, b, rows, n_table, anchors_on, dt, device,
     # stream
     "sph_bond_rows": [ctypes.POINTER(_P), _P] + [_I] * 5 + [_F, _I, _P],
+    # rows, perm, flags, last, has, zero_bond (or null), b, out, v_in,
+    # f_in, tv, tf, cursor, mp, n, stream
+    "sph_bond_scan": [_P] * 6 + [_I] + [_P] * 6 + [_I] * 2 + [_P],
 }
 
 

@@ -12,7 +12,8 @@ torch.empty (the kernel writes every slot; the six planes are views of
 it); the kernel launches on PyTorch's current stream, once a call, and is
 not synchronised. Its band cursor, two int32 counters the kernel leaves
 zeroed, is kept here per (device, stream) and made at the stream's first
-launch.
+launch; A2's finishing launch (ops/adhesion.py `bond_scan`) takes its
+tickets from the same counters and leaves them zeroed too.
 """
 
 from __future__ import annotations
@@ -96,8 +97,9 @@ def launch_on_cursor(name: str, dev, stream: int, launch) -> None:
     """launch(cursor pointer) → cudaError_t, with the band cursor of
     `stream` on `dev`: CURSOR_INTS zeroed int32, made at the stream's first
     launch and left zeroed by every launch that runs (calls on one stream
-    run in order). A launch that fails drops the cursor (a call that did
-    not run to its end may leave counts in it), then raises."""
+    run in order, so K4 and A2 share it). A launch that fails drops the
+    cursor (a call that did not run to its end may leave counts in it),
+    then raises."""
     key = (dev, stream)
     cursor = _CURSORS.get(key)
     if cursor is None:

@@ -22,7 +22,9 @@ Both read one [Mp, 7] row table of the per-bond deltas, `bond_rows`: row i
 < B is bond i's [Δv_A | Δq_A], row B + i its [Δv_B | Δq_B], and the rows up
 to Mp (2B padded to a multiple of _SEG_W) are zero. On the card it is
 kernel A1 (ops/adhesion.py, csrc/adhesion.cu), bitwise to the plain
-version here.
+version here; the planned accumulate of the hybrid's quiet and hybrid
+branches is kernel A2 there (`bond_scan`), bitwise to
+`accumulate_bond_deltas_planned`, which the CPU runs.
 
 Replicated quirks (DESIGN.md §4): spring parameters come from genome mode
 `uid_A % n_modes` (CellAdhesionManager.cs:537); anchor stiffness =
@@ -347,7 +349,8 @@ def _blocked_segscan(rs: torch.Tensor, flags: torch.Tensor) -> torch.Tensor:
 
 def accumulate_bond_deltas_planned(rows, plan: BondPlan, zero_bond=None):
     """The planned counterpart of accumulate_bond_deltas: the [Mp, 7] row
-    table through the plan's frozen order and the segmented scan.
+    table through the plan's frozen order and the segmented scan. The
+    plain version of kernel A2 (ops/adhesion.py `bond_scan`).
 
     zero_bond [B] (optional): bonds whose two rows are zeroed in the
     frozen stream (they changed since the snapshot and are summed through
@@ -372,19 +375,24 @@ def accumulate_bond_deltas_hybrid(rows, bonds, n_rows: int, plan: BondPlan):
       and a searchsorted, no scatter — into a side table of _SIDE_CAP
       bonds summed with the plain accumulate;
     - full (more changed): the plain accumulate of the whole table
-      (engine.step.run_steps rebuilds the plan well before that)."""
+      (engine.step.run_steps rebuilds the plan well before that).
+
+    The planned accumulate goes through ops.adhesion.bond_scan: kernel A2
+    on the card, accumulate_bond_deltas_planned on the CPU."""
+    from sph_tpu_torch.ops.adhesion import bond_scan
+
     changed = plan_changed(bonds, plan)
     with span("sph.read.changed"):
         n_changed = int(changed.sum())
     if n_changed == 0:
         PLAN_COUNTS["quiet"] += 1
-        return accumulate_bond_deltas_planned(rows, plan)
+        return bond_scan(rows, plan)
     seg_a, seg_b = _segments(bonds, n_rows)
     if n_changed > _SIDE_CAP:
         PLAN_COUNTS["full"] += 1
         return accumulate_bond_deltas(rows, seg_a, seg_b, n_rows)
     PLAN_COUNTS["hybrid"] += 1
-    dvp, dqp = accumulate_bond_deltas_planned(rows, plan, zero_bond=changed)
+    dvp, dqp = bond_scan(rows, plan, zero_bond=changed)
     dev = changed.device
     r = torch.cumsum(changed.to(torch.int32), 0, dtype=torch.int32)
     sel = torch.searchsorted(

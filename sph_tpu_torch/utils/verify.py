@@ -16,7 +16,11 @@ non-finite ones), and reports `bitwise` and `empty_zero` as K1/K2 do; the
 contact pack's placement (K5) is bitwise on all 11 planes, −0 included.
 The adhesion pass's per-bond rows (A1) are bitwise on every row of the
 table, NaN as NaN and −0 ≠ +0 (`check_bond_rows`; `bond_edge_cases` loads
-every constraint and plants the edge cases). `expand_lookup` is K5's row lookup (with `expand_search`) and
+every constraint and plants the edge cases). The planned accumulate (A2)
+is bitwise on every particle's Δv and Δq (`check_bond_scan`;
+`bond_scan_case` draws a random plan with −0, NaN and ±inf rows;
+`END_PLANS` / `end_plan` are hand-made plans for rows of −0).
+`expand_lookup` is K5's row lookup (with `expand_search`) and
 `rebin_codes` / `rebin_walk` are K3's two passes, written out in plain
 PyTorch for the CPU tests;
 `empty_layout`, `place_particle`, `moved_layout` and `overflow_layout`
@@ -303,6 +307,99 @@ def bond_edge_cases(state, seed: int = 0, nan: bool = True):
     return state.replace_fields(
         pos=pos, vel=vel, rot=rot,
         bonds=b.replace_fields(slot_a=slot_a, slot_b=slot_b, active=active))
+
+
+# -- the planned accumulate (A2) --------------------------------------------
+
+
+def bond_scan_case(n_cells: int, n_bonds: int, seed: int = 0,
+                   active: float = 0.7, special: bool = False,
+                   device="cpu"):
+    """A random bond table of `n_bonds` bonds over `n_cells` cells (each
+    bond active with probability `active`, slot_a −1 on some), its
+    BondPlan built on `device`, a [Mp, 7] row table of normal deltas with
+    5% −0 entries, and a zero_bond mask of ~2% of the bonds (the hybrid's
+    changed bonds). With `special`, NaN, +inf and −inf entries and a whole
+    NaN row planted in valid bonds' rows. Drawn on the CPU from `seed`, so
+    every device gets the same case. Returns (bonds, plan, rows,
+    zero_bond)."""
+    from sph_tpu_torch.core.types import BondTable
+
+    g = torch.Generator().manual_seed(seed)
+    slot_a = torch.randint(-1, n_cells, (n_bonds,), generator=g,
+                           dtype=torch.int32)
+    slot_b = torch.randint(0, n_cells, (n_bonds,), generator=g,
+                           dtype=torch.int32)
+    live = torch.rand(n_bonds, generator=g) < active
+    bonds = BondTable.empty(n_bonds, device="cpu").replace_fields(
+        slot_a=slot_a, slot_b=slot_b, active=live)
+    mp = adh.padded_rows(n_bonds)
+    rows = torch.randn((mp, 7), generator=g)
+    rows[torch.rand((mp, 7), generator=g) < 0.05] = -0.0
+    ok = torch.nonzero(live & (slot_a >= 0))[:, 0]
+    if special and ok.numel():
+        # Rows of valid bonds (A side, B side), so the values reach a run.
+        picks = ok[torch.randint(0, ok.numel(), (4,), generator=g)]
+        rows[picks[0], 0] = float("nan")
+        rows[picks[1] + n_bonds, 3] = float("inf")
+        rows[picks[2], 5] = float("-inf")
+        rows[picks[3] + n_bonds] = float("nan")
+    zero_bond = torch.rand(n_bonds, generator=g) < 0.02
+    bonds = bonds.replace_fields(**{
+        f.name: getattr(bonds, f.name).to(device)
+        for f in dataclasses.fields(bonds)})
+    plan = adh.build_bond_plan(bonds, n_cells)
+    return bonds, plan, rows.to(device), zero_bond.to(device)
+
+
+# Hand-made plans over 4,096 rows in order, a particle a run, for rows of
+# −0 alone: name: (the rows that end a run, the last ending the drop run;
+# whether row 0 starts a run). Their runs end at block offsets 2^k − 1,
+# where an in-block sum of −0s stays −0. Without a start at row 0 (the
+# plain scan's identity, which no BondPlan has) the totals' pads and the
+# first block's +0 prefix are added too.
+END_PLANS = {
+    "all -0, run ends at 2^k - 1": ((1535, 2303, 3199, 3583, 4095), True),
+    "all -0, no first start": ((1535, 2303, 3199, 3583, 4095), False),
+    "all -0, no first start, an end in block 0":
+        ((511, 1535, 2303, 4095), False),
+}
+
+
+def end_plan(name: str, device="cpu"):
+    """The BondPlan of END_PLANS[name] (its snapshot empty)."""
+    from sph_tpu_torch.core.types import BondTable
+
+    ends, first_start = END_PLANS[name]
+    mp = ends[-1] + 1
+    flags = torch.zeros(mp, dtype=torch.bool)
+    flags[0] = first_start
+    flags[torch.tensor(ends[:-1]) + 1] = True
+    b = BondTable.empty(0, device="cpu")
+    plan = adh.BondPlan(
+        perm=torch.arange(mp), flags=flags, last=torch.tensor(ends[:-1]),
+        has=torch.ones(len(ends) - 1, dtype=torch.bool), snap_a=b.slot_a,
+        snap_b=b.slot_b, snap_active=b.active)
+    return plan.replace_fields(**{
+        f.name: getattr(plan, f.name).to(device)
+        for f in dataclasses.fields(plan)})
+
+
+def check_bond_scan(rows, plan, zero_bond=None) -> dict:
+    """A2 against the plain accumulate_bond_deltas_planned on the same
+    tensors: every particle's Δv and Δq (`bitwise`, NaN as NaN;
+    `same_bits`, NaN payloads too)."""
+    plain = torch.cat(adh.accumulate_bond_deltas_planned(rows, plan,
+                                                         zero_bond), 1)
+    kern = torch.cat(oa.bond_scan(rows, plan, zero_bond), 1)
+    out = _bitwise(BOND_ROW_COLUMNS, plain.unbind(1), kern.unbind(1))
+    out["same_bits"] = torch.equal(_bits(plain), _bits(kern))
+    out["rows"] = int(rows.shape[0])
+    out["blocks"] = int(rows.shape[0]) // adh._SEG_W
+    out["particles"] = int(plan.has.shape[0])
+    out["with_bonds"] = int(plan.has.sum())
+    out["nan_particles"] = int(kern.isnan().any(1).sum())
+    return out
 
 
 # -- the colony contact path (K4, K5) --------------------------------------

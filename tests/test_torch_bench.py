@@ -70,7 +70,7 @@ def test_rung_matches_jax(jbench, name):
     # On the CPU the wrappers run their plain versions: nothing launched.
     assert set(got["launches"]) == {"density", "accel", "rebin", "contact",
                                     "expand", "density_tail", "integrate",
-                                    "bond_rows"}
+                                    "bond_rows", "bond_scan"}
     assert not any(got["launches"].values())
     assert got["steps_per_sec"] > 0
 

@@ -1,6 +1,9 @@
 """Port vs reference for the planned adhesion accumulate: BondPlan,
 build_bond_plan, the segmented scan, the planned and hybrid accumulates,
-use_bond_plan, run_steps with a carried plan and Simulation's scan_chunk.
+use_bond_plan, run_steps with a carried plan and Simulation's scan_chunk;
+and kernel A2's split of the planned accumulate, modelled in plain torch
+and held bitwise to the plain planned accumulate, with the A2 wrapper's
+CPU route.
 
 The same numpy inputs, made from a seed, go through sph_tpu (jitted, on the
 CPU) and sph_tpu_torch. Tolerances: the plan, the scan and the planned and
@@ -33,7 +36,10 @@ from sph_tpu.engine.step import use_bond_plan as jax_use_bond_plan
 from sph_tpu_torch.core import types as ttypes
 from sph_tpu_torch.engine.colony import bonded_colony
 from sph_tpu_torch.engine.simulation import Simulation
+from sph_tpu_torch.ops import LAUNCHES, build, reset_launches
+from sph_tpu_torch.ops import adhesion as oa
 from sph_tpu_torch.utils.convert import bond_plan_from_numpy, colony_from_jax
+from sph_tpu_torch.utils.verify import END_PLANS, bond_scan_case, end_plan
 
 # The package re-exports the function `step` (as sph_tpu.engine does), which
 # shadows the submodule of that name: take the module from the import system.
@@ -252,6 +258,134 @@ def test_hybrid_accumulate_with_a_stale_plan_equals_jax(branch, n_rewrite,
         assert_bitwise(g.numpy(), w, err_msg=name)
         np.testing.assert_allclose(g.numpy(), p.numpy(), rtol=2e-5,
                                    atol=1e-6, err_msg=name)
+
+
+# -- kernel A2's split of the planned accumulate -----------------------------
+
+
+def a2_split(rows, plan, zero_bond=None):
+    """Kernel A2's algorithm (csrc/adhesion.cu) in plain torch, launch by
+    launch: (1) a scan block's rows gathered (zeroed for zero_bond's
+    bonds) and scanned in-block level by level, each row reading +0 and
+    no flag before its block, the block's last row its total, and the
+    in-block value and flag kept only at rows that end a run (the rest
+    NaN, so a read of one shows); (2) the totals scanned by the same
+    levels; (3) a particle's total from its run end, plus the scanned
+    total of the block before (+0 for the first), +0 without bonds."""
+    W = tadh._SEG_W
+    mp = rows.shape[0]
+    mb = mp // W
+    p = plan.perm
+    v = rows[p]
+    if zero_bond is not None:
+        b = zero_bond.shape[0]
+        bond = torch.where(p < b, p, p - b).clamp(0, max(b - 1, 0))
+        zero = (p < 2 * b) & zero_bond[bond]
+        v = torch.where(zero[:, None], 0.0, v)
+    v, f = v.reshape(mb, W, 7), plan.flags.reshape(mb, W)
+    t = torch.arange(W)
+    d = 1
+    while d < W:
+        inb = t >= d
+        s = torch.where(inb[None, :, None], torch.roll(v, d, 1), 0.0)
+        fs = inb[None, :] & torch.roll(f, d, 1)
+        v = torch.where(f[..., None], v, v + s)
+        f = f | fs
+        d *= 2
+    tv, tf = v[:, -1].T, f[:, -1]
+    ends = torch.cat([plan.flags[1:], torch.ones(1, dtype=torch.bool)])
+    v_in = torch.where(ends[:, None], v.reshape(mp, 7), float("nan"))
+    f_in = f.reshape(mp) & ends
+    i = torch.arange(mb)
+    d = 1
+    while d < mb:
+        inb = i >= d
+        s = torch.where(inb[None, :], torch.roll(tv, d, 1), 0.0)
+        fs = inb & torch.roll(tf, d, 0)
+        tv = torch.where(tf[None, :], tv, tv + s)
+        tf = tf | fs
+        d *= 2
+    j = plan.last
+    blk = j // W
+    pre = torch.where((blk == 0)[:, None], 0.0, tv[:, (blk - 1).clamp(0)].T)
+    x = v_in[j]
+    r = torch.where(f_in[j][:, None], x, x + pre)
+    r = torch.where(plan.has[:, None], r, 0.0)
+    return r[:, :3], r[:, 3:]
+
+
+A2_CASES = {
+    # name: (cells, bonds, seed, active, special, zero_bond)
+    "one block": (40, 200, 1, 0.7, False, False),
+    "24 blocks": (300, 6144, 2, 0.7, False, False),
+    "23 blocks, runs across blocks": (9, 5800, 3, 0.9, False, False),
+    "drop run over 4 blocks": (300, 6144, 4, 0.5, False, False),
+    "zero_bond": (300, 6144, 5, 0.7, False, True),
+    "NaN, inf, -0 rows": (300, 6144, 6, 0.7, True, False),
+    "NaN rows and zero_bond": (50, 3000, 7, 0.8, True, True),
+    # Every entry −0: the bits show each add of a pad's or a prefix's +0.
+    "all -0 rows, runs across blocks": (9, 5800, 10, 0.9, False, False),
+    "all -0 rows": (300, 6144, 11, 0.7, False, True),
+}
+
+
+@pytest.mark.parametrize("case", sorted(A2_CASES) + sorted(END_PLANS))
+def test_a2_split_equals_the_planned_accumulate(case):
+    """The model of A2's split is bitwise the plain planned accumulate
+    (the segmented scan and the run-total gather), NaN as NaN, on random
+    plans: one block and 23 or 24 (not a power of two), runs crossing
+    block edges and spanning several blocks, a drop run of over four
+    blocks, a zero_bond mask, NaN, ±inf and −0 rows; and rows of −0 alone
+    (the sums then read +0 or −0 by which adds of +0 were made), also on
+    utils.verify.END_PLANS."""
+    if case in END_PLANS:
+        plan = end_plan(case)
+        rows = torch.zeros((plan.perm.shape[0], 7))
+        special, zero_bond = False, None
+    else:
+        cells, bonds, seed, active, special, zb = A2_CASES[case]
+        _, plan, rows, zero_bond = bond_scan_case(cells, bonds, seed,
+                                                  active, special)
+        zero_bond = zero_bond if zb else None
+    if "all -0" in case:
+        rows = torch.full_like(rows, -0.0)
+    mb = rows.shape[0] // tadh._SEG_W
+    assert (mb == 1) == (case == "one block")
+    one = torch.ones(1, dtype=torch.bool)
+    run = torch.diff(torch.nonzero(torch.cat([
+        one, plan.flags[1:], one]))[:, 0]).max()
+    if "over 4" in case:
+        assert run > 4 * tadh._SEG_W
+    if "across" in case or case in END_PLANS:
+        assert run > 2 * tadh._SEG_W
+    want = tadh.accumulate_bond_deltas_planned(rows, plan, zero_bond)
+    got = a2_split(rows, plan, zero_bond)
+    for g, w, name in zip(got, want, ("dv", "dq")):
+        assert torch.equal(g.isnan(), w.isnan()), name
+        assert_bitwise(g.nan_to_num(0.0).numpy(), w.nan_to_num(0.0).numpy(),
+                       err_msg=name)
+    if special and zero_bond is None:
+        assert bool(got[0].isnan().any() | got[1].isnan().any())
+    if "all -0" in case:
+        out = torch.cat(got, 1).view(torch.int32)
+        assert not bool((out & 0x7FFFFFFF).any())    # ±0 alone
+    else:
+        assert float(got[0].nan_to_num(0.0).abs().max()) > 0
+
+
+@pytest.mark.parametrize("zb", [False, True])
+def test_bond_scan_takes_plain_route_on_cpu(zb):
+    """ops.adhesion.bond_scan on CPU tensors is the plain planned
+    accumulate: the same bits, no launch, no kernel library built."""
+    _, plan, rows, zero_bond = bond_scan_case(300, 6144, 8, special=True)
+    zero_bond = zero_bond if zb else None
+    reset_launches()
+    got = oa.bond_scan(rows, plan, zero_bond)
+    want = tadh.accumulate_bond_deltas_planned(rows, plan, zero_bond)
+    for g, w in zip(got, want):
+        assert torch.equal(g.view(torch.int32), w.view(torch.int32))
+    assert LAUNCHES["bond_scan"] == 0
+    assert build._LOADED is None
 
 
 def test_use_bond_plan_threshold_and_modes():

@@ -23,7 +23,9 @@ at sizes that are not a multiple of 4 and off 16-byte alignment. A1 (the
 adhesion pass's per-bond rows) is bitwise on every row of its table, with
 slots of −1, inactive bonds, coincident and NaN endpoints, the anchor
 constraints off and a bond count off its tile, and the accumulates it feeds
-end bitwise where the eager rows end. K1, K2,
+end bitwise where the eager rows end. A2 (the planned accumulate) is
+bitwise on every particle's Δv and Δq, NaN payloads included, on random
+plans, at the benchmark's 1M colony and through the hybrid. K1, K2,
 F2, F1 and K4 are held so on the
 halo-padded blocks of a sharded step too (a ring's [P + 2]-plane slabs, a 2D mesh's
 local rows). The render (plain PyTorch) is held to itself
@@ -49,6 +51,7 @@ from sph_tpu_torch.ops import (
     reset_rebin_peak,
 )
 from sph_tpu_torch.ops import contact as oc
+from sph_tpu_torch.ops import adhesion as oa
 from sph_tpu_torch.ops.adhesion import bond_rows
 from sph_tpu_torch.ops import contact_floor as cf
 from sph_tpu_torch.ops.contact import contact_sweep
@@ -64,8 +67,11 @@ from sph_tpu_torch.sph.scenes import dam_break_2d, dam_break_3d
 from sph_tpu_torch.utils.verify import (
     accel_inputs,
     blob,
+    END_PLANS,
     bond_edge_cases,
+    bond_scan_case,
     check_bond_rows,
+    check_bond_scan,
     check_contact,
     check_expand,
     check_density_tail,
@@ -73,6 +79,7 @@ from sph_tpu_torch.utils.verify import (
     check_integrate,
     compressed,
     empty_layout,
+    end_plan,
     moved_layout,
     overflow_layout,
     place_particle,
@@ -317,7 +324,7 @@ def test_main_path_launches_kernels(cuda):
     # 2 rebins, each a codes and a placement launch.
     assert LAUNCHES == {"density": 12, "accel": 12, "rebin": 4,
                         "contact": 0, "expand": 0, "density_tail": 12,
-                        "integrate": 12, "bond_rows": 0}
+                        "integrate": 12, "bond_rows": 0, "bond_scan": 0}
     m = sim.metrics()
     assert m["n_particles"] == n0 and m["dropped"] == 0
 
@@ -993,6 +1000,163 @@ def test_adhesion_branches_equal_eager_path(cuda, branch, n_rewrite):
     for x, y in zip(got, want):
         assert torch.equal(x.view(torch.int32), y.view(torch.int32))
     assert float(got[1].abs().max()) > 0
+
+
+# -- the planned accumulate: A2 (bond_scan) ---------------------------------
+
+# name: (cells, bonds, seed, active, special), tests/test_torch_bondplan.py's
+# A2_CASES and one of 1,000 blocks.
+SCAN_CASES = {
+    "one block": (40, 200, 1, 0.7, False),
+    "24 blocks": (300, 6144, 2, 0.7, False),
+    "23 blocks, runs across blocks": (9, 5800, 3, 0.9, False),
+    "drop run over 4 blocks": (300, 6144, 4, 0.5, False),
+    "NaN, inf, -0 rows": (300, 6144, 6, 0.7, True),
+    "1,000 blocks": (100_000, 256_000, 9, 0.8, True),
+    "all -0 rows, runs across blocks": (9, 5800, 10, 0.9, False),
+}
+
+
+def scan_exact(r):
+    assert r["bitwise"] and r["max_abs_err"] == 0.0, r
+    assert r["same_bits"], r
+    assert r["with_bonds"] > 0
+
+
+@pytest.mark.parametrize("zb", [False, True])
+@pytest.mark.parametrize("case", sorted(SCAN_CASES))
+def test_bond_scan_kernel_bitwise(cuda, case, zb):
+    """A2 against the plain planned accumulate on random plans (one block,
+    23, 24 and 1,000 blocks; runs crossing block edges and over three
+    blocks long; NaN, ±inf and −0 rows; rows of −0 alone), without and
+    with a zero_bond mask, its block totals scanned in one block a
+    component and a launch a level: every particle's bits."""
+    cells, bonds, seed, active, special = SCAN_CASES[case]
+    _, plan, rows, zero_bond = bond_scan_case(cells, bonds, seed, active,
+                                              special, device=cuda)
+    if case.startswith("all -0"):
+        rows = torch.full_like(rows, -0.0)
+    r = check_bond_scan(rows, plan, zero_bond if zb else None)
+    scan_exact(r)
+    torch.cuda.synchronize()
+    cursor = oc._CURSORS[(cuda, torch.cuda.current_stream(cuda).cuda_stream)]
+    assert not bool(cursor.any())
+    if special and not zb:
+        assert r["nan_particles"] > 0
+
+
+@pytest.mark.parametrize("name", sorted(END_PLANS))
+def test_bond_scan_kernel_bitwise_on_hand_plans(cuda, name):
+    """A2 on utils.verify.END_PLANS' rows of −0, where each add of a +0
+    shows in the sign: runs ending at block offsets 2^k − 1, and plans
+    with no start at row 0, whose first block totals take the pads' +0
+    and whose first block its +0 prefix."""
+    plan = end_plan(name, device=cuda)
+    rows = torch.full((plan.perm.shape[0], 7), -0.0, device=cuda)
+    scan_exact(check_bond_scan(rows, plan))
+
+
+@pytest.fixture(scope="module")
+def colony_1m():
+    """The 1,048,576-cell colony (the benchmark's size, 1,818,624 bond
+    rows) with its A1 rows and plan; with bond_edge_cases' rows too."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda", 0)
+    state, params, genome = bonded_colony(1_048_576, device=dev, **COLONY)
+    gd = genome.to_device(dev)
+    plan = adh.build_bond_plan(state.bonds, state.capacity)
+    return (state, plan, bond_rows(state, params, gd),
+            bond_rows(bond_edge_cases(state), params, gd))
+
+
+@pytest.mark.parametrize("case", ["settled", "edge cases", "hybrid"])
+def test_bond_scan_kernel_bitwise_at_the_1m_colony(colony_1m, case):
+    """A2 at the benchmark's colony: its plan (7,104 blocks), A1's rows as
+    built and with the edge cases (NaN rows among them), and with the
+    hybrid's zero_bond mask of 2,000 rewritten bonds."""
+    state, plan, rows, rows_e = colony_1m
+    zero_bond = None
+    if case == "hybrid":
+        n = state.capacity
+        b = state.bonds
+        g = torch.Generator(device=rows.device).manual_seed(3)
+        live = torch.nonzero(b.active)[:, 0]
+        pick = live[torch.randperm(live.numel(), generator=g,
+                                   device=rows.device)[:2000]]
+        slot_a = b.slot_a.clone()
+        slot_a[pick] = torch.randint(0, n, (2000,), generator=g,
+                                     device=rows.device, dtype=slot_a.dtype)
+        zero_bond = adh.plan_changed(b.replace_fields(slot_a=slot_a), plan)
+        assert 0 < int(zero_bond.sum()) <= 2000
+    r = check_bond_scan(rows_e if case == "edge cases" else rows, plan,
+                        zero_bond)
+    scan_exact(r)
+    assert r["blocks"] == 7104
+    assert (r["nan_particles"] > 0) == (case == "edge cases")
+
+
+@pytest.mark.parametrize("branch, n_rewrite", [("quiet", 0), ("hybrid", 60)])
+def test_hybrid_through_bond_scan_equals_eager(cuda, monkeypatch, branch,
+                                               n_rewrite):
+    """accumulate_bond_deltas_hybrid with A2 against the same with the
+    plain planned accumulate in its place, on A1's rows of a plan made
+    stale by rewritten endpoints: bitwise, one A2 launch a call."""
+    state, params, gd = adhesion_colony(cuda, "loaded")
+    n = state.capacity
+    plan = adh.build_bond_plan(state.bonds, n)
+    b = state.bonds
+    g = torch.Generator(device=cuda).manual_seed(7)
+    live = torch.nonzero(b.active)[:, 0]
+    pick = live[torch.randperm(live.numel(), generator=g,
+                               device=cuda)[:n_rewrite]]
+    slot_a = b.slot_a.clone()
+    slot_a[pick] = torch.randint(0, n, (n_rewrite,), generator=g,
+                                 device=cuda, dtype=slot_a.dtype)
+    bonds = b.replace_fields(slot_a=slot_a)
+    rows = bond_rows(state.replace_fields(bonds=bonds), params, gd)
+    adh.reset_plan_counts()
+    reset_launches()
+    got = adh.accumulate_bond_deltas_hybrid(rows, bonds, n, plan)
+    assert LAUNCHES["bond_scan"] == 1 and adh.PLAN_COUNTS[branch] == 1
+    monkeypatch.setattr(oa, "bond_scan", adh.accumulate_bond_deltas_planned)
+    want = adh.accumulate_bond_deltas_hybrid(rows, bonds, n, plan)
+    assert LAUNCHES["bond_scan"] == 1
+    for x, y in zip(got, want):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    assert float(got[1].abs().max()) > 0
+
+
+def test_bond_scan_wrapper_refuses_bad_operands(cuda):
+    _, plan, rows, zero_bond = bond_scan_case(300, 6144, 2, device=cuda)
+    mp = rows.shape[0]
+    # The least multiple of 512 rows whose 7 columns pass 2^31 elements,
+    # and as many particles: stride-0 views, nothing allocated.
+    big = -(-(2 ** 31) // (7 * 512)) * 512
+    cases = [
+        (TypeError, "float32", dict(rows=rows.double())),
+        (ValueError, "shape", dict(rows=rows[:, :6])),
+        (ValueError, "multiple of 512", dict(rows=rows[:-8])),
+        (ValueError, "32-bit", dict(rows=torch.zeros(
+            (1, 1), device=cuda).expand(big, 7))),
+        (ValueError, "32-bit", dict(last=torch.zeros(
+            1, dtype=torch.int64, device=cuda).expand(big))),
+        (ValueError, "CUDA", dict(perm=plan.perm.cpu())),
+        (ValueError, "int64", dict(perm=plan.perm.int())),
+        (ValueError, "bool", dict(flags=plan.flags.to(torch.uint8))),
+        (ValueError, "shape", dict(has=plan.has[:-1])),
+        (ValueError, "zero_bond", dict(zero_bond=torch.zeros(
+            mp, dtype=torch.bool, device=cuda))),
+        (ValueError, "bool", dict(zero_bond=zero_bond.int())),
+        (ValueError, "contiguous",
+         dict(rows=rows.t().contiguous().t())),
+    ]
+    for error, match, fields in cases:
+        zb = fields.pop("zero_bond", zero_bond)
+        r = fields.pop("rows", rows)
+        with pytest.raises(error, match=match):
+            oa.bond_scan(r, plan.replace_fields(**fields), zb)
+    assert big * 7 >= 2 ** 31 > (big - 512) * 7
 
 
 # -- render and app (plain PyTorch on the card; the app launches K1–K5) ----

@@ -182,7 +182,7 @@ def test_wrappers_take_plain_route_on_cpu(ndim, obstacle, drag):
         assert torch.equal(x, y)
     assert LAUNCHES == {"density": 0, "accel": 0, "rebin": 0, "contact": 0,
                         "expand": 0, "density_tail": 0, "integrate": 0,
-                        "bond_rows": 0}
+                        "bond_rows": 0, "bond_scan": 0}
     assert build._LOADED is None
 
 

@@ -55,7 +55,7 @@ def test_wrappers_take_plain_route_on_cpu(case):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
     assert LAUNCHES == {"density": 0, "accel": 0, "rebin": 0,
                         "contact": 0, "expand": 0, "density_tail": 0,
-                        "integrate": 0, "bond_rows": 0}
+                        "integrate": 0, "bond_rows": 0, "bond_scan": 0}
     # The live-card check runs end to end here too (trivially equal).
     r = check_fluid_twins(d, p, spec)
     assert r["rebin"]["dropped"] > 0
