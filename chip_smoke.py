@@ -197,12 +197,13 @@ import time
 import numpy as np
 import torch
 
-from sph_tpu_torch.sph.scenes import CONFIG3_LAYOUT
+from sph_tpu_torch.ops import launch_counts
+from sph_tpu_torch.sph.scenes import LAYOUTS
 from sph_tpu_torch.utils.profiling import F32_FLOPS, HBM_BYTES_PER_S
 
 # config[3] at the port's layout for it (16 slots a cell of 1.3 h, a rebin
 # every 5 steps): [154, 16, 7680].
-CONFIG3 = dict(n_target=1_000_000, **CONFIG3_LAYOUT)
+CONFIG3 = dict(n_target=1_000_000, **LAYOUTS[3])
 N_CONFIG3 = 1_005_312
 MAIN_STEPS = 60
 # bench.py's largest colony rung (`_bench_cells`, bench.py:151-157, 323).
@@ -512,6 +513,21 @@ def nonfinite_rebin(d, p, spec) -> dict:
             "nan_slots": int(b.px.isnan().sum())}
 
 
+def fluid_launches(steps: int, rebins: int = 0) -> dict:
+    """The launches of `steps` fluid steps on the card: K1, K2, F2 and F1
+    once a step, K3 twice a rebin (a sharded rank's rebin is the plain
+    one: none)."""
+    return launch_counts(density=steps, accel=steps, density_tail=steps,
+                         integrate=steps, rebin=2 * rebins)
+
+
+def colony_launches(steps: int, planned: int = 0) -> dict:
+    """The launches of `steps` colony steps on the card: K4, K5 and A1 once
+    a step, A2 once each of the `planned` quiet or hybrid planned steps."""
+    return launch_counts(contact=steps, expand=steps, bond_rows=steps,
+                         bond_scan=planned)
+
+
 def check_state(sim, n_expected: int) -> dict:
     m = sim.metrics()
     pos = sim.particles()[0]
@@ -593,10 +609,7 @@ def main() -> int:
     launches = dict(LAUNCHES)
     m = check_state(sim, N_CONFIG3)
     rebins = MAIN_STEPS // sim.params.rebin_every
-    want = {"density": MAIN_STEPS, "accel": MAIN_STEPS,
-            "rebin": 2 * rebins, "contact": 0, "expand": 0,
-            "density_tail": MAIN_STEPS, "integrate": MAIN_STEPS,
-            "bond_rows": 0, "bond_scan": 0}
+    want = fluid_launches(MAIN_STEPS, rebins)
     if launches != want:
         raise AssertionError(f"launches {launches} != {want}")
     say("main", f"config[3] {MAIN_STEPS} steps ({rebins} rebins): "
@@ -633,7 +646,7 @@ def main() -> int:
 
     # 6-9. The colony.
     colony = colony_kernels(dev, card)
-    colony_launches = colony_main(colony, card)
+    colony_counts = colony_main(colony, card)
     colony_divisions(dev, card)
     colony_phases(colony, card)
     bondplan_phase(dev, card)
@@ -666,7 +679,7 @@ def main() -> int:
     say("times", f"config[3] {list(d.px.shape)}: {n_pairs} occupied slot "
         f"pairs in the halved stencil, {n_near} of {n_occ} occupied slots "
         f"with an occupied partner")
-    launches.update(colony_launches)
+    launches.update(colony_counts)
     checks.update(colony["checks"])
     rows = []
     for name, (kern, plain, library_call, bnd) in pairs.items():
@@ -946,10 +959,7 @@ def colony_main(colony, card) -> dict:
 
     sim, sps, launches, plans, planned = run(colony["params"])
     m = sim.metrics()
-    want = {"density": 0, "accel": 0, "rebin": 0,
-            "contact": COLONY_STEPS, "expand": COLONY_STEPS,
-            "density_tail": 0, "integrate": 0, "bond_rows": COLONY_STEPS,
-            "bond_scan": COLONY_STEPS}
+    want = colony_launches(COLONY_STEPS, planned=COLONY_STEPS)
     if launches != want:
         raise AssertionError(f"colony launches {launches} != {want}")
     # The plan is built once and every step takes the quiet branch: a
@@ -977,7 +987,7 @@ def colony_main(colony, card) -> dict:
         colony["params"].replace(adhesion_plan="off"))
     if plans_off != {"quiet": 0, "hybrid": 0, "full": 0, "builds": 0}:
         raise AssertionError(f"plan used with adhesion_plan off: {plans_off}")
-    if launches_off != {**want, "bond_scan": 0}:
+    if launches_off != colony_launches(COLONY_STEPS):
         raise AssertionError(f"plain colony launches {launches_off}")
     say("colony main", f"the same {COLONY_STEPS} steps with adhesion_plan "
         f"off: {sps_off:.2f} steps/s (planned {sps:.2f}), launches "
@@ -985,8 +995,7 @@ def colony_main(colony, card) -> dict:
     for k, (a, b) in enumerate(zip(plain, planned)):
         held_to_plain(a, b, (k + 1) * COLONY_CHUNK)
     colony["sim"] = sim
-    return {k: launches[k] for k in ("contact", "expand", "bond_rows",
-                                      "bond_scan")}
+    return {k: n for k, n in launches.items() if n}
 
 
 # utils/verify.check_planned_adhesion's tolerances (rtol, atol).
@@ -1818,9 +1827,7 @@ def viewer_phase(colony, card) -> None:
     elapsed = time.perf_counter() - t0
     launches = dict(LAUNCHES)
     per = VIEW_SUBSTEPS * VIEW_FRAMES
-    if launches != {"density": 0, "accel": 0, "rebin": 0, "contact": per,
-                    "expand": per, "density_tail": 0, "integrate": 0,
-                    "bond_rows": per, "bond_scan": 0}:
+    if launches != colony_launches(per):
         raise AssertionError(f"viewer launches {launches}, want {per} "
                              f"contact and expand")
     if not gap1 < gap0:
@@ -1917,11 +1924,8 @@ def app_phase(sim, card) -> None:
         if (m["dropped"] != 0 or m["n_particles"] != N_CONFIG3
                 or frames != ["frame_00000.png", "frame_00001.png"]):
             raise AssertionError(f"app fluid: {m}, frames {frames}")
-        if not (launches["density"] == launches["accel"] == steps
-                and launches["density_tail"] == launches["integrate"]
-                == steps
-                and launches["rebin"] > 0 and launches["rebin"] % 2 == 0
-                and launches["contact"] == launches["expand"] == 0):
+        rebins = launches["rebin"] // 2
+        if rebins == 0 or launches != fluid_launches(steps, rebins):
             raise AssertionError(f"app fluid launches {launches} for "
                                  f"{steps} steps")
         shape = read_png(os.path.join(fluid_out, frames[-1])).shape
@@ -2439,19 +2443,19 @@ def verify_phase(card) -> None:
 # -- 19. bench: python -m sph_tpu_torch.bench --all --cells --breakdown -------
 
 # Each rung's steps and the launches they ask for: (steps, substeps or
-# chunk, rebin_every) at bench.py's settings (`_bench_dense` 240/60/6 and
-# 240/60/5 at config[3], `_bench_2d_dense` 480/120/3, config[4] 45/15/6,
-# `_bench_cells` 240/120 and 40/20 at 1M); a fluid rung launches K1 and K2 once a step and K3
-# twice a rebin, a dense colony K4 and K5 once a step, over one warm and
-# steps // substeps timed calls.
+# chunk, config) at bench.py's settings (`_bench_dense` 240/60,
+# `_bench_2d_dense` 480/120, config[4] 45/15, each at its config's rebin
+# cadence; `_bench_cells` 240/120 and 40/20 at 1M); a fluid rung launches
+# K1 and K2 once a step and K3 twice a rebin, a dense colony K4 and K5 once
+# a step, over one warm and steps // substeps timed calls.
 BENCH_RUNGS = {
     "2D dam-break 4k (brute-force executable spec)": None,
-    "2D splash/pour 32k (dense grid + Pallas)": ("fluid", 480, 120, 3),
-    "3D dam-break 256k (dense grid + Pallas)": ("fluid", 240, 60, 6),
+    "2D splash/pour 32k (dense grid + Pallas)": ("fluid", 480, 120, 1),
+    "3D dam-break 256k (dense grid + Pallas)": ("fluid", 240, 60, 2),
     "3D dam-break + SDF obstacle 1M (dense grid + Pallas)":
-        ("fluid", 240, 60, CONFIG3_LAYOUT["rebin_every"]),
+        ("fluid", 240, 60, 3),
     "3D dam-break 4M single-chip + 8-way decomposition dryrun":
-        ("fluid", 45, 15, 6),
+        ("fluid", 45, 15, 4),
     # Colonies from 163,840 bond rows (100k: 180,224) plan their adhesion.
     "cell colony 10k (contact+adhesion, grid)": ("grid cells", 240, 120, 0),
     "cell colony 10k (contact+adhesion, dense)": ("cells", 240, 120, 0),
@@ -2465,25 +2469,19 @@ BENCH_TIMEOUT = 600
 
 
 def bench_launches(rung) -> dict:
-    want = dict.fromkeys(("density", "accel", "rebin", "contact",
-                          "expand", "density_tail", "integrate",
-                          "bond_rows", "bond_scan"), 0)
     if rung is None:
-        return want
-    kind, steps, sub, rebin_every = rung
+        return launch_counts()
+    kind, steps, sub, config = rung
     total = sub * (1 + max(1, steps // sub))
-    if kind in ("cells", "planned cells"):
-        want.update(contact=total, expand=total, bond_rows=total)
-        if kind == "planned cells":
-            want.update(bond_scan=total)
-    elif kind == "grid cells":
-        want.update(bond_rows=total)
-    else:
-        rebins = sum(i % rebin_every == rebin_every - 1
-                     for i in range(total))
-        want.update(density=total, accel=total, rebin=2 * rebins,
-                    density_tail=total, integrate=total)
-    return want
+    if kind == "cells":
+        return colony_launches(total)
+    if kind == "planned cells":
+        return colony_launches(total, planned=total)
+    if kind == "grid cells":
+        return launch_counts(bond_rows=total)
+    every = LAYOUTS[config]["rebin_every"]
+    return fluid_launches(total, sum(i % every == every - 1
+                                     for i in range(total)))
 
 
 def bench_phase(main_sps: float, card: str) -> None:
@@ -2551,10 +2549,9 @@ def bench_phase(main_sps: float, card: str) -> None:
 # -- 12. shard: the sharded paths (sph_tpu_torch/parallel) -------------------
 
 # BASELINE's config[4] (bench.py:193-201 → _bench_dense, bench.py:57-70):
-# dam_break_3d at 4M particles, k = 8, cell_factor 1.35, rebin every 6,
-# kernels on; the bench's 45 steps in blocks of 15.
-CONFIG4 = dict(n_target=4_000_000, cell_factor=1.35, dense_k=8,
-               rebin_every=6, use_pallas=True)
+# dam_break_3d at 4M particles at its layout (k = 8, cell_factor 1.35,
+# rebin every 6), kernels on; the bench's 45 steps in blocks of 15.
+CONFIG4 = dict(n_target=4_000_000, **LAYOUTS[4], use_pallas=True)
 N_CONFIG4 = 4_012_092
 SHARD_STEPS, SHARD_SUBSTEPS, SHARD_MORE = 45, 15, 15
 SHARD_RANKS = 4
@@ -2898,10 +2895,8 @@ def shard_phase(colony, dev, card) -> None:
     sps = one.run(SHARD_STEPS)
     launches = dict(LAUNCHES)
     m = check_state(one, N_CONFIG4)
-    want = {"density": SHARD_STEPS, "accel": SHARD_STEPS,
-            "rebin": 2 * (SHARD_STEPS // CONFIG4["rebin_every"]),
-            "contact": 0, "expand": 0, "density_tail": SHARD_STEPS,
-            "integrate": SHARD_STEPS, "bond_rows": 0, "bond_scan": 0}
+    want = fluid_launches(SHARD_STEPS,
+                          SHARD_STEPS // CONFIG4["rebin_every"])
     if launches != want:
         raise AssertionError(f"config[4] launches {launches} != {want}")
     say("shard", f"config[4] one device, {SHARD_STEPS} steps: {sps:.2f} "
@@ -2981,10 +2976,7 @@ def shard_phase(colony, dev, card) -> None:
               args=({"device": "cuda", "scene": CONFIG3, "steps": NCCL_STEPS,
                      "ref": ref3},), timeout=SHARD_TIMEOUT)[0]
     exact_same("nccl config[3]", r["same"])
-    want = {"density": NCCL_STEPS, "accel": NCCL_STEPS, "rebin": 0,
-            "contact": 0, "expand": 0, "density_tail": NCCL_STEPS,
-            "integrate": NCCL_STEPS, "bond_rows": 0, "bond_scan": 0}
-    if r["backend"] != "nccl" or r["launches"] != want:
+    if r["backend"] != "nccl" or r["launches"] != fluid_launches(NCCL_STEPS):
         raise AssertionError(f"nccl world: {r['backend']} {r['launches']}")
     say("shard", f"config[3] on a one-rank nccl world, {NCCL_STEPS} steps: "
         f"{r['sps']:.2f} steps/s, launches {r['launches']}, bitwise to "
@@ -3009,10 +3001,7 @@ def shard_report(ranks, card) -> None:
         rs = [r[f"config4_{name}"] for r in ranks]
         for i, r in enumerate(rs):
             exact_same(f"config[4] {name} rank {i}", r["same"])
-            want = {"density": SHARD_STEPS, "accel": SHARD_STEPS,
-                    "rebin": 0, "contact": 0, "expand": 0,
-                    "density_tail": SHARD_STEPS, "integrate": SHARD_STEPS,
-                    "bond_rows": 0, "bond_scan": 0}
+            want = fluid_launches(SHARD_STEPS)
             if r["launches"] != want:
                 raise AssertionError(f"config[4] {name} rank {i} launches "
                                      f"{r['launches']} != {want}")
@@ -3070,9 +3059,7 @@ def shard_report(ranks, card) -> None:
                 raise AssertionError(f"{case} {name}: ranks differ or "
                                      f"differ from one device: "
                                      f"{rs[0]['differ']}")
-            want = {"density": 0, "accel": 0, "rebin": 0,
-                    "contact": steps, "expand": steps, "density_tail": 0,
-                    "integrate": 0, "bond_rows": steps, "bond_scan": 0}
+            want = colony_launches(steps)
             for i, r in enumerate(rs):
                 if r["launches"] != want:
                     raise AssertionError(f"{case} {name} rank {i} launches "

@@ -1,6 +1,6 @@
 """Benchmark harness of the port: the counterpart of the repository's
-`bench.py`, with its flags, rungs, settings and JSON line; its config[3]
-rung runs the port's config[3] layout (`scenes.CONFIG3_LAYOUT`: 16 slots,
+`bench.py`, with its flags, rungs, settings and JSON line; each dense
+rung runs its config's layout (`scenes.LAYOUTS`; config[3]'s has 16 slots,
 not the JAX bench's 8, at which the rebin drops particles).
 
     python -m sph_tpu_torch.bench                 # config[3] on the card
@@ -39,7 +39,7 @@ import traceback
 import torch
 
 from sph_tpu_torch.ops import LAUNCHES, reset_launches
-from sph_tpu_torch.sph.scenes import CONFIG3_LAYOUT
+from sph_tpu_torch.sph.scenes import LAYOUTS
 
 _T0 = time.monotonic()
 UNIT = "particle-steps/sec"
@@ -106,20 +106,24 @@ def _time_dense(state, params, spec, steps: int, substeps: int,
     return out
 
 
-def _bench_dense(n_target: int, steps: int = 240, substeps: int = 60,
-                 rebin_every: int = 6, obstacles=(),
-                 cell_factor: float = 1.25, dense_k: int = 8,
-                 device="cuda"):
-    """Config[2]-[4]: a 3D dam break on the dense grid through K1-K3."""
+def _dense_scene(n_target: int, obstacles=(), **layout):
+    """Config[2]-[4]'s 3D dam break with the kernels on, at config[2]'s
+    layout unless `layout` names other keys: (state, params, spec)."""
     from sph_tpu_torch.sph.dense import make_dense_spec
     from sph_tpu_torch.sph.scenes import dam_break_3d
 
-    state, params = dam_break_3d(n_target=n_target, obstacles=obstacles)
-    params = params.replace(cell_factor=cell_factor, dense_k=dense_k,
-                            rebin_every=rebin_every, use_pallas=True)
-    spec = make_dense_spec(params, k=dense_k, cell_factor=cell_factor)
-    return _time_dense(state, params, spec, steps, substeps,
-                       torch.device(device))
+    state, params = dam_break_3d(n_target=n_target, obstacles=obstacles,
+                                 use_pallas=True, **{**LAYOUTS[2], **layout})
+    return state, params, make_dense_spec(params, k=params.dense_k,
+                                          cell_factor=params.cell_factor)
+
+
+def _bench_dense(n_target: int, steps: int = 240, substeps: int = 60,
+                 obstacles=(), device="cuda", **layout):
+    """Config[2]-[4]: a 3D dam break on the dense grid through K1-K3, at
+    config[2]'s layout unless `layout` names other keys."""
+    return _time_dense(*_dense_scene(n_target, obstacles, **layout), steps,
+                       substeps, torch.device(device))
 
 
 def _bench_2d_bruteforce(n_target: int, steps: int = 20, device="cuda"):
@@ -150,10 +154,10 @@ def _bench_2d_dense(n_target: int, steps: int = 480, substeps: int = 120,
     from sph_tpu_torch.sph.dense import make_dense_spec
     from sph_tpu_torch.sph.scenes import splash_pour_2d
 
-    state, params = splash_pour_2d(n_target=n_target)
-    params = params.replace(cell_factor=1.2, dense_k=8, rebin_every=3,
-                            use_pallas=True)
-    spec = make_dense_spec(params, k=8, cell_factor=1.2)
+    state, params = splash_pour_2d(n_target=n_target, use_pallas=True,
+                                   **LAYOUTS[1])
+    spec = make_dense_spec(params, k=params.dense_k,
+                           cell_factor=params.cell_factor)
     return _time_dense(state, params, spec, steps, substeps,
                        torch.device(device))
 
@@ -212,8 +216,8 @@ def _bench_4m_multichip(device="cuda"):
     from sph_tpu_torch.parallel.dryrun import dryrun_multichip
 
     device = torch.device(device)
-    out = _bench_dense(4_000_000, steps=45, substeps=15, cell_factor=1.35,
-                       device=device)
+    out = _bench_dense(4_000_000, steps=45, substeps=15, device=device,
+                       **LAYOUTS[4])
     _note("4M dense done; starting 8-way decomposition dryrun")
     where = ("the CPU" if device.type == "cpu"
              else f"{torch.cuda.device_count()} card(s)")
@@ -238,7 +242,7 @@ CONFIGS = {
         lambda device: _bench_dense(262144, device=device)),
     3: ("3D dam-break + SDF obstacle 1M (dense grid + Pallas)",
         lambda device: _bench_dense(1_000_000, obstacles=OBSTACLE,
-                                    **CONFIG3_LAYOUT, device=device)),
+                                    device=device, **LAYOUTS[3])),
     4: ("3D dam-break 4M single-chip + 8-way decomposition dryrun",
         _bench_4m_multichip),
 }
@@ -249,12 +253,11 @@ CELLS = (
     # 100x the reference's 10k default capacity; scale row, short run.
     (1_048_576, "dense", 40, 20),
 )
-# --breakdown: the config[2] and config[3] rungs at their settings.
+# --breakdown: the config[2] and config[3] rungs' scenes (`_dense_scene`).
 BREAKDOWN = {
-    "phase_breakdown_256k": dict(n_target=262144, obstacles=(),
-                                 cell_factor=1.25),
+    "phase_breakdown_256k": dict(n_target=262144),
     "phase_breakdown_1m": dict(n_target=1_000_000, obstacles=OBSTACLE,
-                               **CONFIG3_LAYOUT),
+                               **LAYOUTS[3]),
 }
 
 
@@ -369,20 +372,13 @@ def main(argv=None) -> int:
 
     if args.breakdown:
         _note("breakdown start (256k + 1M phase splits)")
-        from sph_tpu_torch.sph.dense import make_dense_spec, pack
-        from sph_tpu_torch.sph.scenes import dam_break_3d
+        from sph_tpu_torch.sph.dense import pack
         from sph_tpu_torch.utils.profiling import step_breakdown
 
         # The config[2] and config[3] rungs' settings, so each split
         # explains its rung's rate.
         for key, kw in BREAKDOWN.items():
-            st, prm = dam_break_3d(n_target=kw["n_target"],
-                                   obstacles=kw["obstacles"])
-            cf, k = kw["cell_factor"], kw.get("dense_k", 8)
-            prm = prm.replace(cell_factor=cf, dense_k=k,
-                              rebin_every=kw.get("rebin_every", 6),
-                              use_pallas=True)
-            spc = make_dense_spec(prm, k=k, cell_factor=cf)
+            st, prm, spc = _dense_scene(**kw)
             detail[key] = step_breakdown(pack(st, prm, spc, device=device),
                                          prm, spc)
 

@@ -21,6 +21,16 @@ FLOOR_LAUNCHES = {"zero": 0, "pads": 0, "screen": 0}
 REBIN_PEAK = {}
 
 
+def launch_counts(**expected) -> dict:
+    """A launch expectation over LAUNCHES' kernels: the counts named in
+    `expected` and 0 for every other kernel, so that an expectation names
+    only the kernels that run. A name that is no kernel raises KeyError."""
+    unknown = sorted(set(expected) - set(LAUNCHES))
+    if unknown:
+        raise KeyError(f"not kernels of LAUNCHES: {unknown}")
+    return {name: expected.get(name, 0) for name in LAUNCHES}
+
+
 def reset_launches() -> None:
     for counts in (LAUNCHES, FLOOR_LAUNCHES):
         for name in counts:

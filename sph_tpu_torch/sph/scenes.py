@@ -90,6 +90,15 @@ def dam_break_3d(n_target: int = 262144, obstacles=(), **overrides):
 # and a rebin every 6 steps the rebin dropped ~9% of the column (PERF.md
 # §4).
 CONFIG3_LAYOUT = dict(dense_k=16, cell_factor=1.3, rebin_every=5)
+# Each dense config's layout (slots a cell, cell side in h, steps between
+# rebins): config[1], [2] and [4] at the JAX bench's (bench.py), config[3]
+# at the port's own. The port's bench and chip_smoke.py read them here.
+LAYOUTS = {
+    1: dict(dense_k=8, cell_factor=1.2, rebin_every=3),
+    2: dict(dense_k=8, cell_factor=1.25, rebin_every=6),
+    3: CONFIG3_LAYOUT,
+    4: dict(dense_k=8, cell_factor=1.35, rebin_every=6),
+}
 
 
 def dam_break_3d_obstacle(n_target: int = 1_000_000, **overrides):

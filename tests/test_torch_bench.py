@@ -13,11 +13,13 @@ import os
 import pathlib
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import pytest
 import torch
 
 from sph_tpu_torch import bench
+from sph_tpu_torch.ops import LAUNCHES
 from sph_tpu_torch.parallel import dryrun
 
 torch.set_num_threads(1)
@@ -68,11 +70,69 @@ def test_rung_matches_jax(jbench, name):
     assert got.get("neighbor_mode") == want.get("neighbor_mode")
     assert got.get("backend") == want.get("backend")
     # On the CPU the wrappers run their plain versions: nothing launched.
-    assert set(got["launches"]) == {"density", "accel", "rebin", "contact",
-                                    "expand", "density_tail", "integrate",
-                                    "bond_rows", "bond_scan"}
+    assert set(got["launches"]) == set(LAUNCHES)
     assert not any(got["launches"].values())
     assert got["steps_per_sec"] > 0
+
+
+class _Packed(Exception):
+    """Raised by a stubbed JAX `pack` with the params a rung built."""
+
+
+# The dense rungs' particle counts, by config.
+DENSE_N = {1: 32768, 2: 262144, 3: 1_000_000, 4: 4_000_000}
+
+
+@pytest.mark.parametrize("i", sorted(DENSE_N))
+def test_dense_rung_runs_its_configs_layout(jbench, monkeypatch, i):
+    """Each dense rung of CONFIGS builds its params at scenes.LAYOUTS[i]
+    with the kernels on, as the JAX bench's rung does but at config[3],
+    where the port runs its own layout. The scene builders, the port's
+    timed window, JAX's pack and the 8-way dryrun are stubbed: no scene is
+    built and no step runs."""
+    import sph_tpu.sph.dense as jdense
+    import sph_tpu.sph.model as jmodel
+    import sph_tpu.sph.scenes as jscenes
+    from sph_tpu_torch.sph import scenes
+    from sph_tpu_torch.sph.model import SPHParams
+
+    def stub(unset):
+        def scene(n_target, obstacles=(), **kw):
+            state = SimpleNamespace(pos=SimpleNamespace(shape=(n_target, 3)))
+            return state, unset.replace(obstacles=tuple(obstacles), **kw)
+        return scene
+
+    far = dict(dense_k=1, cell_factor=9.0, rebin_every=99, use_pallas=False)
+    for mod, params in ((scenes, SPHParams(**far)),
+                        (jscenes, jmodel.SPHParams(**far))):
+        for name in ("dam_break_3d", "splash_pour_2d"):
+            monkeypatch.setattr(mod, name, stub(params))
+    seen = []
+    monkeypatch.setattr(bench, "_time_dense",
+                        lambda *a: seen.append(a[:3]) or {})
+    monkeypatch.setattr(dryrun, "dryrun_multichip", lambda *a, **kw: None)
+
+    def packed(state, params, spec, *a, **kw):
+        raise _Packed(params, spec)
+
+    monkeypatch.setattr(jdense, "pack", packed)
+    bench.CONFIGS[i][1]("cpu")
+    (state, params, spec), = seen
+    layout = scenes.LAYOUTS[i]
+    assert state.pos.shape[0] == DENSE_N[i]
+    assert {k: getattr(params, k) for k in layout} == layout
+    assert params.use_pallas
+    assert params.obstacles == (bench.OBSTACLE if i == 3 else ())
+    assert (spec.k, spec.cell) == (params.dense_k,
+                                   params.h * params.cell_factor)
+    with pytest.raises(_Packed) as built:
+        jbench.CONFIGS[i][1]()
+    jparams, jspec = built.value.args
+    if i == 3:
+        assert layout is scenes.CONFIG3_LAYOUT
+    else:
+        assert {k: getattr(jparams, k) for k in layout} == layout
+        assert (jspec.k, jspec.cell) == (spec.k, spec.cell)
 
 
 def tiny_configs(fail: int | None = None):

@@ -180,9 +180,7 @@ def test_wrappers_take_plain_route_on_cpu(ndim, obstacle, drag):
     for x, y in zip(oi.density_tail(raw, occ, tp),
                     tdense.density_tail(raw, occ, tp)):
         assert torch.equal(x, y)
-    assert LAUNCHES == {"density": 0, "accel": 0, "rebin": 0, "contact": 0,
-                        "expand": 0, "density_tail": 0, "integrate": 0,
-                        "bond_rows": 0, "bond_scan": 0}
+    assert not any(LAUNCHES.values())
     assert build._LOADED is None
 
 

@@ -1,9 +1,10 @@
 """The kernel wrappers and the kernel build, on the CPU: a CPU tensor takes
 the plain PyTorch version (and counts no launch), the dense step's kernel
 flag changes nothing there, the fluid sweeps' band planner fits shared
-memory and covers the layout, and the build refuses cleanly without a CUDA
-toolkit. The kernels themselves are checked on the card
-(tests/test_torch_cuda.py, chip_smoke.py)."""
+memory and covers the layout, the build refuses cleanly without a CUDA
+toolkit, and `launch_counts` spells an expectation over every kernel. The
+kernels themselves are checked on the card (tests/test_torch_cuda.py,
+chip_smoke.py)."""
 
 import dataclasses
 import shutil
@@ -11,7 +12,7 @@ import shutil
 import pytest
 import torch
 
-from sph_tpu_torch.ops import LAUNCHES, build, reset_launches
+from sph_tpu_torch.ops import LAUNCHES, build, launch_counts, reset_launches
 from sph_tpu_torch.ops import fluid
 from sph_tpu_torch.ops.fluid import accel_sweep, band_plan, density_sweep
 from sph_tpu_torch.ops.rebin import staged_rebin
@@ -53,9 +54,7 @@ def test_wrappers_take_plain_route_on_cpu(case):
     b = dense.rebin(d, px, py, pz, d.vx, d.vy, d.vz, p, spec)
     for f in ("px", "py", "pz", "vx", "vy", "vz", "occ", "dropped"):
         assert torch.equal(getattr(a, f), getattr(b, f)), f
-    assert LAUNCHES == {"density": 0, "accel": 0, "rebin": 0,
-                        "contact": 0, "expand": 0, "density_tail": 0,
-                        "integrate": 0, "bond_rows": 0, "bond_scan": 0}
+    assert not any(LAUNCHES.values())
     # The live-card check runs end to end here too (trivially equal).
     r = check_fluid_twins(d, p, spec)
     assert r["rebin"]["dropped"] > 0
@@ -148,6 +147,20 @@ def test_operand_checks_refuse_non_cuda():
     with pytest.raises(RuntimeError, match="cudaError 9"):
         build.check_launch("density_sweep", 9)
     build.check_launch("density_sweep", 0)
+
+
+@pytest.mark.parametrize("name", sorted(LAUNCHES))
+def test_launch_counts_names_only_the_kernels_that_run(name):
+    want = launch_counts(**{name: 3})
+    assert list(want) == list(LAUNCHES)
+    assert want[name] == 3
+    assert not any(n for k, n in want.items() if k != name)
+
+
+def test_launch_counts_refuses_a_name_that_is_no_kernel():
+    assert launch_counts() == dict.fromkeys(LAUNCHES, 0)
+    with pytest.raises(KeyError, match="bond_scans"):
+        launch_counts(contact=1, bond_scans=1)
 
 
 def test_build_recipe(tmp_path, monkeypatch):

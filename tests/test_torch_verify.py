@@ -2,7 +2,9 @@
 CHECKS, run_all, verify_summary and its CLI) on the CPU, where every
 kernel wrapper runs its plain version, and the last names the port
 carries over from the JAX package: engine.step.make_step_fn,
-core.quat.IDENTITY and biology.ZONE_A/B/C."""
+core.quat.IDENTITY and biology.ZONE_A/B/C. The whole lane runs once for
+the file (`lane`); the summary's and the CLI's failure paths run it cut
+to two cheap checks."""
 
 import dataclasses
 import importlib
@@ -26,18 +28,36 @@ tstep = importlib.import_module("sph_tpu_torch.engine.step")
 
 torch.set_num_threads(1)
 
-def test_run_all_on_the_cpu_has_jax_checks_and_passes():
-    results = verify.run_all(device="cpu")
+# The lane's two cheapest checks, the perturbed one among them: the tests
+# of the summary and the CLI run the lane cut to these.
+CHEAP = ("expand pack blob n=400 k=4 (round-3 repro)",
+         "contact end-to-end n=400 k=4")
+
+
+@pytest.fixture(scope="module")
+def lane():
+    """The whole seven-check lane on the CPU, run once for the file."""
+    return verify.run_all(device="cpu")
+
+
+def cheap_lane(monkeypatch):
+    monkeypatch.setattr(verify, "CHECKS", tuple(
+        (name, fn) for name, fn in verify.CHECKS if name in CHEAP))
+
+
+def test_run_all_on_the_cpu_has_jax_checks_and_passes(lane, monkeypatch):
     names = [n for n, _ in jverify.CHECKS]
-    assert [n for n, _ in results] == names and len(names) == 7
-    assert [e for _, e in results] == [None] * 7
+    assert [n for n, _ in lane] == names and len(names) == 7
+    assert [e for _, e in lane] == [None] * 7
+    monkeypatch.setattr(verify, "run_all", lambda verbose=False,
+                        device="cuda": lane)
     assert verify.verify_summary(device="cpu") == "ok (cpu, 7 twin checks)"
 
 
 @pytest.fixture
 def perturbed_sweep(monkeypatch):
     """The contact sweep's wrapper with its force scaled by 1 + 1e-3, as a
-    wrong kernel would give it."""
+    wrong kernel would give it, in the lane cut to its CHEAP checks."""
     sweep = oc.contact_sweep
 
     def wrong(*a, **kw):
@@ -45,6 +65,7 @@ def perturbed_sweep(monkeypatch):
         return [o * 1.001 for o in outs[:3]] + outs[3:]
 
     monkeypatch.setattr(oc, "contact_sweep", wrong)
+    cheap_lane(monkeypatch)
 
 
 def test_a_perturbed_check_fails_in_the_summary(perturbed_sweep):
@@ -56,11 +77,12 @@ def test_a_perturbed_check_fails_in_the_summary(perturbed_sweep):
 def test_cli_exit_codes(perturbed_sweep, monkeypatch, capsys):
     assert verify.main(["--device", "cpu"]) == 1
     out = capsys.readouterr().out
-    assert "6/7 twin checks ok" in out
+    assert "1/2 twin checks ok" in out
     assert "FAIL contact end-to-end n=400 k=4" in out
-    monkeypatch.undo()
+    monkeypatch.undo()          # the sweep, and the cut lane: cut it again
+    cheap_lane(monkeypatch)
     assert verify.main(["--device", "cpu"]) == 0
-    assert "7/7 twin checks ok" in capsys.readouterr().out
+    assert "2/2 twin checks ok" in capsys.readouterr().out
     if not torch.cuda.is_available():
         assert verify.main([]) == 1
 

@@ -28,8 +28,7 @@ import torch
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
 
-CONFIG3 = dict(n_target=1_000_000, cell_factor=1.38, dense_k=8,
-               rebin_every=6)
+from chip_smoke import CONFIG3  # noqa: E402
 
 
 def cuda_ms(fn, reps: int) -> float:

@@ -152,15 +152,16 @@ def phases(cs, sim, rows: list, card: str) -> None:
 def bench_rungs(rows: list, card: str) -> None:
     """The bench's rungs on one device, and its breakdown at 1M."""
     from sph_tpu_torch import bench
+    from sph_tpu_torch.sph.scenes import LAYOUTS
     from sph_tpu_torch.utils.profiling import step_breakdown
 
     rungs = {
         "config[1] 2D 32k": lambda: bench._bench_2d_dense(32768),
         "config[2] 3D 256k": lambda: bench._bench_dense(262144),
         "config[3] 1M + obstacle": lambda: bench._bench_dense(
-            1_000_000, obstacles=bench.OBSTACLE, cell_factor=1.38),
+            1_000_000, obstacles=bench.OBSTACLE, **LAYOUTS[3]),
         "config[4] 4M one device": lambda: bench._bench_dense(
-            4_000_000, steps=45, substeps=15, cell_factor=1.35),
+            4_000_000, steps=45, substeps=15, **LAYOUTS[4]),
     }
     for name, fn in rungs.items():
         t0 = time.perf_counter()
@@ -169,15 +170,10 @@ def bench_rungs(rows: list, card: str) -> None:
                     "wall_s": time.perf_counter() - t0, "card": card})
         torch.cuda.empty_cache()
     # The bench's --breakdown at 1M: the freshly packed state.
-    from sph_tpu_torch.sph.dense import make_dense_spec, pack
-    from sph_tpu_torch.sph.scenes import dam_break_3d
+    from sph_tpu_torch.sph.dense import pack
 
-    kw = bench.BREAKDOWN["phase_breakdown_1m"]
-    st, prm = dam_break_3d(n_target=kw["n_target"],
-                           obstacles=kw["obstacles"])
-    prm = prm.replace(cell_factor=kw["cell_factor"], dense_k=8,
-                      rebin_every=6, use_pallas=True)
-    spc = make_dense_spec(prm, k=8, cell_factor=kw["cell_factor"])
+    st, prm, spc = bench._dense_scene(
+        **bench.BREAKDOWN["phase_breakdown_1m"])
     emit(rows, {"what": "bench breakdown 1M", **step_breakdown(
         pack(st, prm, spc, device="cuda"), prm, spc), "card": card})
 
