@@ -44,7 +44,10 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
                centre (contacts must occur), with its band plan and listed
                bands; the pack's placement (K5) bitwise at 1M, at the
                expand probe's scene (n=400, k=4, spawn 10) and at a crowded
-               scene whose cells overflow, with dead rows; A1 bitwise on
+               scene whose cells overflow, with dead rows; the pack's slot
+               bookkeeping (the slots kernel) and the gather back (the
+               gather kernel) bitwise at 1M, settled and compressed; A1
+               bitwise on
                the settled colony and with bond edge cases; A2 bitwise
                (NaN payloads too) on A1's rows of both through the
                colony's plan and with a hybrid zero_bond mask.
@@ -52,7 +55,8 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
                Simulation(scan_chunk=20).step, two chunks through
                run_steps with the adhesion BondPlan carried (1,818,624 bond
                rows, past use_bond_plan's threshold), counters reset just
-               before: 40 contact, 40 expand, 40 A1 and 40 A2 launches,
+               before: 40 launches each of the slots kernel, K5, K4,
+               the gather kernel and A1, and 40 A2 launches,
                the plan built once and the quiet planned branch taken on
                all 40 steps,
                count conserved, overflow 0, bonds not grown, positions
@@ -158,7 +162,7 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
                times, hold, release), counters reset just before: the
                pick equals a brute-force ray test's, the dragged cell
                closes on its target, drag_slot is -1 after release, and
-               the contact and expand kernels launched 4 times a frame;
+               the contact pass's four kernels launched 4 times a frame;
                frames/s and a per-frame split (stepping, impostor,
                readback, overlay commands, rasterisation, PNG encoding);
                one frame written as a PNG and read back bitwise.
@@ -248,6 +252,13 @@ KERNELS = {
     # row gather, _blocked_segscan and the run-total gather.
     "bond_scan": ("sph_tpu_torch/csrc/adhesion.cu",
                   "sph_tpu/physics/adhesion.py:273"),
+    # The contact pass's slot bookkeeping, which XLA fuses in the JAX
+    # package: the ranks and slots after the pack sort, and the gather
+    # back to particle order after the sweep.
+    "contact_slots": ("sph_tpu_torch/csrc/contact_slots.cu",
+                      "sph_tpu/physics/contact_dense.py:268"),
+    "contact_gather": ("sph_tpu_torch/csrc/contact_slots.cu",
+                       "sph_tpu/physics/contact_dense.py:230"),
     # K4's floor modes: the stubs tools/probe_kernel_floor.py swaps into
     # the Pallas contact sweep.
     "floor_zero": ("sph_tpu_torch/csrc/contact_sweep.cu",
@@ -522,9 +533,11 @@ def fluid_launches(steps: int, rebins: int = 0) -> dict:
 
 
 def colony_launches(steps: int, planned: int = 0) -> dict:
-    """The launches of `steps` colony steps on the card: K4, K5 and A1 once
-    a step, A2 once each of the `planned` quiet or hybrid planned steps."""
-    return launch_counts(contact=steps, expand=steps, bond_rows=steps,
+    """The launches of `steps` colony steps on the card: the slots kernel,
+    K5, K4, the gather kernel and A1 once a step, A2 once each of the
+    `planned` quiet or hybrid planned steps."""
+    return launch_counts(contact_slots=steps, expand=steps, contact=steps,
+                         contact_gather=steps, bond_rows=steps,
                          bond_scan=planned)
 
 
@@ -856,9 +869,12 @@ def colony_kernels(dev, card) -> dict:
         check_bond_rows,
         check_bond_scan,
         check_contact,
+        check_contact_gather,
+        check_contact_slots,
         check_expand,
         compressed,
     )
+    from sph_tpu_torch.ops.contact import contact_sweep
 
     t0 = time.perf_counter()
     state, params, genome = bonded_colony(COLONY_N, device=dev, **COLONY_KW)
@@ -883,6 +899,15 @@ def colony_kernels(dev, card) -> dict:
     say("colony kernels", f"contact {contact_band_line(occ, spec)}")
     expand = check_expand(state, spec)
     say("colony kernels", f"expand at 1M: {json.dumps(expand)}")
+    for name, st_ in (("settled", state), ("compressed x0.7", squeezed)):
+        slots_r = check_contact_slots(
+            *torch.sort(cd._cell_ids(st_, spec), stable=True), spec)
+        fields_, occ_, slot_of_, ovr_ = cd._pack_args(st_, spec)
+        gather_r = check_contact_gather(
+            [c.reshape(-1) for c in contact_sweep(fields_, occ_, params,
+                                                  spec)], slot_of_, ovr_)
+        say("colony kernels", f"contact slots and gather at 1M, {name}, "
+            f"bitwise: {json.dumps(slots_r)}, {json.dumps(gather_r)}")
     # The expand probe's scene (tools/repro_expand.py): 400 cells in a
     # radius-9 ball, k = 4, spawn radius 10, drawn with numpy (seed 3).
     s6, _, spec6 = blob(n=400, k=4, seed=3, radius=9.0, spawn=10.0,
@@ -928,6 +953,8 @@ def colony_kernels(dev, card) -> dict:
             "checks": {"contact": contact_c if contact_c["max_abs_err"]
                        > contact["max_abs_err"] else contact,
                        "expand": expand, "bond_rows": rows_e,
+                       "contact_slots": {"max_abs_err": 0.0},
+                       "contact_gather": {"max_abs_err": 0.0},
                        "bond_scan": scans["edge cases"]}}
 
 
@@ -1088,6 +1115,7 @@ def colony_phases(colony, card) -> None:
     synchronisations of one step, and the profiler's busy share."""
     from sph_tpu_torch.biology import bonds, division
     from sph_tpu_torch.engine.step import step
+    from sph_tpu_torch.ops import contact_slots as ocs
     from sph_tpu_torch.ops.adhesion import bond_rows
     from sph_tpu_torch.ops.contact import contact_sweep
     from sph_tpu_torch.ops.expand import expand_rows
@@ -1100,21 +1128,29 @@ def colony_phases(colony, card) -> None:
 
     sim = colony["sim"]
     st, p, g, spec = sim.state, sim.params, sim.genome_dev, colony["spec"]
-    rows, flat, fits, key, ovr, slot_of = cd._sort_with_payload(st, spec)
+    rows, flat, fits, key, ovr, slot_of = cd._sort_with_payload(
+        st, spec, kernel=True)
+    cid_s, order = torch.sort(cd._cell_ids(st, spec), stable=True)
     packed = expand_rows(rows, key, cd.PACK_FILLS, spec)
     fields = [packed[c].view(spec.shape()) for c in range(10)]
     occ = packed[10].view(spec.shape())
-    comps = contact_sweep(fields, occ, p, spec)
-    f, t, _ = cd.gather_back([c.reshape(-1) for c in comps], slot_of, ovr)
+    comps = [c.reshape(-1) for c in contact_sweep(fields, occ, p, spec)]
+    f, t, _ = ocs.gather_back(comps, slot_of, ovr)
     adh_rows = adh.bond_rows(st, p, g)
     adh_segs = adh._segments(st.bonds, st.capacity)
     phases = {
-        "pack sort (cell ids, stable sort, row gather, ranks)":
-            lambda: cd._sort_with_payload(st, spec),
+        "pack sort (cell ids, stable sort, row gather, the slots kernel)":
+            lambda: cd._sort_with_payload(st, spec, kernel=True),
+        "- of which the slots kernel":
+            lambda: ocs.rank_and_slots(cid_s, order, spec),
+        "- of which the slots kernel's plain version (cummax, 20 ops)":
+            lambda: cd._rank_and_slots(cid_s, order, spec),
         "K5 expand": lambda: expand_rows(rows, key, cd.PACK_FILLS, spec),
         "K4 contact sweep": lambda: contact_sweep(fields, occ, p, spec),
-        "gather back": lambda: cd.gather_back(
-            [c.reshape(-1) for c in comps], slot_of, ovr),
+        "gather back (the gather kernel)":
+            lambda: ocs.gather_back(comps, slot_of, ovr),
+        "- of which the gather kernel's plain version (stack, row gather)":
+            lambda: cd.gather_back(comps, slot_of, ovr),
         "apply contact": lambda: apply_contact(st, p, f, t),
         "adhesion (A1's row table, sorted segment sum)":
             lambda: apply_adhesion(st, p, g),
@@ -2086,8 +2122,37 @@ def colony_time_pairs(colony, card) -> dict:
         f"a call (eager {host_ms(scan[1]):.4f}); device ms a launch by "
         f"kernel {json.dumps(device_ms(scan[0]))}; by 32-byte sectors "
         f"{scan[4]:.4f} ms | {card}")
+    slots, gather = contact_slot_pairs(st, p, spec)
+    for name, pair in (("contact_slots", slots), ("contact_gather", gather)):
+        say("times", f"{name} at 1M: host enqueue {host_ms(pair[0]):.4f} ms "
+            f"a call (plain {host_ms(pair[1]):.4f}); device "
+            f"{one_kernel(name, pair[0])[0]:.4f} ms, one kernel a call | "
+            f"{card}")
     return {"contact": contact, "expand": expand, "bond_rows": rows,
-            "bond_scan": scan[:4]}
+            "bond_scan": scan[:4], "contact_slots": slots,
+            "contact_gather": gather}
+
+
+def contact_slot_pairs(st, p, spec):
+    """(kernel, plain, library call, bound) of the slots kernel on the
+    state's sorted cell ids (ids and order in; flat, key, slot_of and fits
+    out: 25 bytes a row) and of the gather kernel on K4's planes (slot_of
+    and six f32 of the particle's slot in, six out: 52 bytes a
+    particle)."""
+    from sph_tpu_torch.ops import contact_slots as ocs
+    from sph_tpu_torch.ops.contact import contact_sweep
+    from sph_tpu_torch.physics import contact_dense as cd
+
+    cid_s, order = torch.sort(cd._cell_ids(st, spec), stable=True)
+    fields, occ, slot_of, ovr = cd._pack_args(st, spec, expand=True)
+    comps = [c.reshape(-1) for c in contact_sweep(fields, occ, p, spec)]
+    n = cid_s.numel()
+    return ((lambda: ocs.rank_and_slots(cid_s, order, spec),
+             lambda: cd._rank_and_slots(cid_s, order, spec), None,
+             bound(n * (4 + 8 + 3 * 4 + 1), 0)),
+            (lambda: ocs.gather_back(comps, slot_of, ovr),
+             lambda: cd.gather_back(comps, slot_of, ovr), None,
+             bound(n * (4 + 2 * 6 * 4), 0)))
 
 
 def bond_rows_pair(st, p, gd):

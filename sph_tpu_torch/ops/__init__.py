@@ -1,7 +1,8 @@
 """Hand-written CUDA kernels and their wrappers: the dense fluid step
 (density, accel, rebin, and its per-slot tail: density_tail, integrate),
-the colony contact path (contact, expand) and the adhesion pass's
-per-bond rows (bond_rows) and planned accumulate (bond_scan).
+the colony contact path (contact_slots, expand, contact, contact_gather)
+and the adhesion pass's per-bond rows (bond_rows) and planned accumulate
+(bond_scan).
 
 LAUNCHES counts, per kernel, the launches its wrapper made (incremented
 only where the kernel is launched, never on the plain CPU route), so a run
@@ -11,7 +12,7 @@ that no step launches, apart, so that a step's counts stay comparable."""
 
 LAUNCHES = {"density": 0, "accel": 0, "rebin": 0, "contact": 0,
             "expand": 0, "density_tail": 0, "integrate": 0, "bond_rows": 0,
-            "bond_scan": 0}
+            "bond_scan": 0, "contact_slots": 0, "contact_gather": 0}
 FLOOR_LAUNCHES = {"zero": 0, "pads": 0, "screen": 0}
 # Per device, a 0-dim int32 tensor there: the most particles that sought
 # one cell at any stage of a rebin since the last reset (K3 raises it with

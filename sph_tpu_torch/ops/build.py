@@ -23,7 +23,8 @@ from pathlib import Path
 import torch
 
 SOURCES = ("fluid_sweep.cu", "rebin.cu", "contact_sweep.cu",
-           "expand_rows.cu", "integrate.cu", "adhesion.cu")
+           "expand_rows.cu", "integrate.cu", "adhesion.cu",
+           "contact_slots.cu")
 HEADERS = ("persistent.cuh",)   # included by the sources; in the hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -77,6 +78,11 @@ _ARGTYPES = {
     # rows, perm, flags, last, has, zero_bond (or null), b, out, v_in,
     # f_in, tv, tf, cursor, mp, n, stream
     "sph_bond_scan": [_P] * 6 + [_I] + [_P] * 6 + [_I] * 2 + [_P],
+    # cid, order, n, k, dead, slots, flat, fits, key, slot_of, overflow,
+    # cursor, device, stream
+    "sph_contact_slots": [_P] * 2 + [_I] * 4 + [_P] * 6 + [_I, _P],
+    # planes[6] (host), slot_of, out, n, slots, stream
+    "sph_contact_gather": [ctypes.POINTER(_P), _P, _P, _I, _I, _P],
 }
 
 

@@ -595,10 +595,11 @@ def contact_block(planes_in, spec, shape: tuple[int, ...],
 
 
 def _contact_forces(params, mesh: Mesh, spec):
-    """The sharded contact forces: the pack (K5 on the card) replicated on
-    every rank; the rank's halo-padded block, cut from it, through the
-    sweep (K4 on the card); the six components gathered over the mesh,
-    then one row gather back to particle order."""
+    """The sharded contact forces: the pack (the slots kernel and K5 on
+    the card) replicated on every rank; the rank's halo-padded block, cut
+    from it, through the sweep (K4 on the card); the six components
+    gathered over the mesh, then one row gather back to particle order
+    (the gather kernel on the card)."""
     from sph_tpu_torch.physics import contact_dense as cd
 
     rows = contact_rows(spec, mesh.shape)
@@ -625,8 +626,7 @@ def _contact_forces(params, mesh: Mesh, spec):
                            else c[1:-1, 4:4 + rows] for c in comps])
         full = mesh.all_gather_blocks(own, dims=(1, 2))
         full = full[:, :spec.nz, :spec.ny]
-        return cd.gather_back([c.reshape(-1) for c in full], slot_of,
-                              overflow)
+        return cd._gather_back(full, slot_of, overflow, kernel=use_kernel)
 
     return f
 

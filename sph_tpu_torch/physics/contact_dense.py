@@ -10,9 +10,11 @@ offset o = dx·K + dm; offsets that reach a dx = ±2 cell reject
 arithmetically (cell ≥ contact reach).
 
 Per call: cell id → stable sort carrying the 11 particle columns → rank in
-cell → placement into the planar fields (`_scatter_sorted`, or K5 on the
-card) → the full-stencil own-only sweep (`_sweep_plain`, or K4 on the card)
-→ one row gather back to particle order. The sweep sums
+cell (`_rank_and_slots`, or the slots kernel on the card) → placement into
+the planar fields (`_scatter_sorted`, or K5 on the card) → the
+full-stencil own-only sweep (`_sweep_plain`, or K4 on the card) → one row
+gather back to particle order (`gather_back`, or the gather kernel on the
+card). The sweep sums
 `contact_pair_terms` over `contact_variants` in their order, so the kernel
 K4 and the plain version add the same terms in the same order.
 
@@ -180,13 +182,26 @@ def contact_screen(params: SimParams, cx, cy, cz, crad, qx, qy, qz, qrad):
 
 def gather_back(comps_flat, slot_of, overflow):
     """ONE row gather of the stacked per-slot components back to particle
-    order. Returns (force [N, 3], torque [N, 3], overflow)."""
+    order. Returns (force [N, 3], torque [N, 3], overflow). The plain
+    version of the gather kernel (ops/contact_slots.py `gather_back`)."""
     table = torch.stack(comps_flat, dim=-1)              # [slots, 6]
     n = table.shape[0]
     idx = torch.clamp(slot_of, max=n - 1).long()
     valid = (slot_of < n)[:, None].to(torch.float32)
     ft = table[idx] * valid
     return ft[:, :3], ft[:, 3:], overflow
+
+
+def _gather_back(comps, slot_of, overflow, kernel: bool = False):
+    """`gather_back` of the sweep's six planes; kernel=True takes it
+    through ops.contact_slots.gather_back (the gather kernel on a CUDA
+    tensor, the plain version on a CPU one); both give the same bits."""
+    comps_flat = [c.reshape(-1) for c in comps]
+    if kernel:
+        from sph_tpu_torch.ops import contact_slots
+
+        return contact_slots.gather_back(comps_flat, slot_of, overflow)
+    return gather_back(comps_flat, slot_of, overflow)
 
 
 @functools.lru_cache(maxsize=16)
@@ -221,7 +236,8 @@ def _rank_and_slots(cid_s, order, spec: ContactSpec):
     starts), fits mask, flat slot targets (drop bucket = spec.slots), the
     placement key cid·K + min(rank, K − 1) (nondecreasing, equal to flat
     where a row fits: K5 looks its rows up by it, `targets_of_keys`),
-    counted overflow and the particle-order slot_of."""
+    counted overflow and the particle-order slot_of. The plain version of
+    the slots kernel (ops/contact_slots.py `rank_and_slots`)."""
     N = cid_s.shape[0]
     K = spec.k
     slots = spec.slots
@@ -253,11 +269,15 @@ def targets_of_keys(key, slots: int):
     return torch.where(fits, key, slots).to(torch.int32), fits
 
 
-def _sort_with_payload(state: SimState, spec: ContactSpec):
+def _sort_with_payload(state: SimState, spec: ContactSpec,
+                       kernel: bool = False):
     """The pack sort: a stable sort of the cell ids and ONE row gather of
     the 11 particle columns (pos, vel, ang_vel, radius, occupancy 1.0) —
     bitwise the permutation of the JAX package's payload lax.sort. Returns
-    (rows [N, 11] in sorted order, flat, fits, key, overflow, slot_of)."""
+    (rows [N, 11] in sorted order, flat, fits, key, overflow, slot_of).
+    kernel=True takes the bookkeeping through
+    ops.contact_slots.rank_and_slots (its kernel on a CUDA tensor,
+    `_rank_and_slots` on a CPU one); both give the same bits."""
     N = state.capacity
     cid = _cell_ids(state, spec)
     cid_s, order = torch.sort(cid, stable=True)
@@ -265,6 +285,10 @@ def _sort_with_payload(state: SimState, spec: ContactSpec):
     tbl = torch.cat([state.pos, state.vel, state.ang_vel,
                      state.radius[:, None], ones], dim=1)
     rows = tbl[order]
+    if kernel:
+        from sph_tpu_torch.ops.contact_slots import rank_and_slots
+
+        return (rows, *rank_and_slots(cid_s, order, spec))
     return (rows, *_rank_and_slots(cid_s, order, spec))
 
 
@@ -285,9 +309,12 @@ def _scatter_sorted(cols, fills, flat, fits, spec: ContactSpec):
 
 def _pack_args(state: SimState, spec: ContactSpec, expand: bool = False):
     """The pack: (fields [10][Z, Y, L], occ, slot_of, overflow).
-    expand=True places the rows through ops.expand.expand_rows (K5 on a
-    CUDA tensor, `_scatter_sorted` on a CPU one); both give the same bits."""
-    rows, flat, fits, key, overflow, slot_of = _sort_with_payload(state, spec)
+    expand=True takes the bookkeeping and the placement through the kernel
+    wrappers, ops.contact_slots.rank_and_slots and ops.expand.expand_rows
+    (the slots kernel and K5 on a CUDA tensor, `_rank_and_slots` and
+    `_scatter_sorted` on a CPU one); both give the same bits."""
+    rows, flat, fits, key, overflow, slot_of = _sort_with_payload(
+        state, spec, kernel=expand)
     if expand:
         from sph_tpu_torch.ops.expand import expand_rows
 
@@ -317,8 +344,9 @@ def contact_forces_dense(state: SimState, params: SimParams,
     """Per-particle (force [N, 3], torque [N, 3], overflow) through the
     dense full-stencil sweep. Particles that overflow their cell's K slots
     exert and receive no contact force this step and are counted.
-    `use_pallas` (the JAX field name) routes the pack and the sweep
-    through the kernel wrappers K5 and K4."""
+    `use_pallas` (the JAX field name) routes the pack, the sweep and the
+    gather back through the kernel wrappers: the slots kernel and K5, K4,
+    the gather kernel."""
     if spec is None:
         spec = make_contact_spec(params, k=params.dense_k,
                                  cell_factor=params.dense_cell_factor)
@@ -334,5 +362,5 @@ def contact_forces_dense(state: SimState, params: SimParams,
             comps = _sweep_plain(
                 fields, lambda *a: contact_pair_terms(params, *a), 6, spec)
     with span("sph.contact.gather"):
-        return gather_back([c.reshape(-1) for c in comps], slot_of,
-                           overflow)
+        return _gather_back(comps, slot_of, overflow,
+                            kernel=params.use_pallas)

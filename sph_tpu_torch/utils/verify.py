@@ -13,14 +13,19 @@ payload fields (with −0 == +0) and on `dropped`. The colony contact sweep
 (K4) agrees to the twin tolerance on EVERY slot of its 6 components, for
 finite fields (csrc/contact_sweep.cu states what its skip hides from
 non-finite ones), and reports `bitwise` and `empty_zero` as K1/K2 do; the
-contact pack's placement (K5) is bitwise on all 11 planes, −0 included.
+contact pack's placement (K5) is bitwise on all 11 planes, −0 included;
+the pack's slot bookkeeping (the slots kernel) is bitwise on its five
+outputs (`check_contact_slots`; `slot_case` draws the edge cases) and the
+gather back (the gather kernel) on every particle's force and torque, NaN
+and −0 bits included (`check_contact_gather`).
 The adhesion pass's per-bond rows (A1) are bitwise on every row of the
 table, NaN as NaN and −0 ≠ +0 (`check_bond_rows`; `bond_edge_cases` loads
 every constraint and plants the edge cases). The planned accumulate (A2)
 is bitwise on every particle's Δv and Δq (`check_bond_scan`;
 `bond_scan_case` draws a random plan with −0, NaN and ±inf rows;
 `END_PLANS` / `end_plan` are hand-made plans for rows of −0).
-`expand_lookup` is K5's row lookup (with `expand_search`) and
+`expand_lookup` is K5's row lookup (with `expand_search`),
+`rank_lookback` the slots kernel's rank rule, and
 `rebin_codes` / `rebin_walk` are K3's two passes, written out in plain
 PyTorch for the CPU tests;
 `empty_layout`, `place_particle`, `moved_layout` and `overflow_layout`
@@ -47,6 +52,7 @@ import torch
 
 from sph_tpu_torch.core.types import SimParams, SimState
 from sph_tpu_torch.ops import adhesion as oa
+from sph_tpu_torch.ops import contact_slots as ocs
 from sph_tpu_torch.ops.contact import contact_sweep
 from sph_tpu_torch.ops.expand import RANGE, expand_rows
 from sph_tpu_torch.ops import integrate as oi
@@ -464,6 +470,113 @@ def check_expand(state, spec) -> dict:
     return {"max_abs_err": 0.0, "rows": int(fits.sum()),
             "overflow": int(overflow),
             "dead": int((key >= spec.slots).sum())}
+
+
+SLOT_OUTPUTS = ("flat", "fits", "key", "overflow", "slot_of")
+
+
+def check_contact_slots(cid_s, order, spec) -> dict:
+    """The slots kernel against the plain `_rank_and_slots` on the same
+    sorted cell ids and order: each of the five outputs of the same dtype
+    and shape and equal element for element. Also reports the rows, those
+    that fit, the overflow and the dead rows."""
+    plain = cd._rank_and_slots(cid_s, order, spec)
+    kern = ocs.rank_and_slots(cid_s, order, spec)
+    for name, a, b in zip(SLOT_OUTPUTS, plain, kern):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            raise AssertionError(f"contact slots {name}: {b.dtype} "
+                                 f"{tuple(b.shape)}, plain {a.dtype} "
+                                 f"{tuple(a.shape)}")
+        if not torch.equal(a, b):
+            raise AssertionError(f"contact slots {name}: "
+                                 f"{int((a != b).sum())} elements differ")
+    dead = spec.nz * spec.ny * spec.nx_pad
+    return {"rows": cid_s.numel(), "fits": int(plain[1].sum()),
+            "overflow": int(plain[3]), "dead": int((cid_s >= dead).sum())}
+
+
+def check_contact_gather(comps_flat, slot_of, overflow) -> dict:
+    """The gather kernel against the plain `gather_back` on the same six
+    planes: force and torque of every particle compared as int32 bits (NaN
+    payloads and −0 included), the overflow passed through. Also reports
+    the particles, those dropped (slot_of = slots) and the NaN rows."""
+    slots = comps_flat[0].numel()
+    plain = cd.gather_back(comps_flat, slot_of, overflow)
+    kern = ocs.gather_back(comps_flat, slot_of, overflow)
+    for name, a, b in zip(("force", "torque"), plain, kern):
+        if a.shape != b.shape or not torch.equal(_bits(a), _bits(b)):
+            raise AssertionError(f"contact gather {name}: "
+                                 f"{int((_bits(a) != _bits(b)).sum())} "
+                                 f"elements differ in their bits")
+    if kern[2] is not overflow:
+        raise AssertionError("contact gather: the overflow is not passed "
+                             "through")
+    return {"particles": slot_of.numel(),
+            "dropped": int((slot_of == slots).sum()),
+            "nan_rows": int(plain[0].isnan().any(1).sum()
+                            + plain[1].isnan().any(1).sum())}
+
+
+def rank_lookback(cid_s, order, spec):
+    """The slots kernel (csrc/contact_slots.cu) in plain PyTorch: each row
+    looks back at most K ids for the run of equal ids it ends, which gives
+    min(rank, K), all the outputs need; then the five outputs of
+    `_rank_and_slots` in int32 arithmetic."""
+    n, k, slots = cid_s.numel(), spec.k, spec.slots
+    r = torch.zeros(n, dtype=torch.int32, device=cid_s.device)
+    run = torch.ones(n, dtype=torch.bool, device=cid_s.device)
+    for d in range(1, k + 1):
+        same = torch.zeros_like(run)
+        same[d:] = cid_s[d:] == cid_s[:-d]
+        run &= same
+        r += run.to(torch.int32)
+    alive = cid_s < spec.nz * spec.ny * spec.nx_pad
+    fits = alive & (r < k)
+    flat = torch.where(fits, cid_s * k + r, slots).to(torch.int32)
+    key = (cid_s * k + torch.clamp(r, max=k - 1)).to(torch.int32)
+    overflow = torch.sum(alive & ~fits).to(torch.int32)
+    slot_of = torch.empty_like(flat)
+    slot_of[order] = flat
+    return flat, fits, key, overflow, slot_of
+
+
+SLOT_CASES = ("runs past K", "every row dead", "one cell", "one row",
+              "odd rows")
+
+
+def slot_case(spec, case: str, seed: int = 0, n: int = 5000,
+              device="cpu"):
+    """Sorted cell ids [n] int32 and the stable sort's order [n] int64 of
+    ids drawn with numpy from `seed`, shuffled, for the slots kernel's
+    edge cases: `runs past K`, runs of 1 to 3K + 2 rows in random live
+    cells and a tenth of the rows dead (the dead id nz·ny·nx_pad);
+    `every row dead`; `one cell`, every row in one live cell; `one row`, a
+    single live row (n is 1); `odd rows`, n + 37 rows (not a multiple of a
+    block) in runs of 1 to K + 1."""
+    rng = np.random.default_rng(seed)
+    dead = spec.nz * spec.ny * spec.nx_pad
+    k = spec.k
+    if case == "every row dead":
+        ids = np.full(n, dead)
+    elif case == "one cell":
+        ids = np.full(n, rng.integers(dead))
+    elif case == "one row":
+        ids = rng.integers(dead, size=1)
+    elif case in ("runs past K", "odd rows"):
+        total = n + 37 if case == "odd rows" else n
+        longest = 3 * k + 2 if case == "runs past K" else k + 1
+        lengths = rng.integers(1, longest + 1, size=total)
+        lengths = lengths[:np.searchsorted(np.cumsum(lengths), total) + 1]
+        cells = rng.choice(dead, size=lengths.size,
+                           replace=lengths.size > dead)
+        ids = np.repeat(cells, lengths)[:total]
+        if case == "runs past K":
+            ids[rng.random(total) < 0.1] = dead
+    else:
+        raise ValueError(f"no slot case {case!r}")
+    cid = torch.tensor(rng.permutation(ids), dtype=torch.int32,
+                       device=device)
+    return torch.sort(cid, stable=True)
 
 
 EXPAND_THREADS = 256   # kThreads in csrc/expand_rows.cu: a batch, a search

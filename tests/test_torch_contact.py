@@ -1,6 +1,7 @@
 """Port vs reference for the colony's dense contact path
-(physics/contact_dense.py and the wrappers of K4 and K5 on the CPU, where
-they run their plain versions).
+(physics/contact_dense.py and the wrappers of K4, K5 and the slot
+bookkeeping's two kernels on the CPU, where they run their plain
+versions).
 
 - The pack (cell ids, stable sort with payload, ranks, placement) is held
   BITWISE to the JAX package's `_pack_args`, with the XLA column scatters
@@ -9,6 +10,11 @@ they run their plain versions).
 - The sweep is held to JAX's `_sweep_xla` (the XLA twin that the JAX
   package's own tests hold to the Pallas kernel `contact_sweep_pallas`)
   at rtol 1e-5 and atol 1e-6·max|x| on every slot.
+- The slots kernel's rank rule (a look-back of at most K ids,
+  utils/verify.py `rank_lookback`) is held bitwise to the plain
+  `_rank_and_slots` on its edge cases; the slot wrappers' CPU route is the
+  plain functions, their argument checks refuse what the kernels do not
+  take, and a CPU colony step launches no kernel.
 """
 
 import dataclasses
@@ -21,9 +27,14 @@ import torch
 from sph_tpu.core import types as jtypes
 from sph_tpu.physics import contact_dense as jcd
 from sph_tpu_torch.core import types as ttypes
-from sph_tpu_torch.ops.contact import contact_sweep
+from sph_tpu_torch.engine.colony import bonded_colony
+from sph_tpu_torch.engine.simulation import Simulation
+from sph_tpu_torch.ops import LAUNCHES, launch_counts, reset_launches
+from sph_tpu_torch.ops import contact_slots as ocs
+from sph_tpu_torch.ops.contact import SLOT_COUNTS, contact_sweep
 from sph_tpu_torch.ops.expand import expand_rows
 from sph_tpu_torch.physics import contact_dense as tcd
+from sph_tpu_torch.utils.verify import SLOT_CASES, rank_lookback, slot_case
 
 torch.set_num_threads(1)
 
@@ -202,3 +213,102 @@ def test_screen_and_skip_are_bitwise_invisible():
     for a, b in zip(accs, full):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
     assert bool((full[0] != 0).any())
+
+
+@pytest.mark.parametrize("case", SLOT_CASES)
+@pytest.mark.parametrize("k", SLOT_COUNTS)
+def test_slot_lookback_is_the_plain_bookkeeping(k, case):
+    """The slots kernel's rule, min(rank, K) from a look-back of at most K
+    ids, gives `_rank_and_slots`' five outputs bit for bit."""
+    _, ts, p = blob(n=8, k=k, spawn=16.0)
+    spec = specs(p)[1]
+    cid_s, order = slot_case(spec, case, seed=k,
+                             n=1 if case == "one row" else 5000)
+    want = tcd._rank_and_slots(cid_s, order, spec)
+    got = rank_lookback(cid_s, order, spec)
+    for a, b in zip(got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("k", SLOT_COUNTS)
+def test_slot_wrappers_take_the_plain_route_on_the_cpu(k):
+    """On CPU tensors the slots and gather wrappers return the plain
+    functions' bits, and the pack and the contact forces through them
+    equal the plain route's, with overflow and dead rows."""
+    _, ts, p = blob(n=400, k=k, seed=k, alive=380)
+    spec = specs(p)[1]
+    plain = tcd._sort_with_payload(ts, spec)
+    routed = tcd._sort_with_payload(ts, spec, kernel=True)
+    for a, b in zip(routed, plain):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    assert int(plain[4]) > 0
+    fields, occ, slot_of, overflow = tcd._pack_args(ts, spec)
+    comps = [c.reshape(-1) for c in contact_sweep(fields, occ, p, spec)]
+    dropped = slot_of.clone()
+    dropped[::7] = spec.slots
+    comps[2][-1] = float("nan")
+    comps[3][-1] = -0.0
+    for s_of in (slot_of, dropped):
+        want = tcd.gather_back(comps, s_of, overflow)
+        got = ocs.gather_back(comps, s_of, overflow)
+        for a, b in zip(got[:2], want[:2]):
+            assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+        assert got[2] is overflow
+    want = tcd.contact_forces_dense(ts, p.replace(use_pallas=False), spec)
+    got = tcd.contact_forces_dense(ts, p.replace(use_pallas=True), spec)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert float(want[0].abs().max()) > 1.0
+
+
+def _slot_operands():
+    _, ts, p = blob(n=64, k=2, seed=1)
+    spec = specs(p)[1]
+    cid_s, order = torch.sort(tcd._cell_ids(ts, spec), stable=True)
+    planes = [torch.zeros(spec.slots) for _ in range(6)]
+    slot_of = torch.zeros(64, dtype=torch.int32)
+    return spec, cid_s, order, planes, slot_of
+
+
+SLOT_REFUSALS = {
+    "ids of int64": lambda sp, c, o, pl, s: ocs.rank_and_slots(
+        c.long(), o, sp),
+    "ids not a vector": lambda sp, c, o, pl, s: ocs.rank_and_slots(
+        c[None], o, sp),
+    "order of int32": lambda sp, c, o, pl, s: ocs.rank_and_slots(
+        c, o.int(), sp),
+    "order of another length": lambda sp, c, o, pl, s: ocs.rank_and_slots(
+        c, o[:-1], sp),
+    "slots past 32 bits": lambda sp, c, o, pl, s: ocs.rank_and_slots(
+        c, o, dataclasses.replace(sp, nz=2 ** 20)),
+    "five planes": lambda sp, c, o, pl, s: ocs.gather_back(pl[:5], s, None),
+    "a plane of float64": lambda sp, c, o, pl, s: ocs.gather_back(
+        [pl[0].double(), *pl[1:]], s, None),
+    "planes of two lengths": lambda sp, c, o, pl, s: ocs.gather_back(
+        [pl[0][:-4], *pl[1:]], s, None),
+    "slot_of of int64": lambda sp, c, o, pl, s: ocs.gather_back(
+        pl, s.long(), None),
+    "slot_of not a vector": lambda sp, c, o, pl, s: ocs.gather_back(
+        pl, s[:, None], None),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SLOT_REFUSALS))
+def test_slot_wrappers_refuse_bad_operands(case):
+    """The operands are checked on the CPU route too, so a caller that
+    passes what the kernels do not take fails here, not first on the
+    card."""
+    with pytest.raises((ValueError, TypeError)):
+        SLOT_REFUSALS[case](*_slot_operands())
+
+
+def test_cpu_colony_step_launches_no_kernel():
+    """A dense colony with use_pallas on CPU tensors takes every wrapper's
+    plain route: no launch, the slot kernels' counts included."""
+    st, p, g = bonded_colony(512, device="cpu", use_pallas=True)
+    sim = Simulation(g, p, device="cpu")
+    sim.state = st
+    reset_launches()
+    sim.step(2)
+    assert LAUNCHES == launch_counts()
+    assert sim.metrics()["active_particles"] == 512

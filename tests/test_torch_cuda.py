@@ -15,7 +15,12 @@ on overflows at an intermediate stage, at each K it is built for. K4 (colony
 contact sweep) is held to the same tolerance on every slot and, by the
 same design, to bitwise equality with +0 on empty slots, and its floor
 modes (ops/contact_floor.py) bitwise to their plain versions; K5 (the
-contact pack's placement) is bitwise. The step's per-slot tail, F2
+contact pack's placement) is bitwise, and so are the pack's slot
+bookkeeping (the slots kernel: every output, on runs longer than K, dead
+rows, one full cell, one row and a row count off the block, at each K)
+and the gather back (the gather kernel: int32 bits, with dropped rows and
+NaN and −0 planes), and the contact forces through all four kernels,
+single-device and at the ranks' block shapes. The step's per-slot tail, F2
 (density fixup + Tait EOS + p/ρ²) and F1 (`_integrate`), is bitwise on
 every slot (NaN as NaN, −0 ≠ +0) with equal clamp counts, for each
 obstacle kind, with and without the drag, in 3D and 2D, with NaN lanes,
@@ -53,6 +58,7 @@ from sph_tpu_torch.ops import (
 )
 from sph_tpu_torch.ops import contact as oc
 from sph_tpu_torch.ops import adhesion as oa
+from sph_tpu_torch.ops import contact_slots as ocs
 from sph_tpu_torch.ops.adhesion import bond_rows
 from sph_tpu_torch.ops import contact_floor as cf
 from sph_tpu_torch.ops.contact import contact_sweep
@@ -74,6 +80,8 @@ from sph_tpu_torch.utils.verify import (
     check_bond_rows,
     check_bond_scan,
     check_contact,
+    check_contact_gather,
+    check_contact_slots,
     check_expand,
     check_density_tail,
     check_fluid_twins,
@@ -84,6 +92,8 @@ from sph_tpu_torch.utils.verify import (
     moved_layout,
     overflow_layout,
     place_particle,
+    slot_case,
+    SLOT_CASES,
     stirred,
     tail_inputs,
 )
@@ -855,6 +865,127 @@ def test_expand_kernel_with_no_rows(cuda):
     assert torch.equal(out.view(torch.int32), want.view(torch.int32))
 
 
+@pytest.mark.parametrize("case", SLOT_CASES)
+@pytest.mark.parametrize("k", oc.SLOT_COUNTS)
+def test_slots_kernel_bitwise_on_edge_cases(cuda, k, case):
+    """The slots kernel bitwise to `_rank_and_slots` on every output; `odd
+    rows` at 300,037 rows, more than one a thread of the resident grid."""
+    spec = blob(n=8, k=k, spawn=16.0, device="cpu")[2]
+    n = {"one row": 1, "odd rows": 300_000}.get(case, 5000)
+    r = check_contact_slots(*slot_case(spec, case, seed=k, n=n, device=cuda),
+                            spec)
+    if case == "every row dead":
+        assert r["dead"] == r["rows"] and r["fits"] == r["overflow"] == 0
+    elif case == "one cell":
+        assert r["fits"] == k and r["overflow"] == n - k
+    elif case == "one row":
+        assert r["rows"] == r["fits"] == 1
+    else:
+        assert r["overflow"] > 0 and r["fits"] > 0
+
+
+def with_planted_values(comps, slot_of, spec):
+    """K4's planes, cloned, with NaN (a payload of its own), −0 and ±inf
+    at live rows' slots and at the last slot, where rows that do not fit
+    read; and slot_of with every 9th particle dropped (slot_of = slots)."""
+    planes = [c.reshape(-1).clone() for c in comps]
+    live = slot_of[slot_of < spec.slots].long()
+    nan = torch.tensor(0x7FC00123, dtype=torch.int32).view(torch.float32)
+    last = (-2.0, float(nan), -0.0, 3.0, float("inf"), float("-inf"))
+    for c, p in enumerate(planes):
+        p[live[c::11]] = nan.item()
+        p[live[c + 5::11]] = -0.0
+        p[-1] = last[c]
+    dropped = slot_of.clone()
+    dropped[::9] = spec.slots
+    return planes, dropped
+
+
+@pytest.mark.parametrize("squeeze", [1.0, 0.7])
+def test_gather_kernel_bitwise_with_dropped_rows_nan_and_negative_zero(
+        cuda, squeeze):
+    state, params, _, spec = colony(cuda, n=4000)
+    fields, occ, slot_of, overflow = cd._pack_args(compressed(state, squeeze),
+                                                   spec)
+    comps = contact_sweep(fields, occ, params, spec)
+    r = check_contact_gather([c.reshape(-1) for c in comps], slot_of,
+                             overflow)
+    assert r["particles"] == 4000
+    r = check_contact_gather(*with_planted_values(comps, slot_of, spec),
+                             overflow)
+    assert r["dropped"] >= 4000 // 9 and r["nan_rows"] > 0
+
+
+def test_contact_forces_kernel_route_equals_plain_route(cuda):
+    """contact_forces_dense through the slots kernel, K5, K4 and the
+    gather kernel, one launch each, bitwise to the plain route on a
+    compressed colony where contact fires."""
+    state, params, _, spec = colony(cuda)
+    squeezed = compressed(state, 0.7)
+    reset_launches()
+    got = cd.contact_forces_dense(squeezed, params, spec)
+    torch.cuda.synchronize()
+    assert LAUNCHES == launch_counts(contact_slots=1, expand=1, contact=1,
+                                     contact_gather=1)
+    want = cd.contact_forces_dense(squeezed, params.replace(use_pallas=False),
+                                   spec)
+    assert float(want[0].abs().max()) > 0
+    for a, b in zip(got[:2], want[:2]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert int(got[2]) == int(want[2])
+
+
+class MeshInOneProcess:
+    """Rank `coords` of a mesh of `shape`, with every rank in this one
+    process: `all_gather_blocks` puts together the blocks in `blocks`
+    (coords → block, in the mesh's order as parallel.dist.Mesh does), or,
+    when `blocks` lacks a rank's, stores this rank's and raises
+    `Collected`."""
+
+    class Collected(Exception):
+        pass
+
+    def __init__(self, shape, coords, blocks):
+        self.shape, self.coords, self.blocks = shape, coords, blocks
+        self.ndim = len(shape)
+
+    def all_gather_blocks(self, t, dims):
+        if len(self.blocks) < int(np.prod(self.shape)):
+            self.blocks[self.coords] = t
+            raise self.Collected
+        if self.ndim == 1:
+            return torch.cat([self.blocks[(z,)] for z in range(self.shape[0])],
+                             dim=dims[0])
+        return torch.cat([
+            torch.cat([self.blocks[(z, y)] for y in range(self.shape[1])],
+                      dim=dims[1])
+            for z in range(self.shape[0])], dim=dims[0])
+
+
+@pytest.mark.parametrize("shape", [(4,), (2, 2)])
+def test_sharded_contact_through_the_kernels_equals_plain(cuda, shape):
+    """The sharded contact forces (parallel.dist `_contact_forces`) at the
+    ranks' block shapes, each rank's sweep run here: the slots kernel and
+    K5 on the replicated pack, K4 on each block, the gather kernel after
+    the mesh's gather; bitwise to the single-device plain route."""
+    state, params, _, spec = colony(cuda, n=4000)
+    squeezed = compressed(state, 0.7)
+    blocks = {}
+    for coords in np.ndindex(*shape):
+        mesh = MeshInOneProcess(shape, coords, blocks)
+        with pytest.raises(MeshInOneProcess.Collected):
+            pd._contact_forces(params, mesh, spec)(squeezed)
+    reset_launches()
+    got = pd._contact_forces(params, mesh, spec)(squeezed)
+    assert LAUNCHES["contact_slots"] == LAUNCHES["contact_gather"] == 1
+    want = cd.contact_forces_dense(squeezed, params.replace(use_pallas=False),
+                                   spec)
+    assert float(want[0].abs().max()) > 0
+    for a, b in zip(got[:2], want[:2]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert int(got[2]) == int(want[2])
+
+
 def test_contact_kernel_keeps_nan_overlap(cuda):
     """A NaN radius makes NaN overlaps, which the kernel does not skip: on
     occupied slots it equals the plain sweep, NaN for NaN."""
@@ -884,6 +1015,7 @@ def test_colony_main_path_launches_kernels(cuda):
     sim.step(10)
     torch.cuda.synchronize()
     assert LAUNCHES["contact"] == 10 and LAUNCHES["expand"] == 10
+    assert LAUNCHES["contact_slots"] == LAUNCHES["contact_gather"] == 10
     assert LAUNCHES["bond_rows"] == 10
     m = sim.metrics()
     assert m["active_particles"] == 20000 and m["overflow"] == 0
@@ -906,7 +1038,7 @@ def test_colony_kernel_path_equals_plain_path(cuda):
 
 def test_colony_wrappers_refuse_bad_operands(cuda):
     state, params, _, spec = colony(cuda, n=2000)
-    fields, occ, _, _ = cd._pack_args(state, spec, expand=True)
+    fields, occ, slot_of, _ = cd._pack_args(state, spec, expand=True)
     with pytest.raises(TypeError, match="float32"):
         contact_sweep([fields[0].double(), *fields[1:]], occ, params, spec)
     with pytest.raises(ValueError, match="shape"):
@@ -916,6 +1048,17 @@ def test_colony_wrappers_refuse_bad_operands(cuda):
         expand_rows(rows, key.long(), cd.PACK_FILLS, spec)
     with pytest.raises(ValueError, match="fills"):
         expand_rows(rows, key, cd.PACK_FILLS[:5], spec)
+    cid_s, order = torch.sort(cd._cell_ids(state, spec), stable=True)
+    with pytest.raises(ValueError, match="CUDA"):
+        ocs.rank_and_slots(cid_s, order.cpu(), spec)
+    with pytest.raises(ValueError, match="int64"):
+        ocs.rank_and_slots(cid_s, order.int(), spec)
+    comps = contact_sweep(fields, occ, params, spec)
+    planes = [c.reshape(-1) for c in comps]
+    with pytest.raises(ValueError, match="CUDA"):
+        ocs.gather_back([planes[0].cpu(), *planes[1:]], slot_of, None)
+    with pytest.raises(ValueError, match="int32"):
+        ocs.gather_back(planes, slot_of.long(), None)
 
 
 # -- the adhesion pass's per-bond rows: A1 (bond_rows) ---------------------
@@ -1059,15 +1202,18 @@ def test_bond_scan_kernel_bitwise_on_hand_plans(cuda, name):
 @pytest.fixture(scope="module")
 def colony_1m():
     """The 1,048,576-cell colony (the benchmark's size, 1,818,624 bond
-    rows) with its A1 rows and plan; with bond_edge_cases' rows too."""
+    rows) with its A1 rows and plan; with bond_edge_cases' rows too; its
+    params and contact spec."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda", 0)
     state, params, genome = bonded_colony(1_048_576, device=dev, **COLONY)
     gd = genome.to_device(dev)
     plan = adh.build_bond_plan(state.bonds, state.capacity)
+    spec = cd.make_contact_spec(params, k=params.dense_k,
+                                cell_factor=params.dense_cell_factor)
     return (state, plan, bond_rows(state, params, gd),
-            bond_rows(bond_edge_cases(state), params, gd))
+            bond_rows(bond_edge_cases(state), params, gd), params, spec)
 
 
 @pytest.mark.parametrize("case", ["settled", "edge cases", "hybrid"])
@@ -1075,7 +1221,7 @@ def test_bond_scan_kernel_bitwise_at_the_1m_colony(colony_1m, case):
     """A2 at the benchmark's colony: its plan (7,104 blocks), A1's rows as
     built and with the edge cases (NaN rows among them), and with the
     hybrid's zero_bond mask of 2,000 rewritten bonds."""
-    state, plan, rows, rows_e = colony_1m
+    state, plan, rows, rows_e, _, _ = colony_1m
     zero_bond = None
     if case == "hybrid":
         n = state.capacity
@@ -1094,6 +1240,23 @@ def test_bond_scan_kernel_bitwise_at_the_1m_colony(colony_1m, case):
     scan_exact(r)
     assert r["blocks"] == 7104
     assert (r["nan_particles"] > 0) == (case == "edge cases")
+
+
+@pytest.mark.parametrize("squeeze", [1.0, 0.7])
+def test_slots_and_gather_kernels_bitwise_at_the_1m_colony(colony_1m,
+                                                           squeeze):
+    """The slots kernel on the benchmark colony's own pack sort, and the
+    gather kernel on K4's planes there, settled and compressed ×0.7."""
+    state, _, _, _, params, spec = colony_1m
+    state = compressed(state, squeeze)
+    cid_s, order = torch.sort(cd._cell_ids(state, spec), stable=True)
+    r = check_contact_slots(cid_s, order, spec)
+    assert r["rows"] == 1_048_576 and r["fits"] > 0
+    fields, occ, slot_of, overflow = cd._pack_args(state, spec)
+    comps = contact_sweep(fields, occ, params, spec)
+    r = check_contact_gather([c.reshape(-1) for c in comps], slot_of,
+                             overflow)
+    assert r["particles"] == 1_048_576
 
 
 @pytest.mark.parametrize("branch, n_rewrite", [("quiet", 0), ("hybrid", 60)])

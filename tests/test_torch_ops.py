@@ -157,6 +157,15 @@ def test_launch_counts_names_only_the_kernels_that_run(name):
     assert not any(n for k, n in want.items() if k != name)
 
 
+def test_launch_counts_knows_the_slot_kernels():
+    """The contact pass's slot bookkeeping kernels are in the roster, so a
+    colony expectation can name them."""
+    want = launch_counts(contact_slots=2, contact_gather=2, contact=2,
+                         expand=2)
+    assert want["contact_slots"] == want["contact_gather"] == 2
+    assert sum(want.values()) == 8
+
+
 def test_launch_counts_refuses_a_name_that_is_no_kernel():
     assert launch_counts() == dict.fromkeys(LAUNCHES, 0)
     with pytest.raises(KeyError, match="bond_scans"):
