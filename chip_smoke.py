@@ -24,7 +24,7 @@ Phases, each printed on its own line; any failure raises (nonzero exit):
                clamp and the walls fire, with a drag; at config[3] also
                with a sphere and a box beside the cylinder, an inexact
                1/mass and NaN lanes.
-4. main      — config[3] through FluidSimulation for 60 steps = 12 rebins,
+4. main      — config[3] through FluidSimulation for 60 steps = 30 rebins,
                launch counters reset just before: count conserved, dropped
                == 0, positions finite and in bounds, every sweep and both
                passes of every rebin (codes, placement) launched through
@@ -206,7 +206,7 @@ from sph_tpu_torch.sph.scenes import LAYOUTS
 from sph_tpu_torch.utils.profiling import F32_FLOPS, HBM_BYTES_PER_S
 
 # config[3] at the port's layout for it (16 slots a cell of 1.3 h, a rebin
-# every 5 steps): [154, 16, 7680].
+# every 2 steps): [154, 16, 7680].
 CONFIG3 = dict(n_target=1_000_000, **LAYOUTS[3])
 N_CONFIG3 = 1_005_312
 MAIN_STEPS = 60

@@ -13,9 +13,11 @@
 //     optional interactive drag (`FluidDrag`, read from its device
 //     tensors), symplectic Euler masked by occupancy with the velocity
 //     clamped to the rebin budget vmax before the position update, the
-//     count of clamped slots, and the box walls with damping (no z wall
-//     and vz = vz·0 in 2D). In: px, py, pz, vx, vy, vz, ax, ay, az, occ;
-//     out: the six moved planes and `clamped` (int32, added to).
+//     count of clamped slots, the count of pushed slots (occupied, with a
+//     positive penetration of some obstacle: within h/2 of its surface;
+//     once a slot), and the box walls with damping (no z wall and vz =
+//     vz·0 in 2D). In: px, py, pz, vx, vy, vz, ax, ay, az, occ; out: the
+//     six moved planes and `counts` (int32 clamped, pushed; added to).
 //  F2 `density_tail_kernel` — the lines of `dense_step` between the two
 //     pair sweeps (sph_tpu/sph/dense.py:682-687): the density fixup
 //     (`density_fixup`), the Tait EOS masked by occupancy (`eos_pressure`)
@@ -59,8 +61,8 @@
 // four slots a thread as one 16-byte load or store per plane (a scalar
 // pass when a pointer is not 16-byte aligned, and for the last n mod 4
 // slots), as many blocks as are resident at once; no shared memory but
-// the warp sums of the clamp count, one integer atomicAdd a block (integer
-// addition is order-free, so the count is deterministic).
+// the warp sums of the two counts, one integer atomicAdd a count and block
+// (integer addition is order-free, so the counts are deterministic).
 
 #include <cuda_runtime.h>
 
@@ -150,12 +152,14 @@ __device__ __forceinline__ int t_argmax3(float q0, float q1, float q2) {
   return best;
 }
 
-// The obstacles' penalty acceleration at one position (`obstacle_accel`).
-__device__ __forceinline__ void obstacle_push(const Obstacles& ob,
+// The obstacles' penalty acceleration at one position (`obstacle_accel`);
+// returns whether some obstacle's penetration is positive (its push acts).
+__device__ __forceinline__ bool obstacle_push(const Obstacles& ob,
                                               float half_h, float stiffness,
                                               float px, float py, float pz,
                                               float acc[3]) {
   acc[0] = acc[1] = acc[2] = 0.f;
+  bool band = false;
   // Unrolled, so that every index into the parameter is a constant.
 #pragma unroll
   for (int i = 0; i < kMaxObstacles; ++i) {
@@ -205,12 +209,14 @@ __device__ __forceinline__ void obstacle_push(const Obstacles& ob,
       n1 = __fdiv_rn(dy, den);
       n2 = 0.f;
     }
-    const float k =
-        __fmul_rn(t_clamp_min(__fsub_rn(half_h, sd), 0.f), stiffness);
+    const float pen = t_clamp_min(__fsub_rn(half_h, sd), 0.f);
+    const float k = __fmul_rn(pen, stiffness);
+    band = band || pen > 0.f;
     acc[0] = __fadd_rn(acc[0], __fmul_rn(n0, k));
     acc[1] = __fadd_rn(acc[1], __fmul_rn(n1, k));
     acc[2] = __fadd_rn(acc[2], __fmul_rn(n2, k));
   }
+  return band;
 }
 
 // The drag's scalars, formed once a thread as torch forms them (0-dim ops).
@@ -238,15 +244,20 @@ __device__ __forceinline__ DragVals load_drag(const Drag& dg,
   return v;
 }
 
-// One slot of `_integrate`; returns 1 when the vmax clamp limited it.
-__device__ __forceinline__ int integrate_slot(
+// One slot of `_integrate`; adds 1 to `clamped` when the vmax clamp
+// limited it and 1 to `pushed` when an obstacle's push acted on it.
+__device__ __forceinline__ void integrate_slot(
     const Consts& k, const Obstacles& ob, const DragVals& dg, bool three_d,
     float px, float py, float pz, float vx, float vy, float vz, float ax,
-    float ay, float az, float occv, float out[6]) {
+    float ay, float az, float occv, float out[6], int& clamped,
+    int& pushed) {
+  const bool occ = occv > 0.5f;
   ay = __fsub_rn(ay, k.gravity);
   if (ob.n > 0) {
     float oa[3];
-    obstacle_push(ob, k.half_h, k.stiffness, px, py, pz, oa);
+    const bool band =
+        obstacle_push(ob, k.half_h, k.stiffness, px, py, pz, oa);
+    pushed += (occ && band) ? 1 : 0;
     ax = __fadd_rn(ax, oa[0]);
     ay = __fadd_rn(ay, oa[1]);
     az = __fadd_rn(az, oa[2]);
@@ -263,7 +274,6 @@ __device__ __forceinline__ int integrate_slot(
     ay = __fadd_rn(ay, __fmul_rn(__fsub_rn(dg.ty, py), g));
     az = __fadd_rn(az, __fmul_rn(__fsub_rn(dg.tz, pz), g));
   }
-  const bool occ = occv > 0.5f;
   float v[3];
   v[0] = occ ? __fadd_rn(vx, __fmul_rn(ax, k.dt)) : 0.f;
   v[1] = occ ? __fadd_rn(vy, __fmul_rn(ay, k.dt)) : 0.f;
@@ -274,7 +284,7 @@ __device__ __forceinline__ int integrate_slot(
       __fmul_rn(v[2], v[2])));
   const float scale =
       t_clamp_max(__fdiv_rn(k.vmax, t_clamp_min(speed, 1e-12f)), 1.f);
-  const int clamped = (occ && speed > k.vmax) ? 1 : 0;
+  clamped += (occ && speed > k.vmax) ? 1 : 0;
   const float p0[3] = {px, py, pz};
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
@@ -288,31 +298,38 @@ __device__ __forceinline__ int integrate_slot(
     out[a] = p;
     out[3 + a] = v[a];
   }
-  return clamped;
 }
 
-// The block's clamp count: warp sums, then one atomic a block.
-__device__ __forceinline__ void add_block_count(int count, int* total) {
-  __shared__ int warp_sums[kThreads / 32];
-  count = __reduce_add_sync(0xffffffffu, count);
+// The block's counts (clamped, pushed): warp sums, then one atomic a count
+// and block.
+__device__ __forceinline__ void add_block_count(const int count[2],
+                                                int* totals) {
+  __shared__ int warp_sums[2][kThreads / 32];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) warp_sums[warp] = count;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    const int s = __reduce_add_sync(0xffffffffu, count[c]);
+    if (lane == 0) warp_sums[c][warp] = s;
+  }
   __syncthreads();
   if (warp == 0) {
-    int s = lane < kThreads / 32 ? warp_sums[lane] : 0;
-    s = __reduce_add_sync(0xffffffffu, s);
-    if (lane == 0 && s != 0) atomicAdd(total, s);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      int s = lane < kThreads / 32 ? warp_sums[c][lane] : 0;
+      s = __reduce_add_sync(0xffffffffu, s);
+      if (lane == 0 && s != 0) atomicAdd(totals + c, s);
+    }
   }
 }
 
 template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
-    integrate_kernel(Ins in, Outs out, int* clamped, int n, int three_d,
+    integrate_kernel(Ins in, Outs out, int* counts, int n, int three_d,
                      Consts k, Obstacles ob, Drag drag) {
   const DragVals dg = load_drag(drag, k.inv_mass);
   const int stride = gridDim.x * kThreads;
   const int tid = blockIdx.x * kThreads + threadIdx.x;
-  int count = 0;
+  int count[2] = {0, 0};  // clamped, pushed
   int tail = 0;
   if (kVec) {
     const int n4 = n >> 2;
@@ -324,10 +341,10 @@ __global__ void __launch_bounds__(kThreads)
         f[j] = __ldg(reinterpret_cast<const float4*>(in.p[j]) + i);
       }
       float o[4][6];
-#define SPH_LANE(L, c)                                                    \
-  count += integrate_slot(k, ob, dg, three_d, f[0].c, f[1].c, f[2].c,     \
-                          f[3].c, f[4].c, f[5].c, f[6].c, f[7].c, f[8].c, \
-                          f[9].c, o[L])
+#define SPH_LANE(L, c)                                                     \
+  integrate_slot(k, ob, dg, three_d, f[0].c, f[1].c, f[2].c, f[3].c, f[4].c, \
+                 f[5].c, f[6].c, f[7].c, f[8].c, f[9].c, o[L], count[0],     \
+                 count[1])
       SPH_LANE(0, x);
       SPH_LANE(1, y);
       SPH_LANE(2, z);
@@ -342,14 +359,13 @@ __global__ void __launch_bounds__(kThreads)
   }
   for (int i = tail + tid; i < n; i += stride) {
     float o[6];
-    count += integrate_slot(k, ob, dg, three_d, in.p[0][i], in.p[1][i],
-                            in.p[2][i], in.p[3][i], in.p[4][i], in.p[5][i],
-                            in.p[6][i], in.p[7][i], in.p[8][i], in.p[9][i],
-                            o);
+    integrate_slot(k, ob, dg, three_d, in.p[0][i], in.p[1][i], in.p[2][i],
+                   in.p[3][i], in.p[4][i], in.p[5][i], in.p[6][i], in.p[7][i],
+                   in.p[8][i], in.p[9][i], o, count[0], count[1]);
 #pragma unroll
     for (int j = 0; j < 6; ++j) out.p[j][i] = o[j];
   }
-  add_block_count(count, clamped);
+  add_block_count(count, counts);
 }
 
 // One slot of the density tail: (ρ, p, p/ρ²).
@@ -414,14 +430,14 @@ cudaError_t grid_of(Kernel kernel, int n, int device, int* grid) {
 }  // namespace
 
 // F1. `in` holds 10 device pointers (px, py, pz, vx, vy, vz, ax, ay, az,
-// occ), `out` 6 (px, py, pz, vx, vy, vz), fresh; `clamped` one int32 the
-// kernel adds the count to. `consts` (host, kConsts floats): dt, gravity,
-// vmax, −damping, h/2, stiffness, 1/mass, lo[3], hi[3]. `kinds` and
-// `geometry` (host): the obstacles' kinds and 6 floats each (centre,
-// extent). `drag` (host array of 4 device pointers: center, radius,
-// target, strength) or null.
+// occ), `out` 6 (px, py, pz, vx, vy, vz), fresh; `counts` two int32 the
+// kernel adds the clamped and the pushed slots to. `consts` (host, kConsts
+// floats): dt, gravity, vmax, −damping, h/2, stiffness, 1/mass, lo[3],
+// hi[3]. `kinds` and `geometry` (host): the obstacles' kinds and 6 floats
+// each (centre, extent). `drag` (host array of 4 device pointers: center,
+// radius, target, strength) or null.
 extern "C" int sph_integrate(const float* const* in, float* const* out,
-                             int* clamped, int n, int ndim,
+                             int* counts, int n, int ndim,
                              const float* consts, int n_obstacles,
                              const int* kinds, const float* geometry,
                              const float* const* drag, int device,
@@ -474,7 +490,7 @@ extern "C" int sph_integrate(const float* const* in, float* const* out,
   const cudaError_t rc = grid_of(kernel, n, device, &grid);
   if (rc != cudaSuccess) return static_cast<int>(rc);
   kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      ins, outs, clamped, n, ndim == 3 ? 1 : 0, k, ob, dg);
+      ins, outs, counts, n, ndim == 3 ? 1 : 0, k, ob, dg);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,10 +1,10 @@
 """Host-facing fluid simulation API — the counterpart of
 sph_tpu.engine.fluid.FluidSimulation: scene setup, stepping on the dense
 engine (on one device, or sharded over a mesh of ranks), pick and drag,
-metrics, and checkpoints in the JAX package's format (npz of the
-DenseFluidState fields plus a JSON header), so a checkpoint written by
-either package, on a mesh or not, loads in the other, and on-device
-rendering."""
+metrics, a restart from a snapshot held on the device, checkpoints in the
+JAX package's format (npz of the DenseFluidState fields plus a JSON
+header), so a checkpoint written by either package, on a mesh or not,
+loads in the other, and on-device rendering."""
 
 from __future__ import annotations
 
@@ -24,6 +24,7 @@ from sph_tpu_torch.sph.dense import (
 )
 from sph_tpu_torch.sph.model import FluidDrag, SPHParams, SPHState
 from sph_tpu_torch.utils.convert import params_from_jax, state_from_numpy
+from sph_tpu_torch.utils.profiling import span
 
 
 def tank_camera(params: SPHParams):
@@ -172,17 +173,21 @@ class FluidSimulation:
         return tuple(a.cpu().numpy()[m] for a in (pos, vel, rho, prs))
 
     def counters(self) -> dict:
-        """The step's device counters as 0-dim int32 tensors on the
+        """The step's device counters as 0-dim integer tensors on the
         simulation's device, returned without waiting for it: the state's
         `dropped` (particles the rebin could not place) and `clamped`
-        (lanes the speed limit held), and `rebin_peak`, the most particles
+        (lanes the speed limit held); `rebin_peak`, the most particles
         that sought one cell at a rebin on this device since
-        `ops.reset_rebin_peak()` (`ops.rebin_peak`)."""
-        from sph_tpu_torch.ops import rebin_peak
+        `ops.reset_rebin_peak()` (`ops.rebin_peak`); and `pushed`, the
+        occupied lanes the obstacles' push acted on, summed over the steps
+        on this device since `ops.reset_obstacle_pushed()`
+        (`ops.obstacle_pushed`, int64)."""
+        from sph_tpu_torch.ops import obstacle_pushed, rebin_peak
 
         return {"dropped": self.dstate.dropped,
                 "clamped": self.dstate.clamped,
-                "rebin_peak": rebin_peak(self.device)}
+                "rebin_peak": rebin_peak(self.device),
+                "pushed": obstacle_pushed(self.device)}
 
     def metrics(self) -> dict:
         pos, vel, rho, _ = self.particles()
@@ -221,6 +226,35 @@ class FluidSimulation:
         if path:
             save_image(img, path)
         return img
+
+    # -- device-held restart --------------------------------------------------
+
+    def snapshot(self) -> dict:
+        """The running state held on its device: a clone of every
+        DenseFluidState tensor, the host's step mirror and the substeps.
+        Single device only (`restore` puts it back)."""
+        if self.mesh is not None:
+            raise NotImplementedError("snapshot is single-device for now")
+        with span("sph.fluid.snapshot"):
+            return {"state": {f.name: getattr(self.dstate, f.name).clone()
+                              for f in dataclasses.fields(DenseFluidState)},
+                    "step": self._step, "substeps": self.substeps}
+
+    def restore(self, snap: dict) -> None:
+        """Back to a `snapshot` of this simulation: device copies of its
+        tensors (the snapshot stays usable), with the same step function
+        and no host copy. The counters outside the state
+        (`ops.rebin_peak`, `ops.obstacle_pushed`) run on."""
+        if self.mesh is not None:
+            raise NotImplementedError("restore is single-device for now")
+        if snap["substeps"] != self.substeps:
+            raise ValueError(f"the snapshot steps {snap['substeps']} "
+                             f"substeps a call, this simulation "
+                             f"{self.substeps}")
+        with span("sph.fluid.restore"):
+            self.dstate = DenseFluidState(
+                **{k: t.clone() for k, t in snap["state"].items()})
+        self._step = snap["step"]
 
     # -- checkpoint / resume ---------------------------------------------------
 

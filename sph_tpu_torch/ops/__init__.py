@@ -20,6 +20,11 @@ FLOOR_LAUNCHES = {"zero": 0, "pads": 0, "screen": 0}
 # device, beside the state's `dropped` and `clamped`, and is not part of
 # the state, so checkpoints keep the JAX package's format.
 REBIN_PEAK = {}
+# Per device, a 0-dim int64 tensor there: the occupied lanes the obstacles'
+# push acted on (within h/2 of an obstacle's surface), summed over the steps
+# since the last reset (F1 counts them per step, as the plain `_integrate`
+# does; the step adds the count here). Outside the state, as REBIN_PEAK.
+OBSTACLE_PUSHED = {}
 
 
 def launch_counts(**expected) -> dict:
@@ -38,19 +43,38 @@ def reset_launches() -> None:
             counts[name] = 0
 
 
-def rebin_peak(device):
-    """The rebin demand peak of `device` (made at 0 on first use)."""
+def _counter(table: dict, device, dtype):
+    """table's 0-dim counter of `device` (made at 0 on first use)."""
     import torch
 
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    if device not in REBIN_PEAK:
-        REBIN_PEAK[device] = torch.zeros((), dtype=torch.int32,
-                                         device=device)
-    return REBIN_PEAK[device]
+    if device not in table:
+        table[device] = torch.zeros((), dtype=dtype, device=device)
+    return table[device]
+
+
+def rebin_peak(device):
+    """The rebin demand peak of `device` (made at 0 on first use)."""
+    import torch
+
+    return _counter(REBIN_PEAK, device, torch.int32)
 
 
 def reset_rebin_peak() -> None:
     for peak in REBIN_PEAK.values():
         peak.zero_()
+
+
+def obstacle_pushed(device):
+    """The running total of pushed lanes of `device` (made at 0 on first
+    use)."""
+    import torch
+
+    return _counter(OBSTACLE_PUSHED, device, torch.int64)
+
+
+def reset_obstacle_pushed() -> None:
+    for total in OBSTACLE_PUSHED.values():
+        total.zero_()

@@ -6,10 +6,11 @@ Pallas kernel here: XLA fuses this code inside its jitted step.
 
 A CPU tensor goes to the plain version (sph_tpu_torch.sph.dense
 `_integrate`, `density_tail`); a CUDA tensor launches the kernel or raises
-— there is no fallback. Outputs are fresh (torch.empty; the clamp count
-torch.zeros, which the kernel adds to); kernels launch on PyTorch's
-current stream and are not synchronised. Python floats reach the kernels
-as f32, rounded as torch rounds a scalar that meets an f32 tensor.
+— there is no fallback. Outputs are fresh (torch.empty; the clamp and
+push counts one torch.zeros of two, which the kernel adds to); kernels
+launch on PyTorch's current stream and are not synchronised. Python floats
+reach the kernels as f32, rounded as torch rounds a scalar that meets an
+f32 tensor.
 """
 
 from __future__ import annotations
@@ -95,7 +96,7 @@ def _drag_pointers(drag, device):
 
 def integrate(d, ax, ay, az, params, vmax: float, drag=None):
     """Drop-in for sph_tpu_torch.sph.dense._integrate: (px, py, pz, vx, vy,
-    vz, n_clamped), n_clamped an int32 0-dim tensor."""
+    vz, n_clamped, n_pushed), the counts int32 0-dim tensors."""
     if d.px.device.type == "cpu":
         return dense._integrate(d, ax, ay, az, params, vmax, drag=drag)
     ins = (d.px, d.py, d.pz, d.vx, d.vy, d.vz, ax, ay, az, d.occ)
@@ -111,17 +112,17 @@ def integrate(d, ax, ay, az, params, vmax: float, drag=None):
         *(_f32(v) for v in lo), *(_f32(v) for v in hi))
     lib = library().lib
     outs = [torch.empty_like(d.px) for _ in range(6)]
-    clamped = torch.zeros(1, dtype=torch.int32, device=dev)
+    counts = torch.zeros(2, dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.sph_integrate(
             (ctypes.c_void_p * 10)(*(t.data_ptr() for t in ins)),
             (ctypes.c_void_p * 6)(*(t.data_ptr() for t in outs)),
-            clamped.data_ptr(), n, params.ndim, consts,
+            counts.data_ptr(), n, params.ndim, consts,
             len(params.obstacles), kinds, geometry, drag_ptrs, dev.index,
             stream_of(dev))
     check_launch("integrate", rc)
     LAUNCHES["integrate"] += 1
-    return (*outs, clamped[0])
+    return (*outs, counts[0], counts[1])
 
 
 def density_tail(raw, occ, params):

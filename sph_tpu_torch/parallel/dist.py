@@ -59,6 +59,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from sph_tpu_torch.ops import obstacle_pushed
 from sph_tpu_torch.sph import dense
 from sph_tpu_torch.sph.dense import DenseFluidState, DenseSpec
 from sph_tpu_torch.sph.model import SPHParams
@@ -389,8 +390,8 @@ def _local_step(d: DenseFluidState, params: SPHParams, spec: DenseSpec,
     pr2 = rest.pop("pr2")
     dp = d.replace_fields(**pos, **rest)
     ax, ay, az = f.accel(dp, pr2, params, slab.sweep_spec)
-    *moved, n_clamped = f.integrate(dp, ax, ay, az, params,
-                                    dense.rebin_vmax(params, spec))
+    *moved, n_clamped, n_pushed = f.integrate(
+        dp, ax, ay, az, params, dense.rebin_vmax(params, spec))
     moved = dict(zip(MOVED, (slab.interior(a) for a in moved)))
     d = d.replace_fields(rho=rho_own, prs=prs_own)
     drops = torch.zeros_like(d.dropped)
@@ -409,10 +410,13 @@ def _local_step(d: DenseFluidState, params: SPHParams, spec: DenseSpec,
                                 for f in (*MOVED, "occ", "rho", "prs")})
     else:
         d = d.replace_fields(**moved)
-    # Alarm counters, summed over the mesh: clamps are counted on the
-    # padded block and drops on both owners of an edge cell, so edge cells
-    # may count twice, as in the JAX package.
-    counts = slab.mesh.all_reduce(torch.stack([n_clamped, drops]))
+    # Alarm counters, summed over the mesh: clamps (and the obstacles'
+    # pushed lanes) are counted on the padded block and drops on both
+    # owners of an edge cell, so edge cells may count twice, as in the JAX
+    # package. Each rank adds the mesh's push count to its device's total.
+    counts = slab.mesh.all_reduce(torch.stack([n_clamped, drops,
+                                               n_pushed]))
+    obstacle_pushed(d.px.device).add_(counts[2])
     return d.replace_fields(step_count=d.step_count + 1,
                             clamped=d.clamped + counts[0],
                             dropped=d.dropped + counts[1])

@@ -34,14 +34,14 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
-from sph_tpu_torch.ops import rebin_peak
+from sph_tpu_torch.ops import obstacle_pushed, rebin_peak
 from sph_tpu_torch.ops.grid import cell_index
 from sph_tpu_torch.sph import kernels as KN
 from sph_tpu_torch.sph.model import (
     SPHParams,
     SPHState,
     eos_pressure,
-    obstacle_accel,
+    obstacle_push,
 )
 from sph_tpu_torch.utils.profiling import span
 
@@ -455,16 +455,22 @@ def _integrate(d: DenseFluidState, ax, ay, az, params: SPHParams,
     (velocity clamped to the rebin reachability budget BEFORE the position
     update) + box walls.
 
-    Returns (px, py, pz, vx, vy, vz, n_clamped): n_clamped (int32, 0-dim)
-    counts the lanes the vmax clamp actually limited."""
+    Returns (px, py, pz, vx, vy, vz, n_clamped, n_pushed), the counts
+    int32 and 0-dim: n_clamped counts the lanes the vmax clamp actually
+    limited, n_pushed the occupied lanes within h/2 of an obstacle's
+    surface, where its push acts (once a lane, whatever the obstacles)."""
     dt = params.dt
     ay = ay - params.gravity
+    occ = d.occ > 0.5
     if params.obstacles:
         pos = torch.stack([d.px, d.py, d.pz], dim=-1)
-        oa = obstacle_accel(pos, params)
+        oa, band = obstacle_push(pos, params)
+        n_pushed = torch.sum(occ & band).to(torch.int32)
         ax = ax + oa[..., 0]
         ay = ay + oa[..., 1]
         az = az + oa[..., 2]
+    else:
+        n_pushed = torch.zeros((), dtype=torch.int32, device=occ.device)
     if drag is not None:
         ddx = d.px - drag.center[0]
         ddy = d.py - drag.center[1]
@@ -477,7 +483,6 @@ def _integrate(d: DenseFluidState, ax, ay, az, params: SPHParams,
         ax = ax + (drag.target[0] - d.px) * g
         ay = ay + (drag.target[1] - d.py) * g
         az = az + (drag.target[2] - d.pz) * g
-    occ = d.occ > 0.5
     vx = torch.where(occ, d.vx + ax * dt, 0.0)
     vy = torch.where(occ, d.vy + ay * dt, 0.0)
     vz = (torch.where(occ, d.vz + az * dt, 0.0) if params.ndim == 3
@@ -504,7 +509,7 @@ def _integrate(d: DenseFluidState, ax, ay, az, params: SPHParams,
         hit = occ & ((p < lo[axis]) | (p > hi[axis]))
         ps[axis] = torch.where(occ, torch.clamp(p, lo[axis], hi[axis]), p)
         vs[axis] = torch.where(hit, -params.boundary_damping * v, v)
-    return (*ps, *vs, n_clamped)
+    return (*ps, *vs, n_clamped, n_pushed)
 
 
 def _compact_stage(fields, occ, own_coord, target_fn, axis_roll,
@@ -702,7 +707,8 @@ def dense_step(d: DenseFluidState, params: SPHParams, spec: DenseSpec,
     """One WCSPH step on the dense layout: density → EOS → forces →
     integrate (incl. optional interactive drag) → rebin when `rebin_now`.
     The step runs in a `sph.step` span and each phase in a `sph.fluid.`
-    span (utils.profiling.span).
+    span (utils.profiling.span). The lanes the obstacles pushed are added
+    to the device's running total, `ops.obstacle_pushed`.
 
     rebin_now: the host's cadence decision (`is_rebin_step` of the step
     index); None reads `d.step_count`, which waits for the device."""
@@ -718,7 +724,7 @@ def dense_step(d: DenseFluidState, params: SPHParams, spec: DenseSpec,
         with span("sph.fluid.accel"):
             ax, ay, az = f.accel(d, pr2, params, spec)
         with span("sph.fluid.integrate"):
-            px, py, pz, vx, vy, vz, n_clamped = f.integrate(
+            px, py, pz, vx, vy, vz, n_clamped, n_pushed = f.integrate(
                 d, ax, ay, az, params, rebin_vmax(params, spec), drag=drag
             )
         if rebin_now:
@@ -726,6 +732,7 @@ def dense_step(d: DenseFluidState, params: SPHParams, spec: DenseSpec,
                 d = f.rebin(d, px, py, pz, vx, vy, vz, params, spec)
         else:
             d = d.replace_fields(px=px, py=py, pz=pz, vx=vx, vy=vy, vz=vz)
+        obstacle_pushed(px.device).add_(n_pushed)
         return d.replace_fields(
             step_count=d.step_count + 1, clamped=d.clamped + n_clamped
         )

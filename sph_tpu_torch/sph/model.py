@@ -186,15 +186,24 @@ def sdf_value_grad(pos: torch.Tensor, obstacle):
     raise ValueError(f"unknown obstacle kind {kind!r}")
 
 
-def obstacle_accel(pos: torch.Tensor, params: SPHParams) -> torch.Tensor:
-    """Penalty acceleration pushing particles out of obstacle interiors
-    (plus a thin boundary layer of h/2)."""
+def obstacle_push(pos: torch.Tensor, params: SPHParams):
+    """(acceleration, band): `obstacle_accel`'s acceleration, and True
+    where some obstacle's penetration is positive, i.e. where its push acts
+    (the position lies within h/2 of its surface, or inside it)."""
     acc = torch.zeros_like(pos)
+    band = torch.zeros(pos.shape[:-1], dtype=torch.bool, device=pos.device)
     for ob in params.obstacles:
         sd, normal = sdf_value_grad(pos, ob)
         pen = torch.clamp_min(params.h * 0.5 - sd, 0.0)
         acc = acc + normal * (pen * params.obstacle_stiffness)[..., None]
-    return acc
+        band = band | (pen > 0.0)
+    return acc, band
+
+
+def obstacle_accel(pos: torch.Tensor, params: SPHParams) -> torch.Tensor:
+    """Penalty acceleration pushing particles out of obstacle interiors
+    (plus a thin boundary layer of h/2)."""
+    return obstacle_push(pos, params)[0]
 
 
 def eos_pressure(rho: torch.Tensor, params: SPHParams) -> torch.Tensor:

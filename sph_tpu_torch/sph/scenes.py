@@ -84,12 +84,17 @@ def dam_break_3d(n_target: int = 262144, obstacles=(), **overrides):
     return _state(pts, params), params
 
 
-# Config[3]'s dense layout: 16 slots a cell of 1.3 h, a rebin every 5
-# steps, the fastest layout measured whose rebin never sought more than 14
-# slots of a cell over whole 3,000-step episodes; at 8 slots, cell 1.38 h
-# and a rebin every 6 steps the rebin dropped ~9% of the column (PERF.md
-# §4).
-CONFIG3_LAYOUT = dict(dense_k=16, cell_factor=1.3, rebin_every=5)
+# Config[3]'s dense layout: 16 slots a cell of 1.3 h, a rebin every 2
+# steps. Measured from the seeded column through the pillar's impact to the
+# far wall (8,900 steps, 3 seeds a layout, PERF.md §4): unclamped, the flow
+# reaches 13.1 m/s, and the speed limit a layout sets ((cell − h)/2 a rebin
+# interval) held ~255,000 lanes at a rebin every 5 steps (7.2 m/s), ~14,000
+# at every 4 and up to 37 at every 3 (12 m/s); at every 2 steps (18 m/s) it
+# held none, the flow stayed below 0.71 of it, and the rebin never sought
+# more than 13 of 16 slots of a cell nor dropped a particle. At 8 slots,
+# 1.38 h and every 6 steps the rebin dropped ~9% of the column in the
+# collapse alone.
+CONFIG3_LAYOUT = dict(dense_k=16, cell_factor=1.3, rebin_every=2)
 # Each dense config's layout (slots a cell, cell side in h, steps between
 # rebins): config[1], [2] and [4] at the JAX bench's (bench.py), config[3]
 # at the port's own. The port's bench and chip_smoke.py read them here.

@@ -245,14 +245,15 @@ def stirred(d, acc, params, vmax: float, seed: int = 0, nan: bool = False):
 
 def check_integrate(d, ax, ay, az, params, vmax: float, drag=None) -> dict:
     """F1 against dense._integrate on the same tensors: the six moved
-    planes on every slot (`bitwise`, NaN as NaN) and the clamp counts."""
+    planes on every slot (`bitwise`, NaN as NaN), the clamp counts and the
+    obstacles' push counts."""
     plain = dense._integrate(d, ax, ay, az, params, vmax, drag=drag)
     kern = oi.integrate(d, ax, ay, az, params, vmax, drag=drag)
     out = _bitwise(INTEGRATE_FIELDS, plain[:6], kern[:6])
-    out["n_clamped"] = int(kern[6])
-    out["plain_n_clamped"] = int(plain[6])
-    out["bitwise"] = out["bitwise"] and (out["n_clamped"]
-                                         == out["plain_n_clamped"])
+    for i, name in ((6, "n_clamped"), (7, "n_pushed")):
+        out[name] = int(kern[i])
+        out["plain_" + name] = int(plain[i])
+        out["bitwise"] = out["bitwise"] and out[name] == out["plain_" + name]
     out["nan_slots"] = sum(int(k.isnan().sum()) for k in kern[:6])
     return out
 

@@ -161,10 +161,12 @@ def test_kernels_match_plain(cuda, case):
 
 
 # config[3] at 16 slots a cell: the bench's cell and cadence (1.38 h, a
-# rebin every 6 steps) and the port's config[3] layout (1.3 h, every 5
-# steps), which the benchmark cell runs.
+# rebin every 6 steps), the layout of the benchmark's collapse cell (1.3 h,
+# every 5 steps) and the port's config[3] layout, which the impact cell
+# runs (1.3 h, every 2 steps).
 CONFIG3_K16 = {"1.38": ((1.38, 6), (145, 16, 7680, 80)),
-               "1.3": ((1.3, 5), (154, 16, 7680, 80))}
+               "1.3": ((1.3, 5), (154, 16, 7680, 80)),
+               "1.3-2": ((1.3, 2), (154, 16, 7680, 80))}
 
 
 @pytest.fixture(scope="module", params=sorted(CONFIG3_K16))
@@ -205,6 +207,46 @@ def test_tail_kernels_bitwise_at_k16_config3(config3_k16):
     d, p, spec = config3_k16
     assert tail_exact(d, p, spec) > 0
     assert tail_exact(d, p, spec, drag=a_drag(d, d.px.device), seed=1) > 0
+
+
+@pytest.mark.parametrize("centre", [(1.2, 0.15), (0.3, 0.15)])
+def test_push_count_bitwise_at_k16_config3(config3_k16, centre):
+    """F1's count of the lanes the obstacle pushes equals the plain
+    version's, positions and velocities bitwise, at config[3]'s 16-slot
+    layouts: the pillar where config[3] has it (the column has not reached
+    it) and moved into the column (thousands of lanes in its band)."""
+    d, p, spec = config3_k16
+    p = p.replace(obstacles=(("cylinder_z", centre, 0.12),))
+    _, d2, acc = tail_inputs(d, p, spec)
+    r = check_integrate(d2, *acc, p, dense.rebin_vmax(p, spec))
+    assert r["bitwise"] and r["max_abs_err"] == 0.0, r
+    assert r["n_pushed"] == r["plain_n_pushed"]
+    assert (r["n_pushed"] > 1000) == (centre[0] < 1.0), r["n_pushed"]
+
+
+def test_snapshot_and_restore_bitwise_on_the_card(cuda):
+    """A device snapshot restored gives the same steps again, bitwise, in
+    every state tensor and in the push counter, with the pillar in the
+    column so that the push acts."""
+    from sph_tpu_torch.ops import obstacle_pushed, reset_obstacle_pushed
+
+    _, kw = SCENES["3d"]
+    st, p = dam_break_3d(obstacles=(("cylinder_z", (0.3, 0.15), 0.12),),
+                         **kw)
+    sim = FluidSimulation(st, p, substeps=6, device=cuda)
+    sim.run(12)
+    snap = sim.snapshot()
+    runs = []
+    for _ in range(2):
+        reset_obstacle_pushed()
+        sim.run(18)
+        runs.append(({f: getattr(sim.dstate, f).clone() for f in vars(
+            sim.dstate)}, int(obstacle_pushed(cuda)), sim._step))
+        sim.restore(snap)
+    (a, pa, sa), (b, pb, sb) = runs
+    assert pa == pb > 0 and sa == sb == 30
+    for f in a:
+        assert torch.equal(a[f], b[f]), f
 
 
 # Where a cell's slots run out (or are added): positions at the sentinel,
@@ -1379,7 +1421,7 @@ def test_app_launches_the_kernels(cuda, tmp_path, capsys):
     assert rc == 0
     assert LAUNCHES["density"] == 12 and LAUNCHES["accel"] == 12
     assert LAUNCHES["density_tail"] == LAUNCHES["integrate"] == 12
-    assert LAUNCHES["rebin"] == 4        # config[3]: a rebin every 5 steps
+    assert LAUNCHES["rebin"] == 12       # config[3]: a rebin every 2 steps
     lines = [l for l in capsys.readouterr().out.splitlines()
              if l.startswith("{")]
     assert len(lines) == 2 and '"dropped": 0' in lines[-1]

@@ -194,7 +194,9 @@ def test_fluid_step_records_its_spans():
         assert names.count(name) == 6, name
     assert names.count("sph.fluid.rebin") == 1
     c = sim.counters()
-    assert set(c) == {"dropped", "clamped", "rebin_peak"}
+    assert set(c) == {"dropped", "clamped", "rebin_peak", "pushed"}
+    pushed = c.pop("pushed")
+    assert pushed.dtype == torch.int64 and pushed.dim() == 0
     assert all(v.dtype == torch.int32 and v.dim() == 0 for v in c.values())
     assert int(c["dropped"]) == 0 and int(c["rebin_peak"]) > 0
 

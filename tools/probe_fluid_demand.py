@@ -16,13 +16,23 @@ particles within h/2 of the pillar's surface, where its push acts; then
 one uninstrumented run of the same steps at the first seed for the
 layout's steps/s.
 
+With --window S the rebins are not instrumented; instead, every 10 steps
+the front and F1's count of pushed lanes (`ops.obstacle_pushed`) give the
+first 10-step block in which the push acts and the first in which the
+front reaches the far wall (x ≥ tank − h), and every 100 steps from step
+S a record holds the front, the particles in the push band, the largest
+speed and its share of the layout's speed limit, the state's `clamped`
+and `dropped`, the demand peak since the last record and the pushed
+lanes a step since the last record. --fallback CF: where a layout's
+demand reaches K − 1, the same cadences are run again at cell_factor CF.
+
     python3 tools/probe_fluid_demand.py [--layouts 8:1.38:6,16:1.38:6]
         [--seeds 3000000001,3000000002,3000000003] [--steps 3000]
         [--out chiprun_out/fluid_demand.json] [--device cuda]
-        [--n-target N]
+        [--n-target N] [--window S] [--fallback CF]
 
 A layout is K:cell_factor:rebin_every. Prints one line a layout and seed
-and writes every rebin's record to --out.
+and writes every rebin's (or window) record to --out.
 """
 
 from __future__ import annotations
@@ -60,16 +70,15 @@ def where(cells, spec, params):
                                          ("walls", walls), ("front", front))}
 
 
-def run(layout, seed, steps, cfg, records, flow):
+def seeded_sim(layout, seed, cfg):
+    """The benchmark's seeded column at `layout` (K, cell_factor,
+    rebin_every) through FluidSimulation, 10 steps a call."""
     from benchmark.scenes.dam_break_obstacle import build
     from sph_tpu_torch.engine.fluid import FluidSimulation
-    from sph_tpu_torch.ops import rebin_peak, reset_rebin_peak
-    from sph_tpu_torch.sph import dense
     from sph_tpu_torch.sph.model import SPHParams, SPHState
 
     k, cf, every = layout
-    dev = DEV
-    sc = build(cfg, seed, dev)
+    sc = build(cfg, seed, DEV)
     pos = sc.pop("pos")
     keys = ("ndim", "h", "rest_density", "particle_mass", "sound_speed",
             "gamma", "viscosity", "gravity", "dt", "bounds_min",
@@ -77,8 +86,17 @@ def run(layout, seed, steps, cfg, records, flow):
             "obstacle_stiffness")
     params = SPHParams(**{key: sc[key] for key in keys}, dense_k=k,
                        cell_factor=cf, rebin_every=every, use_pallas=True)
-    sim = FluidSimulation(SPHState.from_positions(pos, params), params,
-                          substeps=10, device=dev)
+    return FluidSimulation(SPHState.from_positions(pos, params), params,
+                           substeps=10, device=DEV)
+
+
+def run(layout, seed, steps, cfg, records, flow):
+    from sph_tpu_torch.ops import rebin_peak, reset_rebin_peak
+    from sph_tpu_torch.sph import dense
+
+    dev = DEV
+    sim = seeded_sim(layout, seed, cfg)
+    params = sim.params
     spec = sim.spec
     real = dense.step_passes
     step = [0]
@@ -128,6 +146,59 @@ def run(layout, seed, steps, cfg, records, flow):
     return sim
 
 
+def run_window(layout, seed, steps, cfg, start, records):
+    """Steps the seeded column `steps` steps at `layout`; appends the
+    window records (every 100 steps from `start`) to `records` and returns
+    (sim, first push block, first far-wall block)."""
+    from sph_tpu_torch.ops import (
+        obstacle_pushed,
+        rebin_peak,
+        reset_obstacle_pushed,
+        reset_rebin_peak,
+    )
+    from sph_tpu_torch.sph import dense
+    from sph_tpu_torch.sph.model import obstacle_push
+
+    sim = seeded_sim(layout, seed, cfg)
+    params = sim.params
+    vmax = dense.rebin_vmax(params, sim.spec)
+    wall = params.bounds_max[0] - params.h
+    reset_rebin_peak()
+    reset_obstacle_pushed()
+    first_push = first_wall = None
+    since = 0
+    for i in range(steps // 10):
+        sim.run(10)
+        d = sim.dstate
+        occ = d.occ > 0.5
+        front, pushed = torch.stack([
+            torch.where(occ, d.px, -1.0).amax().double(),
+            obstacle_pushed(DEV).double()]).tolist()
+        if first_push is None and pushed > 0:
+            first_push = 10 * i
+        if first_wall is None and front >= wall:
+            first_wall = 10 * i
+        step = 10 * (i + 1)
+        if step >= start and step % 100 == 0:
+            p = torch.stack([d.px[occ], d.py[occ], d.pz[occ]], -1)
+            v = torch.stack([d.vx[occ], d.vy[occ], d.vz[occ]], -1)
+            band = obstacle_push(p, params)[1]
+            speed = torch.sqrt((v * v).sum(-1)).amax()
+            vals = torch.stack([
+                band.sum().double(), speed.double(), d.clamped.double(),
+                d.dropped.double(), rebin_peak(DEV).double()]).tolist()
+            records.append({
+                "step": step, "front": round(front, 4),
+                "push": int(vals[0]), "max_speed": round(vals[1], 3),
+                "speed_share": round(vals[1] / vmax, 4),
+                "clamped": int(vals[2]), "dropped": int(vals[3]),
+                "peak": int(vals[4]),
+                "pushed_per_step": round((pushed - since) / 100, 2)})
+            since = pushed
+            reset_rebin_peak()
+    return sim, first_push, first_wall, vmax
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--layouts", default="8:1.38:6,16:1.38:6")
@@ -137,6 +208,8 @@ def main() -> int:
         ROOT, "chiprun_out", "fluid_demand.json"))
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--n-target", type=int)
+    ap.add_argument("--window", type=int)
+    ap.add_argument("--fallback", type=float)
     args = ap.parse_args()
     global DEV
     DEV = torch.device(args.device)
@@ -152,10 +225,42 @@ def main() -> int:
                               "--format=csv,noheader"], capture_output=True,
                              text=True).stdout.strip(), flush=True)
     out = {}
-    for text in args.layouts.split(","):
+    layouts = args.layouts.split(",")
+    fell_back = False
+    while layouts:
+        text = layouts.pop(0)
         k, cf, every = text.split(":")
         layout = (int(k), float(cf), int(every))
         for seed in (int(s) for s in args.seeds.split(",")):
+            if args.window is not None:
+                recs = []
+                t = time.perf_counter()
+                sim, first_push, first_wall, vmax = run_window(
+                    layout, seed, args.steps, cfg, args.window, recs)
+                line = {"layout": text, "seed": seed, "vmax": vmax,
+                        "first_push_block": first_push,
+                        "first_far_wall_block": first_wall,
+                        "particles_left": int(sim.dstate.occ.sum()),
+                        "dropped": int(sim.dstate.dropped),
+                        "clamped": int(sim.dstate.clamped),
+                        "window_peak": max([r["peak"] for r in recs]
+                                           or [0]),
+                        "window_max_speed": max([r["max_speed"]
+                                                 for r in recs] or [0]),
+                        "seconds": round(time.perf_counter() - t, 2)}
+                print(json.dumps(line), flush=True)
+                print(json.dumps({"records": [
+                    [r["step"], r["front"], r["push"], r["max_speed"],
+                     r["clamped"], r["dropped"], r["peak"],
+                     r["pushed_per_step"]] for r in recs]}), flush=True)
+                out[f"{text}/{seed}"] = {"summary": line, "window": recs}
+                if (args.fallback and not fell_back
+                        and line["window_peak"] >= layout[0] - 1):
+                    fell_back = True
+                    layouts += [f"{k}:{args.fallback}:{t_.split(':')[2]}"
+                                for t_ in args.layouts.split(",")]
+                del sim
+                continue
             recs, flow = [], []
             t = time.perf_counter()
             sim = run(layout, seed, args.steps, cfg, recs, flow)
@@ -183,21 +288,7 @@ def main() -> int:
             out[f"{text}/{seed}"] = {"summary": line, "rebins": recs}
             del sim
         # Steps/s of the layout, uninstrumented.
-        from benchmark.scenes.dam_break_obstacle import build
-        from sph_tpu_torch.engine.fluid import FluidSimulation
-        from sph_tpu_torch.sph.model import SPHParams, SPHState
-
-        sc = build(cfg, int(args.seeds.split(",")[0]), DEV)
-        pos = sc.pop("pos")
-        keys = ("ndim", "h", "rest_density", "particle_mass",
-                "sound_speed", "gamma", "viscosity", "gravity", "dt",
-                "bounds_min", "bounds_max", "boundary_damping", "obstacles",
-                "obstacle_stiffness")
-        params = SPHParams(**{key: sc[key] for key in keys},
-                           dense_k=layout[0], cell_factor=layout[1],
-                           rebin_every=layout[2], use_pallas=True)
-        sim = FluidSimulation(SPHState.from_positions(pos, params), params,
-                              substeps=10, device=DEV)
+        sim = seeded_sim(layout, int(args.seeds.split(",")[0]), cfg)
         sim.run(60)
         t = time.perf_counter()
         sim.run(args.steps)
