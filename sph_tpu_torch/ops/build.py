@@ -37,12 +37,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _ARGTYPES = {
-    # px, py, pz, occ, out, work, n0, k, c, x, stencil0, stencil1,
+    # px, py, pz, occ, out, work, ext, n0, k, c, x, stencil0, stencil1,
     # band_rows, smem_bytes, h2, self_init, scale, stream
-    "sph_density_sweep": [_P] * 6 + [_I] * 8 + [_F] * 3 + [_P],
-    # px, py, pz, vx, vy, vz, rho, pr2, occ, 3 outputs, work, n0, k, c, x, stencil0, stencil1,
-    # band_rows, smem_bytes, h, neg_m_spiky, visc_mc, r2_cut, stream
-    "sph_accel_sweep": [_P] * 13 + [_I] * 8 + [_F] * 4 + [_P],
+    "sph_density_sweep": [_P] * 7 + [_I] * 8 + [_F] * 3 + [_P],
+    # px, py, pz, vx, vy, vz, rho, pr2, occ, 3 outputs, work, ext, n0, k, c,
+    # x, stencil0, stencil1, band_rows, smem_bytes, h, neg_m_spiky, visc_mc,
+    # r2_cut, stream
+    "sph_accel_sweep": [_P] * 14 + [_I] * 8 + [_F] * 4 + [_P],
     # p0, p1, p2, occ, codes, dropped_in, dropped, n0, k, c, x, planes,
     # origin0..2, cell, stream
     "sph_rebin_codes": [_P] * 7 + [_I] * 5 + [_F] * 4 + [_P],

@@ -7,7 +7,9 @@ A CPU tensor goes to the plain version (sph_tpu_torch.sph.dense); a CUDA
 tensor launches the kernel or raises — there is no fallback. Outputs are
 allocated here with torch.empty (the kernel writes every slot: its sum on
 occupied ones, +0 on empty ones); kernels launch on PyTorch's current
-stream and are not synchronised.
+stream and are not synchronised. `sweep_screens` counts, in plain torch
+and outside the step, the partner slots their walk screens at an
+occupancy.
 """
 
 from __future__ import annotations
@@ -46,6 +48,13 @@ def blocks_per_sm(k: int) -> int:
     return 1 if k > 8 else 2
 
 
+def extent_walk(k: int) -> bool:
+    """kExtentWalk in csrc/fluid_sweep.cu: whether the build's walk stops
+    at each partner cell's occupied extent (one block an SM, K = 16) or
+    visits every slot (two blocks an SM)."""
+    return blocks_per_sm(k) == 1
+
+
 def partners(spec: dense.DenseSpec) -> int:
     """Partners an own slot visits: the 3×3(×3) cells' slots but itself."""
     return 9 * (1 + 2 * int(spec.stencil0)) * spec.k - 1
@@ -55,9 +64,10 @@ def partners(spec: dense.DenseSpec) -> int:
 class BandPlan:
     """One band = `rows` whole rows of one plane; a sweep block stages, per
     band, the three position fields of `planes` planes, all K slots and the
-    fused run [(r0 − 1)·X − PAD, (r0 + rows + 1)·X + PAD) of each, and
-    keeps a table of its partners, in `smem_bytes` of dynamic shared
-    memory (csrc/fluid_sweep.cu `Layout`)."""
+    fused run [(r0 − 1)·X − PAD, (r0 + rows + 1)·X + PAD) of each (and,
+    for the extent walk, those cells' extents, a byte each), and keeps a
+    table of its partners, in `smem_bytes` of dynamic shared memory
+    (csrc/fluid_sweep.cu `Layout`)."""
 
     rows: int          # rows a band holds (the last band may be shorter)
     bands: int         # bands per plane
@@ -71,7 +81,8 @@ def _plan(spec: dense.DenseSpec, rows: int) -> BandPlan:
     run = (rows + 2) * spec.X + 2 * PAD
     smem = (16 * partners(spec)
             + 4 * (3 * planes * spec.k * run + spec.k * rows * spec.X
-                   + LOADS * (THREADS // 32)) + 16)
+                   + LOADS * (THREADS // 32)) + 16
+            + (planes * run if extent_walk(spec.k) else 0))
     return BandPlan(rows=rows, bands=-(-spec.n1 // rows), planes=planes,
                     run=run, smem_bytes=smem)
 
@@ -121,9 +132,11 @@ def _f32(x: float) -> float:
 
 
 def _geometry(name: str, tensors, spec: dense.DenseSpec) -> tuple:
-    """Checks the operands; returns the kernels' zeroed int32 work list
-    (a count, a cursor, one entry per band), which the caller holds until
-    the launch, and their geometry arguments. The plane count is the
+    """Checks the operands; returns the kernels' scratch, which the caller
+    holds until the launch — the zeroed int32 work list (a count, a cursor,
+    one entry per band) and, for the extent walk, the uint8 [n0, C] plane
+    of each cell's occupied extent, which the gate fills — and their
+    pointers and geometry arguments. The plane count is the
     operands' own, as the Pallas kernel takes it from its array: a
     sharded step passes halo-padded slabs of P + 2 planes (and, over a 2D
     mesh, the spec of its local rows); `spec` gives the rest."""
@@ -132,9 +145,11 @@ def _geometry(name: str, tensors, spec: dense.DenseSpec) -> tuple:
     plan = band_plan(spec)
     work = torch.zeros(2 + n0 * plan.bands, dtype=torch.int32,
                        device=tensors[0].device)
-    return work, (work.data_ptr(), n0, spec.k, spec.C, spec.X,
-                  int(spec.stencil0), int(spec.stencil1), plan.rows,
-                  plan.smem_bytes)
+    ext = torch.empty((n0, spec.C) if extent_walk(spec.k) else 0,
+                      dtype=torch.uint8, device=tensors[0].device)
+    return (work, ext), (work.data_ptr(), ext.data_ptr(), n0, spec.k,
+                         spec.C, spec.X, int(spec.stencil0),
+                         int(spec.stencil1), plan.rows, plan.smem_bytes)
 
 
 def density_sweep(px, py, pz, occ, params, spec) -> torch.Tensor:
@@ -143,7 +158,7 @@ def density_sweep(px, py, pz, occ, params, spec) -> torch.Tensor:
     the plain dense.density_raw."""
     if px.device.type == "cpu":
         return dense.density_raw(px, py, pz, params, spec)
-    work, geom = _geometry("density_sweep", (px, py, pz, occ), spec)
+    scratch, geom = _geometry("density_sweep", (px, py, pz, occ), spec)
     lib = library().lib
     out = torch.empty_like(px)
     scale = params.particle_mass * KN.poly6_coeff(params.h, params.ndim)
@@ -167,7 +182,7 @@ def accel_sweep(d, pr2, params, spec):
     if d.px.device.type == "cpu":
         return dense.accel_raw(d, torch.reciprocal(d.rho), pr2, params, spec)
     ins = (d.px, d.py, d.pz, d.vx, d.vy, d.vz, d.rho, pr2, d.occ)
-    work, geom = _geometry("accel_sweep", ins, spec)
+    scratch, geom = _geometry("accel_sweep", ins, spec)
     lib = library().lib
     outs = [torch.empty_like(d.px) for _ in range(3)]
     h, neg_m_spiky, visc_mc = dense.accel_constants(params)
@@ -180,3 +195,79 @@ def accel_sweep(d, pr2, params, spec):
     check_launch("accel_sweep", rc)
     LAUNCHES["accel"] += 1
     return tuple(outs)
+
+
+@dataclass(frozen=True)
+class Screens:
+    """The partner slots the sweeps' walk screens at one occupancy
+    (`sweep_screens`), summed over the occupied own slots, a lane at a time
+    and a warp at a time, beside the full stencil's counts."""
+
+    occupied: int      # own slots walked
+    warps: int         # warp walks: 32 consecutive slots of a band's list
+    partners: int      # the full stencil's partners an own slot: 27·K − 1
+    lane: int          # partner slots below their cell's extent
+    warp: int          # partner slots the warps walk
+
+    @property
+    def lane_share(self) -> float:
+        return self.lane / max(self.partners * self.occupied, 1)
+
+    @property
+    def warp_share(self) -> float:
+        return self.warp / max(self.partners * self.warps, 1)
+
+
+def extents(occ: torch.Tensor) -> torch.Tensor:
+    """Each cell's occupied extent, 1 + its highest occupied slot (0 when
+    empty), as int32 [n0, C]: what the gate kernel writes."""
+    slots = torch.arange(1, occ.shape[1] + 1, dtype=torch.int32,
+                         device=occ.device)
+    return ((occ > 0.5) * slots[:, None]).amax(dim=1).to(torch.int32)
+
+
+def sweep_screens(occ: torch.Tensor, spec: dense.DenseSpec) -> Screens:
+    """What K1's and K2's walk screens at occupancy `occ` [n0, K, C], in
+    plain torch on its device; it reads its counts back to the host, so
+    the step never calls it. An own slot needs, of each of its 27 (9 in
+    2D) partner cells, the slots below that cell's extent, itself left out:
+    Σ extents − 1 of the full stencil's 27·K − 1 (`lane`). The walk gives
+    each warp 32 consecutive own slots of a band's list (slot-major, then
+    cell; the bands of `band_plan`). The extent walk (`extent_walk`) has a
+    warp screen the own cell's K − 1 partners and, of each other cell, as
+    many slots as the largest extent among its lanes; the full walk, every
+    partner (`warp`). Counted by occupancy: an own slot whose position is
+    not finite walks every partner."""
+    k, x, c_len = spec.k, spec.X, spec.C
+    n0 = occ.shape[0]
+    s0 = int(spec.stencil0)
+    plan = band_plan(spec)
+    dev = occ.device
+    # Extents with a zero border: a partner cell beyond the array is empty.
+    ext = torch.nn.functional.pad(extents(occ), (x + 1, x + 1, s0, s0))
+    z, slot, c = torch.nonzero(occ > 0.5, as_tuple=True)
+    n = int(z.numel())
+    band = z * plan.bands + torch.div(c, x * plan.rows, rounding_mode="floor")
+    order = torch.argsort((band * k + slot) * c_len + c)
+    z, c, band = z[order], c[order], band[order]
+    counts = torch.bincount(band, minlength=n0 * plan.bands)
+    warps = torch.div(counts + 31, 32, rounding_mode="floor")
+    rank = torch.arange(n, device=dev) - (torch.cumsum(counts, 0)
+                                          - counts)[band]
+    at = (torch.cumsum(warps, 0) - warps)[band] * 32 + rank
+    n_warps = int(warps.sum())
+    walk = extent_walk(k)
+    lane = 0
+    warp = n_warps * ((k - 1) if walk else partners(spec))
+    for dz in range(-s0, s0 + 1):
+        for dy in (-1, 0, 1):
+            for dx in (-1, 0, 1):
+                e = ext[z + s0 + dz, c + x + 1 + dy * x + dx]
+                lane += int(e.sum())
+                if not walk or dz == dy == dx == 0:
+                    continue
+                most = torch.zeros(n_warps * 32, dtype=e.dtype, device=dev)
+                most[at] = e
+                warp += int(most.view(n_warps, 32).amax(dim=1).sum())
+    return Screens(occupied=n, warps=n_warps, partners=partners(spec),
+                   lane=lane - n, warp=warp)

@@ -9,9 +9,13 @@ Tolerances: K1/K2 are held to rtol 1e-5, atol 1e-6·max|x| on occupied
 slots (sph_tpu_torch.utils.verify) and, by their design (the plain
 version's summation order, no FMA contraction, a screen that skips only
 exact ±0 terms), to bitwise equality on occupied slots — NaN where the
-plain version is NaN — and +0 on empty ones; K3 is bitwise (−0 == +0,
-`dropped` equal), also on random layouts with moves of up to two cells and
-on overflows at an intermediate stage, at each K it is built for. K4 (colony
+plain version is NaN — and +0 on empty ones, also where the walk stops at
+each partner cell's occupied extent: cells with holes, cells full to K, a
+band whose every cell holds one particle and a NaN particle with no
+occupied partner, at K = 4 and 16 in 2D and K = 8 and 16 in 3D; K3 is
+bitwise (−0 == +0, `dropped` equal), also on random layouts with moves of
+up to two cells and on overflows at an intermediate stage, at each K it is
+built for. K4 (colony
 contact sweep) is held to the same tolerance on every slot and, by the
 same design, to bitwise equality with +0 on empty slots, and its floor
 modes (ops/contact_floor.py) bitwise to their plain versions; K5 (the
@@ -278,10 +282,62 @@ def test_sweeps_exact_in_the_other_builds(cuda, case, k):
     assert sweeps_exact(d, accel_inputs(d, p, spec), p, spec) == 0
 
 
-def test_sweeps_exact_in_a_full_cell(cuda):
-    """Every slot of one cell occupied: the same-cell group A and its
-    mirror lump run over all K − 1 partners."""
-    d, p, spec = stepped(cuda, "3d")
+# The sweeps' builds at each slot count, on small stepped scenes: K = 4
+# and K = 16 without a plane stencil (2D), K = 8 and K = 16 with one; the
+# 16-slot builds walk each partner cell's slots below its extent.
+EXTENT_LAYOUTS = {
+    "2d4": SCENES["2d"],
+    "2d16": ("dam_break_2d", dict(n_target=4096, dense_k=16, cell_factor=1.2,
+                                  rebin_every=3)),
+    "3d8": SCENES["3d"],
+    "3d16": ("dam_break_3d_obstacle", dict(n_target=20000, cell_factor=1.3,
+                                           dense_k=16, rebin_every=2)),
+}
+
+
+def stepped_layout(cuda, layout, steps=12):
+    scene, kw = EXTENT_LAYOUTS[layout]
+    sim = FluidSimulation.from_scene(scene, substeps=6, device=cuda, **kw)
+    sim.run(steps)
+    return sim.dstate, sim.params, sim.spec
+
+
+def cell_extents(d):
+    """1 + each cell's highest occupied slot (0 when empty): [n0, C]."""
+    k = d.occ.shape[1]
+    slots = torch.arange(1, k + 1, device=d.occ.device)[:, None]
+    return ((d.occ > 0.5) * slots).amax(dim=1)
+
+
+def cell_centres(spec, z, c, device):
+    """World positions (x, y, z) of the centres of cells (z, c); 0 on the
+    world axis that a 2D layout does not have."""
+    idx = (z, torch.div(c, spec.X, rounding_mode="floor"), c % spec.X)
+    pos = [torch.zeros(len(z), device=device) for _ in range(3)]
+    for dim, axis in enumerate(spec.axis_map):
+        if axis < spec.ndim:
+            pos[axis] = spec.origin[axis] + (idx[dim] + 0.5) * spec.cell
+    return pos
+
+
+def with_slots(d, z, s, c, pos=None):
+    """d with slot (z[i], s[i], c[i]) emptied (pos None: the sentinel, no
+    velocity) or holding a particle at pos = (x, y, z) at rest."""
+    fields = {f: getattr(d, f).clone() for f in EMPTY_SLOT}
+    for f, fill in EMPTY_SLOT.items():
+        fields[f][z, s, c] = fill
+    if pos is not None:
+        for f, x in zip(("px", "py", "pz"), pos):
+            fields[f][z, s, c] = x
+        fields["occ"][z, s, c] = 1.0
+    return d.replace_fields(**fields)
+
+
+@pytest.mark.parametrize("layout", sorted(EXTENT_LAYOUTS))
+def test_sweeps_exact_in_a_full_cell(cuda, layout):
+    """Every slot of a cell occupied (extent K): the same-cell group A and
+    its mirror lump run over all K − 1 partners; one cell, then up to 64."""
+    d, p, spec = stepped_layout(cuda, layout)
     occ = d.occ > 0.5
     live = torch.nonzero(occ)
     z, k, c = (int(i) for i in live[len(live) // 2])
@@ -292,8 +348,62 @@ def test_sweeps_exact_in_a_full_cell(cuda):
     for a, f in enumerate(("px", "py", "pz")):
         fields[f][z, :, c] = getattr(d, f)[z, k, c] + jitter[a]
     fields["occ"][z, :, c] = 1.0
-    d = d.replace_fields(**fields)
-    assert bool((d.occ > 0.5).all(dim=1).any())
+    one = d.replace_fields(**fields)
+    assert bool((one.occ > 0.5).all(dim=1).any())
+    assert sweeps_exact(one, accel_inputs(one, p, spec), p, spec) == 0
+    # Many full cells: each cell's free slots take its first particle,
+    # jittered.
+    zs, cs = torch.nonzero((cell_extents(d) > 0) & (cell_extents(d) < spec.k),
+                           as_tuple=True)
+    zs, cs = zs[::5][:64], cs[::5][:64]
+    fields = {f: getattr(d, f).clone() for f in ("px", "py", "pz", "occ")}
+    for s in range(1, spec.k):
+        free = ~occ[zs, s, cs]
+        zf, cf = zs[free], cs[free]
+        for a, f in enumerate(("px", "py", "pz")):
+            shift = (torch.rand(len(zf), generator=g, device=cuda) - 0.5) \
+                * (0.5 * p.h) if a < spec.ndim else 0.0
+            fields[f][zf, s, cf] = getattr(d, f)[zf, 0, cf] + shift
+        fields["occ"][zf, s, cf] = 1.0
+    many = d.replace_fields(**fields)
+    assert int((cell_extents(many) == spec.k).sum()) >= len(zs) > 8
+    assert sweeps_exact(many, accel_inputs(many, p, spec), p, spec) == 0
+
+
+@pytest.mark.parametrize("case", ["holes", "extent 1"])
+@pytest.mark.parametrize("layout", sorted(EXTENT_LAYOUTS))
+def test_sweeps_exact_at_the_occupied_extents(cuda, layout, case):
+    """The walk stops at each partner cell's occupied extent (1 + its
+    highest occupied slot). "holes": an empty slot below the extent in
+    every third cell of three or more particles, so a cell walks more than
+    it holds. "extent 1": every cell of one band (margins too) holds one
+    particle, in slot 0, and the band's rows ±1 keep the scene's."""
+    d, p, spec = stepped_layout(cuda, layout)
+    ext = cell_extents(d)
+    if case == "holes":
+        zs, cs = torch.nonzero(ext >= 3, as_tuple=True)
+        zs, cs = zs[::3], cs[::3]
+        d = with_slots(d, zs, torch.ones_like(zs), cs)
+        holes = ~(d.occ[:, :-1] > 0.5) & (d.occ[:, 1:] > 0.5)
+        assert int(holes.sum()) >= len(zs) > 8
+        assert torch.equal(cell_extents(d), ext)
+    else:
+        plan = band_plan(spec)
+        zs, cs = torch.nonzero(ext > 0, as_tuple=True)
+        z = int(zs[len(zs) // 2])
+        b = int(cs[len(cs) // 2]) // spec.X // plan.rows
+        band = torch.arange(b * plan.rows * spec.X,
+                            min((b + 1) * plan.rows, spec.n1) * spec.X,
+                            device=cuda)
+        zb = torch.full_like(band, z)
+        for s in range(1, spec.k):
+            d = with_slots(d, zb, torch.full_like(band, s), band)
+        empty = ~(d.occ[z, 0, band] > 0.5)
+        d = with_slots(d, zb[empty], torch.zeros_like(band[empty]),
+                       band[empty], cell_centres(spec, zb[empty],
+                                                 band[empty], cuda))
+        assert bool((cell_extents(d)[z, band] == 1).all())
+        assert bool(empty.any()) and bool((~empty).any())
     assert sweeps_exact(d, accel_inputs(d, p, spec), p, spec) == 0
 
 
@@ -325,17 +435,44 @@ def test_sweeps_exact_beside_an_empty_band(cuda, case):
     assert sweeps_exact(d, accel_inputs(d, p, spec), p, spec) == 0
 
 
-def test_sweeps_keep_nan_positions(cuda):
+@pytest.mark.parametrize("where", ["in the fluid", "alone"])
+@pytest.mark.parametrize("layout", sorted(EXTENT_LAYOUTS))
+def test_sweeps_keep_nan_positions(cuda, layout, where):
     """A NaN position makes NaN pair terms, which neither screen skips:
     K1 and K2 are NaN exactly where the plain versions are (the accel
-    inputs come from the finite state, so only the position is NaN)."""
-    d, p, spec = stepped(cuda, "3d")
+    inputs come from the finite state, so only the position is NaN). A
+    particle "alone", in a cell whose 26 neighbours are empty, has no
+    occupied partner: its own walk still visits every partner slot, so its
+    NaN terms against the empty ones give it NaN, and only it."""
+    d, p, spec = stepped_layout(cuda, layout)
+    if where == "alone":
+        # A cell two cells or more from every particle and from the
+        # array's ends.
+        taken = (cell_extents(d) > 0).float().view(1, 1, spec.n0, spec.n1,
+                                                   spec.X)
+        if spec.stencil0:
+            near = torch.nn.functional.max_pool3d(taken, 5, 1, 2)[0, 0]
+        else:
+            near = torch.nn.functional.max_pool2d(taken[0], 5, 1, 2)[0]
+        inner = torch.zeros_like(near, dtype=torch.bool)
+        inner[slice(2, -2) if spec.stencil0 else slice(None), 2:-2, 2:-2] = True
+        free = torch.nonzero(((near == 0) & inner).reshape(spec.n0, spec.C))
+        z, c = (int(i) for i in free[len(free) // 2])
+        zs, cs = torch.tensor([z], device=cuda), torch.tensor([c], device=cuda)
+        d = with_slots(d, zs, torch.zeros_like(zs), cs,
+                       cell_centres(spec, zs, cs, cuda))
+        k = 0
+    else:
+        z, k, c = (int(i) for i in torch.nonzero(d.occ > 0.5)[100])
     d2 = accel_inputs(d, p, spec)
-    z, k, c = (int(i) for i in torch.nonzero(d.occ > 0.5)[100])
     px = d.px.clone()
     px[z, k, c] = float("nan")
-    assert sweeps_exact(d.replace_fields(px=px), d2.replace_fields(px=px),
-                        p, spec) > 1
+    nans = sweeps_exact(d.replace_fields(px=px), d2.replace_fields(px=px),
+                        p, spec)
+    if where == "alone":
+        assert nans == 4     # its ρ and its three accelerations
+    else:
+        assert nans > 1
 
 
 # The blocks that ranks of a sharded step sweep (parallel.dist): halo-padded

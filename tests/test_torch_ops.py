@@ -1,14 +1,16 @@
 """The kernel wrappers and the kernel build, on the CPU: a CPU tensor takes
 the plain PyTorch version (and counts no launch), the dense step's kernel
 flag changes nothing there, the fluid sweeps' band planner fits shared
-memory and covers the layout, the build refuses cleanly without a CUDA
-toolkit, and `launch_counts` spells an expectation over every kernel. The
-kernels themselves are checked on the card (tests/test_torch_cuda.py,
-chip_smoke.py)."""
+memory and covers the layout, the count of the partner slots their walk
+screens (`sweep_screens`) equals one made slot by slot, the build refuses
+cleanly without a CUDA toolkit, and `launch_counts` spells an expectation
+over every kernel. The kernels themselves are checked on the card
+(tests/test_torch_cuda.py, chip_smoke.py)."""
 
 import dataclasses
 import shutil
 
+import numpy as np
 import pytest
 import torch
 
@@ -137,6 +139,104 @@ def test_band_plan_refuses_what_does_not_fit():
         band_plan(dataclasses.replace(spec, k=6))
     with pytest.raises(ValueError, match="multiple of 4"):
         band_plan(dataclasses.replace(spec, n2=90))
+
+
+def screen_layout(name, seed=0):
+    """A small layout whose cells hold particles in their first slots, 0
+    to K/4 in the first half of the rows and 0 to K in the rest, with holes
+    (an empty slot below an occupied one) and one band emptied; or no
+    particle at all ("empty")."""
+    k, n0, n1, n2 = {"3d4": (4, 3, 20, 16), "3d16": (16, 3, 12, 8),
+                     "2d8": (8, 1, 24, 16), "empty": (8, 3, 16, 16)}[name]
+    spec = dense.DenseSpec(n0=n0, n1=n1, n2=n2, k=k, cell=1.0,
+                           origin=(0.0, 0.0, 0.0), ndim=3 if n0 > 1 else 2,
+                           axis_map=(0, 1, 2) if n0 > 1 else (2, 1, 0),
+                           stencil0=n0 > 1)
+    rng = np.random.default_rng(seed)
+    occ = np.zeros((n0, k, spec.C), np.float32)
+    if name != "empty":
+        rows = np.arange(spec.C) // n2
+        fill = rng.integers(0, np.where(rows < n1 // 2, k // 4, k) + 1,
+                            size=(n0, spec.C))
+        occ[:] = np.arange(k)[None, :, None] < fill[:, None, :]
+        holes = rng.random((n0, k, spec.C)) < 0.15
+        holes[:, -1] = False
+        occ[holes & (fill[:, None, :] > 2)] = 0.0
+        band = band_plan(spec).rows * n2
+        occ[n0 // 2, :, band:2 * band] = 0.0
+    return torch.from_numpy(occ), spec
+
+
+def slot_by_slot(occ, spec):
+    """The walk's screens as their definition states them, one own slot
+    and partner at a time: an own slot needs each stencil partner (cell,
+    sel) below its cell's extent; each warp of 32 listed slots of a band
+    screens, in the extent walk, the own cell's K − 1 partners and, of each
+    other cell, as many slots as the largest extent among its lanes, and in
+    the full walk every partner."""
+    o = occ.numpy() > 0.5
+    n0, k, c_len = o.shape
+    x, s0, plan = spec.X, int(spec.stencil0), band_plan(spec)
+    ext = np.zeros((n0 + 2, c_len + 2 * x + 2), int)
+    for z in range(n0):
+        for c in range(c_len):
+            used = np.nonzero(o[z, :, c])[0]
+            ext[z + 1, c + x + 1] = used.max() + 1 if used.size else 0
+    cells = [(dz, dy, dx) for dz in range(-s0, s0 + 1) for dy in (-1, 0, 1)
+             for dx in (-1, 0, 1)]
+    stencil = [(cell, sel) for cell in cells for sel in range(k)
+               if cell != (0, 0, 0) or sel]
+    n = warps = lane = warp = 0
+    for z in range(n0):
+        for b in range(plan.bands):
+            band = range(b * plan.rows * x, min((b + 1) * plan.rows,
+                                                spec.n1) * x)
+            own = [(s, c) for s in range(k) for c in band if o[z, s, c]]
+            n += len(own)
+            for w in range(0, len(own), 32):
+                lanes = own[w:w + 32]
+                warps += 1
+                for s, c in lanes:
+                    lane += sum((s + sel) % k < ext[z + 1 + dz,
+                                                     c + x + 1 + dy * x + dx]
+                                for (dz, dy, dx), sel in stencil)
+                if not fluid.extent_walk(k):
+                    warp += len(stencil)
+                    continue
+                warp += k - 1
+                for dz, dy, dx in cells:
+                    if (dz, dy, dx) != (0, 0, 0):
+                        warp += max(ext[z + 1 + dz, c + x + 1 + dy * x + dx]
+                                    for _, c in lanes)
+    return fluid.Screens(occupied=n, warps=warps, partners=len(stencil),
+                         lane=lane, warp=warp)
+
+
+@pytest.mark.parametrize("name", ["3d4", "3d16", "2d8", "empty"])
+def test_sweep_screens_equal_a_count_slot_by_slot(name):
+    occ, spec = screen_layout(name)
+    got = fluid.sweep_screens(occ, spec)
+    assert got == slot_by_slot(occ, spec)
+    assert got.partners == fluid.partners(spec)
+    if name == "empty":
+        assert (got.occupied, got.warps, got.lane, got.warp) == (0, 0, 0, 0)
+        return
+    # Holes were made and a band emptied; the warps walk at least what
+    # their lanes need, and the extent walk (16 slots) less than the full
+    # stencil.
+    o = occ > 0.5
+    assert bool((~o[:, :-1] & o[:, 1:]).any())
+    assert got.lane_share < got.warp_share
+    assert (got.warp_share < 1.0) == fluid.extent_walk(spec.k)
+
+
+def test_extents_are_the_highest_occupied_slot_plus_one():
+    occ, spec = screen_layout("3d4", seed=1)
+    ext = fluid.extents(occ)
+    assert ext.shape == (spec.n0, spec.C) and ext.dtype == torch.int32
+    for z, c in [(0, 0), (1, 37), (2, 200), (1, spec.C - 1)]:
+        used = torch.nonzero(occ[z, :, c] > 0.5)
+        assert int(ext[z, c]) == (int(used.max()) + 1 if len(used) else 0)
 
 
 def test_operand_checks_refuse_non_cuda():
